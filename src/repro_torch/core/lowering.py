@@ -1,0 +1,299 @@
+"""Lowering: a :class:`CompiledDataflow` → an executable step runner on
+torch tensors.
+
+The PyTorch counterpart of ``repro/core/lowering.py``.  FIFO edges become
+*fusion groups* exactly as in the reference; which implementation runs a
+group is the same *routing* decision (:mod:`repro_torch.core.routing`):
+producer→consumer chains matching a registered
+:class:`~repro_torch.core.routing.KernelPattern` execute as one
+hand-written kernel step (a CUDA kernel for tensors on the card, its plain
+PyTorch version for tensors on the CPU); everything else runs task by task
+through the op registry.  Group strings keep the reference's
+``pallas:<pattern>`` / ``xla-fused`` names so routing tables compare like
+for like.  ``CODO_DISABLE_PALLAS=1`` turns all routing off.
+
+PyTorch runs eagerly, so there is no ``jit`` step; the program is the
+step list itself.  Sharded lowering is not ported yet.
+
+Lowering results are memoized like compiles: keyed on the compiled graph's
+``structural_hash()`` (which covers the fusion decisions), the routing
+switches of :func:`~repro_torch.core.routing.routing_state_key` for the
+program's backend, and the op-registry epoch.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from collections import OrderedDict
+from dataclasses import dataclass, field
+from typing import Any, Callable
+
+import numpy as np
+
+from .compiler import CompiledDataflow
+from .costmodel import routing_backend
+from .graph import DataflowGraph, GraphError
+from .ops import registry_epoch as _ops_epoch
+from .routing import (XLA_FUSED, RoutedKernel, ensure_kernel_patterns,
+                      fifo_groups, registered_patterns, route_groups,
+                      routing_state_key)
+
+
+@dataclass
+class FusionGroup:
+    gid: int
+    tasks: list[str]
+    ops: tuple[str, ...]
+    kernel: str = XLA_FUSED       # or "pallas:<pattern>[+<pattern>...]"
+    routes: list[RoutedKernel] = field(default_factory=list)
+    # Cost-gate record: structural matches the gate turned down, the
+    # group-level decision, and predicted cycles both ways.
+    rejected: list[RoutedKernel] = field(default_factory=list)
+    decision: str = "generic"     # "routed" | "generic" | "disabled"
+    predicted_routed_cycles: float = 0.0
+    predicted_generic_cycles: float = 0.0
+
+
+@dataclass
+class LoweredProgram:
+    graph: DataflowGraph
+    groups: list[FusionGroup]
+    fn: Callable[[dict], dict]          # env(inputs+weights) -> outputs
+    materialized: list[str] = field(default_factory=list)   # HBM intermediates
+
+    def __call__(self, env: dict[str, Any]) -> dict[str, Any]:
+        return self.fn(env)
+
+    @property
+    def routed_groups(self) -> list[FusionGroup]:
+        return [g for g in self.groups if g.routes]
+
+    def summary(self) -> str:
+        return (f"lowered {self.graph.name}: {len(self.groups)} fusion groups "
+                f"({sum(len(g.tasks) for g in self.groups)} tasks, "
+                f"{len(self.routed_groups)} kernel-routed), "
+                f"{len(self.materialized)} HBM intermediates")
+
+
+def fusion_groups(graph: DataflowGraph, impl: dict[str, str]) -> list[FusionGroup]:
+    """The :func:`~repro_torch.core.routing.fifo_groups` partition as
+    :class:`FusionGroup` records, with each task's ``fused_group`` id set.
+    Routing is a separate decision — see :func:`~repro_torch.core.routing.
+    route_groups`."""
+    groups = []
+    for gid, names in enumerate(fifo_groups(graph, impl)):
+        groups.append(FusionGroup(gid, names,
+                                  tuple(graph.task(n).op for n in names)))
+        for n in names:
+            graph.task(n).fused_group = gid
+    return groups
+
+
+# Memoized lowerings: structural key -> LoweredProgram (LRU).
+_LOWER_CACHE: OrderedDict[tuple, LoweredProgram] = OrderedDict()
+_LOWER_LOCK = threading.Lock()
+LOWER_CACHE_STATS = {"hits": 0, "misses": 0}
+
+
+def _lower_cache_size() -> int:
+    return max(1, int(os.environ.get("CODO_LOWER_CACHE_SIZE", "64")))
+
+
+def clear_lower_cache() -> None:
+    with _LOWER_LOCK:
+        _LOWER_CACHE.clear()
+        LOWER_CACHE_STATS.update(hits=0, misses=0)
+
+
+def _build_steps(graph: DataflowGraph, groups: list[FusionGroup],
+                 use_registered_kernels: bool) -> list[tuple[str, Callable]]:
+    """The executable step list: routed chains become one kernel step
+    emitted at the chain's *last* task position (every external operand of
+    every matched task is in scope by then); everything else runs task by
+    task."""
+    step_at: dict[str, Callable[[dict], dict]] = {}
+    skip: set[str] = set()
+    if use_registered_kernels:
+        pats = {p.name: p for p in registered_patterns()}
+        for g in groups:
+            built: list[RoutedKernel] = []
+            for route in g.routes:
+                pat = pats.get(route.kernel)
+                tasks = [graph.task(n) for n in route.tasks]
+                if pat is None:
+                    step = None
+                elif route.tile is not None:    # tuned blocking wins
+                    step = pat.factory(graph, g, tasks, tile=route.tile)
+                else:
+                    step = pat.factory(graph, g, tasks)
+                if step is None:        # factory declined at build time
+                    continue
+                built.append(route)
+                step_at[route.tasks[-1]] = step
+                skip.update(route.tasks[:-1])
+            if len(built) != len(g.routes):
+                for r in g.routes:
+                    if r not in built:
+                        r.decision = "declined"     # factory said no
+                        g.rejected.append(r)
+                g.routes = built
+                g.kernel = ("pallas:" + "+".join(r.kernel for r in built)
+                            if built else XLA_FUSED)
+                g.decision = "routed" if built else "generic"
+    else:
+        for g in groups:
+            g.routes, g.rejected = [], []
+            g.kernel = XLA_FUSED
+            g.decision = "generic"
+
+    steps: list[tuple[str, Callable[[dict], dict]]] = []
+    for t in graph.toposort():
+        if t.name in skip:
+            continue
+        steps.append((t.name, step_at.get(t.name, t.fn)))
+    return steps
+
+
+def lower(compiled: CompiledDataflow, use_registered_kernels: bool = True, *,
+          memo: bool = True, device=None) -> LoweredProgram:
+    """Lower ``compiled`` for a program on ``device`` (a ``torch.device``
+    or its string; it selects the backend the routing gate prices, see
+    :func:`~repro_torch.core.costmodel.routing_backend`).  The returned
+    program runs on whatever device its env tensors lie on."""
+    # The compiler — not the user — wires the kernels in.
+    ensure_kernel_patterns()
+    graph = compiled.graph
+    stripped = [t.name for t in graph.tasks if t.fn is None]
+    if stripped:
+        raise GraphError(
+            f"cannot lower {graph.name}: {len(stripped)} tasks have no numeric "
+            f"semantics (e.g. {stripped[0]!r}). These tasks were built from "
+            "raw closures (not picklable), so their disk compile-cache entry "
+            "is structural-only; build graphs with declarative OpSpecs "
+            "(repro_torch.core.ops) for executable cache entries, or recompile "
+            "with an in-memory cache / cache=None before lowering.")
+    backend = routing_backend(device)
+    key = (graph.structural_hash(), bool(use_registered_kernels),
+           *routing_state_key(backend), _ops_epoch())
+    if memo:
+        with _LOWER_LOCK:
+            hit = _LOWER_CACHE.get(key)
+            if hit is not None:
+                _LOWER_CACHE.move_to_end(key)
+                LOWER_CACHE_STATS["hits"] += 1
+        if hit is not None:
+            # Mirror the cached fusion decisions onto the caller's graph so
+            # post-lowering introspection (fused_group ids) behaves as if
+            # the lowering had run, then share the built program.
+            for g in hit.groups:
+                for n in g.tasks:
+                    graph.task(n).fused_group = g.gid
+            _record_routing(compiled, hit.groups)
+            return LoweredProgram(graph, hit.groups, hit.fn,
+                                  list(hit.materialized))
+    impl = compiled.buffer_plan.impl if compiled.buffer_plan else {}
+    groups = fusion_groups(graph, impl)
+    if use_registered_kernels:
+        route_groups(graph, groups, impl, hw=compiled.options.hw,
+                     backend=backend)
+    steps = _build_steps(graph, groups, use_registered_kernels)
+
+    outputs = [b.name for b in graph.outputs()]
+    # Interior buffers of routed chains never leave the kernel — even the
+    # ping-pong-planned ones the generic path would bounce through HBM.
+    swallowed = {graph.task(n).writes[0].buffer
+                 for g in groups for r in g.routes for n in r.tasks[:-1]}
+    materialized = [b.name for b in graph.intermediates()
+                    if impl.get(b.name) == "pingpong"
+                    and b.name not in swallowed]
+
+    def program(env: dict) -> dict:
+        scope = dict(env)
+        for _name, f in steps:
+            scope.update(f(scope))
+        return {k: scope[k] for k in outputs}
+
+    out = LoweredProgram(graph, groups, program, materialized)
+    _record_routing(compiled, groups)
+    if memo:
+        with _LOWER_LOCK:
+            LOWER_CACHE_STATS["misses"] += 1
+            _LOWER_CACHE[key] = out
+            _LOWER_CACHE.move_to_end(key)
+            while len(_LOWER_CACHE) > _lower_cache_size():
+                _LOWER_CACHE.popitem(last=False)
+    return out
+
+
+def _record_routing(compiled: CompiledDataflow,
+                    groups: list[FusionGroup]) -> None:
+    """Surface the routing decision on the design's diagnostics so it
+    travels with reports.  Every entry records the cost gate's verdict and
+    the predicted cycles both ways, not just the winning kernel name."""
+    if compiled.diagnostics is not None:
+        compiled.diagnostics.group_kernels = {
+            str(g.gid): {
+                "kernel": g.kernel,
+                "decision": g.decision,
+                "predicted_routed_cycles": round(
+                    g.predicted_routed_cycles, 1),
+                "predicted_generic_cycles": round(
+                    g.predicted_generic_cycles, 1),
+                "routes": [r.to_dict() for r in g.routes],
+                "rejected": [r.to_dict() for r in g.rejected],
+            } for g in groups}
+
+
+def assert_outputs_close(got: dict, want: dict, *, rtol: float, atol: float,
+                         what: str) -> None:
+    """``np.testing.assert_allclose`` on every output in ``want`` (tensors
+    are compared on the host in their own dtype, widened to float32 for
+    bf16)."""
+    for k in want:
+        np.testing.assert_allclose(_host(got[k]), _host(want[k]),
+                                   rtol=rtol, atol=atol,
+                                   err_msg=f"output {k} {what}")
+
+
+def _host(x) -> np.ndarray:
+    import torch
+    if isinstance(x, torch.Tensor):
+        x = x.detach()
+        if x.dtype == torch.bfloat16:
+            x = x.float()
+        return x.cpu().numpy()
+    return np.asarray(x)
+
+
+def oracle_outputs(source_graph: DataflowGraph, env: dict) -> dict:
+    """Run the *un-optimized* program — the golden reference the paper's
+    auto-generated testbench compares against (§VII-C)."""
+    return source_graph.execute(env)
+
+
+def verify_lowering(source_graph: DataflowGraph, compiled: CompiledDataflow,
+                    env: dict, rtol: float = 1e-5, atol: float = 1e-5,
+                    device=None) -> None:
+    """Lowered outputs must match the un-optimized oracle."""
+    got = lower(compiled, device=device)(env)
+    assert_outputs_close(got, oracle_outputs(source_graph, env), rtol=rtol,
+                         atol=atol, what="diverged after lowering")
+
+
+def verify_routing(compiled: CompiledDataflow, env: dict,
+                   rtol: float = 1e-5, atol: float = 1e-5,
+                   device=None) -> LoweredProgram:
+    """Assert the pattern-routed lowering matches the un-routed generic
+    lowering on ``env``.  Returns the routed program."""
+    generic = lower(compiled, use_registered_kernels=False, device=device)
+    routed = lower(compiled, use_registered_kernels=True, device=device)
+    assert_outputs_close(routed(env), generic(env), rtol=rtol, atol=atol,
+                         what="from the kernel-routed path diverged from "
+                              "the generic path")
+    return routed
+
+
+__all__ = ["FusionGroup", "LOWER_CACHE_STATS", "LoweredProgram",
+           "assert_outputs_close", "clear_lower_cache", "fusion_groups",
+           "lower", "oracle_outputs", "verify_lowering", "verify_routing"]

@@ -1,0 +1,608 @@
+"""Declarative op registry: ``Task`` numerics as data, not closures.
+
+The PyTorch counterpart of ``repro/core/ops.py``: the same ``OpSpec``
+records, registry, epochs and VJP table, with torch bodies for the op
+kinds ported so far (identity, dup, fused, matmul, transpose, scale, add,
+softmax, gelu).  Any other kind raises :class:`UnknownOpError` naming it.
+No body writes in place: ``dup`` and ``identity`` alias their input.
+
+Historically every :class:`~repro.core.graph.Task` carried its numeric
+semantics as an opaque Python closure (``fn(env) -> {buf: array}``).  That
+worked, but closures are not picklable, so
+
+* on-disk compile-cache entries came back *stripped* — a cold-restart hit
+  could be costed and verified but never lowered or executed, and
+* the batch ablation driver was confined to thread pools — a ``Task``
+  could not cross a process boundary.
+
+This module replaces closures with an :class:`OpSpec` — a plain-data
+record of *which* op a task computes (operand buffer names, output buffer
+names, and attributes like stride/padding/axis) — plus a registry that
+materializes the matching torch implementation on demand.  ``Task.fn`` is
+now a derived property: tasks that carry a spec re-derive their callable
+after a pickle round-trip, in any process.
+
+OpSpec fields
+-------------
+
+``kind``
+    Registry key naming the implementation (``"conv2d"``, ``"matmul"``,
+    ``"relu"``, ...).  Distinct from ``Task.op``, which is the *pattern
+    class* the passes reason about (a ``"conv2d"`` and a ``"dwconv2d"``
+    spec are both ``op="conv"`` tasks).
+``ins``
+    Operand buffer names, positional.  ``env[ins[i]]`` is the i-th input
+    array at execution time.
+``outs``
+    Output buffer names.  The implementation returns ``{out: array}`` for
+    every name in ``outs``.
+``attrs``
+    Plain-data attributes (ints, floats, bools, strings, tuples thereof):
+    stride, padding, reduction axes, scale factors...  Attributes are part
+    of :meth:`signature` and therefore of
+    ``DataflowGraph.structural_signature()`` — a semantic constant that
+    lives in an attr automatically keys the compile cache, so two graphs
+    differing only in, say, a scale factor never collide.
+``parts``
+    Sub-specs for the composite ``"fused"`` kind (the coarse pass merges
+    multi-producer violations by fusing producers; the fused node's
+    semantics are the parts run in sequence).
+
+Pickling contract
+-----------------
+
+An ``OpSpec`` must contain only plain data: strings, numbers, bools, and
+(nested) tuples/dicts of those, plus child ``OpSpec`` records in
+``parts``.  Never close over arrays, modules, or callables — the whole
+point is that ``pickle.dumps(spec)`` round-trips across interpreters and
+that :meth:`signature` is a stable content address.  Implementations
+(registered callables) stay in *code*, keyed by ``kind``: unpickling a
+spec in a fresh process finds the implementation in the registry of that
+process, so ships of spec'd graphs between processes only require both
+sides to import the same version of this module.
+
+Registering a new op
+--------------------
+
+.. code-block:: python
+
+    from repro_torch.core.ops import OpSpec, register_op
+
+    @register_op("axpy")
+    def _axpy(spec, env):
+        a = spec.attrs.get("a", 1.0)
+        x, y = (env[b] for b in spec.ins)
+        return {spec.outs[0]: a * x + y}
+
+    # builders then attach: Task(..., spec=OpSpec("axpy", (x, y), (out,),
+    #                                             {"a": 2.0}))
+
+Implementations take ``(spec, env)`` and return a dict mapping *every*
+name in ``spec.outs`` to its tensor.  torch imports belong *inside* the
+implementation body — graph construction and the whole compile pipeline
+stay importable without pulling in torch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Callable
+
+# --------------------------------------------------------------------------
+# Spec
+# --------------------------------------------------------------------------
+
+
+class UnknownOpError(KeyError):
+    """Raised when a spec names a kind with no registered implementation."""
+
+
+def _plain(value: Any) -> Any:
+    """Canonical plain-data view of an attr value (lists -> tuples)."""
+    if isinstance(value, (list, tuple)):
+        return tuple(_plain(v) for v in value)
+    return value
+
+
+@dataclass
+class OpSpec:
+    """Declarative numeric semantics of one task — see the module docstring
+    for the field-by-field contract."""
+
+    kind: str
+    ins: tuple[str, ...] = ()
+    outs: tuple[str, ...] = ()
+    attrs: dict[str, Any] = field(default_factory=dict)
+    parts: tuple["OpSpec", ...] = ()
+
+    def __post_init__(self):
+        self.ins = tuple(self.ins)
+        self.outs = tuple(self.outs)
+        self.parts = tuple(self.parts)
+        self.attrs = {k: _plain(v) for k, v in dict(self.attrs).items()}
+
+    # ---- data plumbing ---------------------------------------------------
+    def renamed(self, alias: dict[str, str]) -> "OpSpec":
+        """Pure-data buffer rename: every operand/output name found in
+        ``alias`` maps old -> new, recursively through ``parts``.  This is
+        the declarative replacement for ``retarget_fn``'s env-aliasing
+        closure shim."""
+        return OpSpec(
+            self.kind,
+            tuple(alias.get(b, b) for b in self.ins),
+            tuple(alias.get(b, b) for b in self.outs),
+            dict(self.attrs),
+            tuple(p.renamed(alias) for p in self.parts),
+        )
+
+    def copy(self) -> "OpSpec":
+        return dataclasses.replace(
+            self, attrs=dict(self.attrs),
+            parts=tuple(p.copy() for p in self.parts))
+
+    def buffers(self) -> set[str]:
+        out = set(self.ins) | set(self.outs)
+        for p in self.parts:
+            out |= p.buffers()
+        return out
+
+    # ---- content addressing ----------------------------------------------
+    def signature(self) -> tuple:
+        """Canonical nested-tuple view: feeds
+        ``DataflowGraph.structural_signature()`` so op semantics —
+        including attr constants — key the compile cache."""
+        return (self.kind, self.ins, self.outs,
+                tuple(sorted((k, repr(v)) for k, v in self.attrs.items())),
+                tuple(p.signature() for p in self.parts))
+
+    # ---- JSON serialization (docs/artifact_format.md `spec` object) ------
+    def to_dict(self) -> dict:
+        """Language-neutral JSON view.  Tuples inside ``attrs`` become JSON
+        arrays; :meth:`from_dict` restores them through ``__post_init__``'s
+        canonicalization, so ``from_dict(to_dict(s)).signature() ==
+        s.signature()`` holds for every spec obeying the plain-data
+        contract."""
+        out: dict = {"kind": self.kind, "ins": list(self.ins),
+                     "outs": list(self.outs), "attrs": dict(self.attrs)}
+        if self.parts:
+            out["parts"] = [p.to_dict() for p in self.parts]
+        return out
+
+    @classmethod
+    def from_dict(cls, doc: dict) -> "OpSpec":
+        return cls(doc["kind"], tuple(doc.get("ins", ())),
+                   tuple(doc.get("outs", ())), dict(doc.get("attrs", {})),
+                   tuple(cls.from_dict(p) for p in doc.get("parts", ())))
+
+
+# --------------------------------------------------------------------------
+# Registry
+# --------------------------------------------------------------------------
+
+# kind -> implementation(spec, env) -> {out buffer: array}
+_REGISTRY: dict[str, Callable[[OpSpec, dict], dict]] = {}
+
+# Bumped on every registration so memoized *materialized* programs (e.g.
+# the lower() cache) can detect that an implementation changed underneath
+# them and rebuild instead of serving stale numerics.
+_EPOCH = 0
+
+
+def registry_epoch() -> int:
+    return _EPOCH
+
+
+def register_op(kind: str):
+    """Decorator: register ``fn(spec, env) -> {out: array}`` under ``kind``.
+    Re-registration replaces (kernels may override reference impls)."""
+
+    def deco(fn: Callable[[OpSpec, dict], dict]):
+        global _EPOCH
+        _REGISTRY[kind] = fn
+        _EPOCH += 1
+        return fn
+
+    return deco
+
+
+def registered_ops() -> list[str]:
+    return sorted(_REGISTRY)
+
+
+def op_impl(kind: str) -> Callable[[OpSpec, dict], dict]:
+    try:
+        return _REGISTRY[kind]
+    except KeyError:
+        raise UnknownOpError(
+            f"no implementation registered for op kind {kind!r}; "
+            f"registered: {registered_ops()}") from None
+
+
+def materialize(spec: OpSpec) -> Callable[[dict], dict]:
+    """Build the executable ``env -> {out: array}`` callable for ``spec``.
+
+    Raises :class:`UnknownOpError` eagerly (at materialization, not first
+    call) so a stale spec fails loudly when a cache entry is reloaded."""
+    impl = op_impl(spec.kind)
+
+    def fn(env: dict) -> dict:
+        return impl(spec, env)
+
+    fn.spec = spec  # introspection/debugging: which spec produced this fn
+    return fn
+
+
+# --------------------------------------------------------------------------
+# Torch implementations (lazy torch imports: the registry itself — and
+# everything that builds or compiles graphs — imports without torch).
+# --------------------------------------------------------------------------
+
+
+@register_op("identity")
+def _identity(spec: OpSpec, env: dict) -> dict:
+    return {spec.outs[0]: env[spec.ins[0]]}
+
+
+@register_op("dup")
+def _dup(spec: OpSpec, env: dict) -> dict:
+    """Coarse-pass duplicator: one private stream copy per consumer."""
+    src = env[spec.ins[0]]
+    return {o: src for o in spec.outs}
+
+
+@register_op("fused")
+def _fused(spec: OpSpec, env: dict) -> dict:
+    """Coarse-pass producer fusion: run ``parts`` in order, each seeing the
+    accumulated scope (earlier writes staged and merged, per Fig. 4b)."""
+    out: dict = {}
+    scope = dict(env)
+    for part in spec.parts:
+        r = materialize(part)(scope)
+        scope.update(r)
+        out.update(r)
+    return out
+
+
+@register_op("gelu")
+def _gelu(spec: OpSpec, env: dict) -> dict:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    import torch
+    return {spec.outs[0]: torch.nn.functional.gelu(env[spec.ins[0]],
+                                                   approximate="tanh")}
+
+
+@register_op("add")
+def _add(spec: OpSpec, env: dict) -> dict:
+    return {spec.outs[0]: env[spec.ins[0]] + env[spec.ins[1]]}
+
+
+@register_op("scale")
+def _scale(spec: OpSpec, env: dict) -> dict:
+    return {spec.outs[0]: env[spec.ins[0]] * float(spec.attrs["s"])}
+
+
+@register_op("softmax")
+def _softmax(spec: OpSpec, env: dict) -> dict:
+    import torch
+    axis = int(spec.attrs.get("axis", -1))
+    return {spec.outs[0]: torch.softmax(env[spec.ins[0]], dim=axis)}
+
+
+@register_op("matmul")
+def _matmul(spec: OpSpec, env: dict) -> dict:
+    return {spec.outs[0]: env[spec.ins[0]] @ env[spec.ins[1]]}
+
+
+@register_op("transpose")
+def _transpose(spec: OpSpec, env: dict) -> dict:
+    """2-D transpose by default; an optional ``perm`` attr generalizes to
+    any rank (the frontend emits ``perm=(0, 2, 1)`` for batched operands).
+    Both return a strided view, never a copy."""
+    x = env[spec.ins[0]]
+    perm = spec.attrs.get("perm")
+    if perm is None:
+        perm = tuple(reversed(range(x.dim())))
+    return {spec.outs[0]: x.permute(*(int(p) for p in perm))}
+
+
+# --------------------------------------------------------------------------
+# VJP rules (ISSUE 10): kind -> rule, the same registry discipline as the
+# implementations — rules live in *code* keyed by kind, while everything
+# they emit is plain OpSpec *data* in a second DataflowGraph, so the
+# backward pickles/caches/reloads like any forward graph and the whole
+# pass pipeline (fusion, routing, caching) applies to it unchanged.
+#
+# A rule takes ``(spec, g, b)``:
+#
+# ``spec``
+#     the forward task's OpSpec;
+# ``g``
+#     {out buffer -> cotangent buffer name} for the *live* outputs only
+#     (outputs on a path to the loss; at least one, or the task is
+#     skipped entirely);
+# ``b``
+#     the backward-graph builder (``core.autodiff`` passes its
+#     ``_BwdBuilder``): ``b.shape(name)`` reports a buffer's shape,
+#     ``b.res(name)`` imports a forward buffer as a shared residual, the
+#     op helpers (``b.add/mul/scale/matmul/...``) emit spec'd tasks and
+#     return the produced buffer name.
+#
+# Rules return the input cotangents either as ``{in buffer: cot buffer}``
+# or as a ``[(in buffer, cot buffer)]`` pair list.  The pair list is
+# *required* whenever one buffer can appear in several operand slots
+# (``mul(x, x)``, ``matmul(x, x)``, ...): each pair accumulates
+# separately, a dict would silently drop one term.
+# --------------------------------------------------------------------------
+
+# kind -> rule(spec, g, b) -> {in: cot} | [(in, cot)]
+_VJP_REGISTRY: dict[str, Callable] = {}
+
+
+def register_vjp(kind: str):
+    """Decorator registering a VJP rule for ``kind`` (replace-on-repeat,
+    like :func:`register_op`; does *not* bump the registry epoch — rules
+    never change already-materialized forward numerics)."""
+
+    def deco(fn: Callable):
+        _VJP_REGISTRY[kind] = fn
+        return fn
+
+    return deco
+
+
+def has_vjp(kind: str) -> bool:
+    return kind in _VJP_REGISTRY
+
+
+def differentiable_ops() -> list[str]:
+    return sorted(_VJP_REGISTRY)
+
+
+def vjp_rule(kind: str) -> Callable:
+    try:
+        return _VJP_REGISTRY[kind]
+    except KeyError:
+        raise UnknownOpError(
+            f"no VJP rule registered for op kind {kind!r}; differentiable "
+            f"kinds: {differentiable_ops()}") from None
+
+
+@register_vjp("identity")
+def _identity_vjp(spec, g, b):
+    return {spec.ins[0]: g[spec.outs[0]]}
+
+
+@register_vjp("dup")
+def _dup_vjp(spec, g, b):
+    return {spec.ins[0]: b.add_n([g[o] for o in spec.outs if o in g])}
+
+
+@register_vjp("zeros")
+def _zeros_vjp(spec, g, b):
+    return {}
+
+
+@register_vjp("const")
+def _const_vjp(spec, g, b):
+    return {}
+
+
+def _pad_window_vjp(spec, g, b):
+    p = int(spec.attrs["pad"])
+    x_shape = b.shape(spec.ins[0])
+    starts = (0, 0) + (p,) * (len(x_shape) - 2)
+    return {spec.ins[0]: b.slice(g[spec.outs[0]], starts, x_shape)}
+
+
+register_vjp("pad2d")(_pad_window_vjp)
+register_vjp("fill_interior")(_pad_window_vjp)
+
+
+@register_vjp("conv2d")
+def _conv2d_vjp(spec, g, b):
+    go = g[spec.outs[0]]
+    x, w = spec.ins
+    base = {"stride": int(spec.attrs.get("stride", 1)),
+            "groups": int(spec.attrs.get("groups", 1))}
+    dx = b.emit("conv2d_input_grad", (go, b.res(w)), (b.shape(x),),
+                dict(base, x_shape=b.shape(x)), op="conv",
+                flops=2.0)[0]
+    dw = b.emit("conv2d_weight_grad", (go, b.res(x)), (b.shape(w),),
+                dict(base, w_shape=b.shape(w)), op="conv",
+                flops=2.0)[0]
+    return {x: dx, w: dw}
+
+
+@register_vjp("relu")
+def _relu_vjp(spec, g, b):
+    return {spec.ins[0]: b.ewise(
+        "relu_grad", (g[spec.outs[0]], b.res(spec.ins[0])))}
+
+
+@register_vjp("gelu")
+def _gelu_vjp(spec, g, b):
+    return {spec.ins[0]: b.ewise(
+        "gelu_grad", (g[spec.outs[0]], b.res(spec.ins[0])), flops=12.0)}
+
+
+@register_vjp("add")
+def _add_vjp(spec, g, b):
+    go = g[spec.outs[0]]
+    return [(spec.ins[0], go), (spec.ins[1], go)]
+
+
+@register_vjp("vadd")
+def _vadd_vjp(spec, g, b):
+    go = g[spec.outs[0]]
+    al = float(spec.attrs.get("alpha", 1.0))
+    be = float(spec.attrs.get("beta", 1.0))
+    return [(spec.ins[0], go if al == 1.0 else b.scale(go, al)),
+            (spec.ins[1], go if be == 1.0 else b.scale(go, be))]
+
+
+@register_vjp("scale")
+def _scale_vjp(spec, g, b):
+    return {spec.ins[0]: b.scale(g[spec.outs[0]], float(spec.attrs["s"]))}
+
+
+@register_vjp("affine")
+def _affine_vjp(spec, g, b):
+    a = float(spec.attrs.get("a", 1.0))
+    go = g[spec.outs[0]]
+    return {spec.ins[0]: go if a == 1.0 else b.scale(go, a)}
+
+
+@register_vjp("divc")
+def _divc_vjp(spec, g, b):
+    return {spec.ins[0]: b.divc(g[spec.outs[0]], float(spec.attrs["c"]))}
+
+
+@register_vjp("rdivc")
+def _rdivc_vjp(spec, g, b):
+    # d(c/x)/dx = -c/x^2 = -y^2/c with y the forward output residual.
+    go = g[spec.outs[0]]
+    c = float(spec.attrs["c"])
+    y = b.res(spec.outs[0])
+    return {spec.ins[0]: b.scale(b.mul(go, b.mul(y, y)), -1.0 / c)}
+
+
+@register_vjp("div")
+def _div_vjp(spec, g, b):
+    go = g[spec.outs[0]]
+    y = b.res(spec.outs[0])
+    den = b.res(spec.ins[1])
+    da = b.div(go, den)
+    db = b.scale(b.div(b.mul(go, y), den), -1.0)
+    return [(spec.ins[0], da), (spec.ins[1], db)]
+
+
+@register_vjp("mul")
+def _mul_vjp(spec, g, b):
+    go = g[spec.outs[0]]
+    xa, xb = spec.ins
+    if xa == xb:
+        return [(xa, b.scale(b.mul(go, b.res(xa)), 2.0))]
+    return [(xa, b.mul(go, b.res(xb))), (xb, b.mul(go, b.res(xa)))]
+
+
+@register_vjp("matmul")
+def _matmul_vjp(spec, g, b):
+    go = g[spec.outs[0]]
+    A, B = spec.ins
+    dA = b.matmul(go, b.transpose(b.res(B)))
+    dB = b.matmul(b.transpose(b.res(A)), go)
+    return [(A, dA), (B, dB)]
+
+
+@register_vjp("mv")
+def _mv_vjp(spec, g, b):
+    go = g[spec.outs[0]]
+    A, x = spec.ins
+    trans = bool(spec.attrs.get("trans", False))
+    if trans:                       # y = A.T @ x
+        dA = b.outer(b.res(x), go)
+        dx = b.mv(b.res(A), go, trans=False)
+    else:                           # y = A @ x
+        dA = b.outer(go, b.res(x))
+        dx = b.mv(b.res(A), go, trans=True)
+    return [(A, dA), (x, dx)]
+
+
+@register_vjp("transpose")
+def _transpose_vjp(spec, g, b):
+    # Both emitted perms (2-D T, batched (0, 2, 1)) are self-inverse.
+    return {spec.ins[0]: b.transpose(g[spec.outs[0]])}
+
+
+@register_vjp("reshape")
+def _reshape_vjp(spec, g, b):
+    x_shape = b.shape(spec.ins[0])
+    return {spec.ins[0]: b.emit("reshape", (g[spec.outs[0]],), (x_shape,),
+                                {"shape": x_shape}, op="copy", flops=0.0)[0]}
+
+
+@register_vjp("concat")
+def _concat_vjp(spec, g, b):
+    go = g[spec.outs[0]]
+    if len(spec.ins) == 1:
+        return [(spec.ins[0], go)]
+    axis = int(spec.attrs.get("axis", 0))
+    sizes = tuple(b.shape(i)[axis] for i in spec.ins)
+    return list(zip(spec.ins, b.split(go, sizes, axis)))
+
+
+@register_vjp("split")
+def _split_vjp(spec, g, b):
+    axis = int(spec.attrs.get("axis", 0))
+    pieces = [g[o] if o in g else b.zeros(b.shape(o)) for o in spec.outs]
+    return {spec.ins[0]: b.concat(pieces, axis)}
+
+
+@register_vjp("slice")
+def _slice_vjp(spec, g, b):
+    x_shape = b.shape(spec.ins[0])
+    attrs = {"starts": tuple(int(s) for s in spec.attrs["starts"]),
+             "sizes": tuple(int(s) for s in spec.attrs["sizes"]),
+             "x_shape": x_shape}
+    return {spec.ins[0]: b.emit("slice_grad", (g[spec.outs[0]],),
+                                (x_shape,), attrs, op="copy", flops=0.0)[0]}
+
+
+@register_vjp("softmax")
+def _softmax_vjp(spec, g, b):
+    axis = int(spec.attrs.get("axis", -1))
+    return {spec.ins[0]: b.ewise(
+        "softmax_grad", (g[spec.outs[0]], b.res(spec.outs[0])),
+        {"axis": axis}, flops=4.0)}
+
+
+@register_vjp("maxpool2d")
+def _maxpool2d_vjp(spec, g, b):
+    x = spec.ins[0]
+    x_shape = b.shape(x)
+    return {x: b.emit("maxpool2d_grad", (g[spec.outs[0]], b.res(x)),
+                      (x_shape,), {"k": int(spec.attrs["k"])},
+                      op="pool")[0]}
+
+
+@register_vjp("mean")
+def _mean_vjp(spec, g, b):
+    x_shape = b.shape(spec.ins[0])
+    axes = tuple(int(a) for a in spec.attrs["axes"])
+    return {spec.ins[0]: b.emit("mean_grad", (g[spec.outs[0]],), (x_shape,),
+                                {"axes": axes, "x_shape": x_shape})[0]}
+
+
+@register_vjp("mean_all")
+def _mean_all_vjp(spec, g, b):
+    x_shape = b.shape(spec.ins[0])
+    count = 1
+    for s in x_shape:
+        count *= int(s)
+    scaled = b.divc(g[spec.outs[0]], float(count))
+    return {spec.ins[0]: b.emit("bcast", (scaled,), (x_shape,),
+                                {"shape": x_shape}, op="copy", flops=0.0)[0]}
+
+
+@register_vjp("rglru_scan")
+def _rglru_scan_vjp(spec, g, b):
+    a, bb = spec.ins
+    da, db = b.emit("rglru_scan_grad",
+                    (g[spec.outs[0]], b.res(a), b.res(bb)),
+                    (b.shape(a), b.shape(bb)), op="scan", flops=4.0)
+    return [(a, da), (bb, db)]
+
+
+@register_vjp("ssd_scan")
+def _ssd_scan_vjp(spec, g, b):
+    st, dec = spec.ins
+    ds, dd = b.emit("ssd_scan_grad",
+                    (g[spec.outs[0]], b.res(st), b.res(dec)),
+                    (b.shape(st), b.shape(dec)), op="scan", flops=4.0)
+    return [(st, ds), (dec, dd)]
+
+
+__all__ = ["OpSpec", "UnknownOpError", "differentiable_ops", "has_vjp",
+           "materialize", "op_impl", "register_op", "register_vjp",
+           "registered_ops", "vjp_rule"]

@@ -1,0 +1,185 @@
+"""Shared helpers of the port's kernel families: where a call runs, whether
+a kernel's tiling exists, and how a CUDA source becomes a loaded library.
+
+Where a call runs follows from its operands alone: tensors on a CUDA
+device launch the hand-written kernel, tensors on the CPU run the kernel's
+plain PyTorch version (the same function written with torch ops, kept in
+the kernel's module).  A CUDA call never falls back: it launches or
+raises.
+
+Kernels are CUDA C++ for ``sm_90a`` with a plain C interface, compiled
+with ``nvcc`` at first use into ``build/kernels/`` at the repository root
+and loaded with :mod:`ctypes`.  The library file name carries a hash of
+the sources and flags, so a stale build is never loaded.  Every C entry
+point launches exactly one kernel on the stream it is given and returns
+``cudaGetLastError()``; :meth:`CudaLibrary.launch` raises on a non-zero
+code and counts the launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Sequence
+
+import numpy as np
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# Shared memory one Hopper block may use (dynamic, after opting in with
+# cudaFuncSetAttribute): 227 KB of the SM's 256 KB.
+SMEM_PER_BLOCK = 232448
+
+# ctypes shorthands for C entry-point signatures.
+PTR, INT, INT64, FLOAT = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                          ctypes.c_float)
+
+
+def on_card(*tensors) -> bool:
+    """True when every operand lies on one CUDA device (launch the
+    kernel), False when every operand lies on the CPU (run the plain
+    version).  Anything else raises."""
+    devices = {t.device for t in tensors}
+    if len(devices) == 1:
+        (device,) = devices
+        if device.type == "cuda":
+            return True
+        if device.type == "cpu":
+            return False
+    raise ValueError(f"kernel operands must all lie on one CUDA device or "
+                     f"all on the CPU, got {sorted(map(str, devices))}")
+
+
+def smem_ok(nbytes: int) -> bool:
+    """Whether a block needing ``nbytes`` of shared memory can launch: the
+    check that a kernel's tiling exists for a shape."""
+    return nbytes <= SMEM_PER_BLOCK
+
+
+def all_f32(graph, *bufs) -> bool:
+    return all(np.dtype(graph.buffers[b].dtype) == np.float32 for b in bufs)
+
+
+def dtype_code(t) -> int:
+    """The C entry points' element-type switch: 0 float32, 1 bfloat16."""
+    import torch
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    if t.dtype not in codes:
+        raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}")
+    return codes[t.dtype]
+
+
+def stream_of(t) -> int:
+    """The raw handle of PyTorch's current stream on ``t``'s device."""
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels build with the "
+                       "CUDA toolkit's nvcc (on PATH or under CUDA_HOME)")
+
+
+class CudaLibrary:
+    """One CUDA source under ``csrc/`` built into a shared library.
+
+    ``functions`` maps each exported C entry point to its ctypes argument
+    types; every entry point returns an ``int`` CUDA error code.
+    ``launches`` counts successful :meth:`launch` calls."""
+
+    def __init__(self, source: str, functions: dict[str, Sequence]):
+        self.source = CSRC / source
+        self.functions = dict(functions)
+        self.launches = 0
+        self.build_log = ""
+        self._lib = None
+
+    @property
+    def path(self) -> Path:
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for src in [self.source, *sorted(CSRC.glob("*.cuh"))]:
+            h.update(src.name.encode() + b"\0" + src.read_bytes())
+        return BUILD_DIR / f"{self.source.stem}-{h.hexdigest()[:16]}.so"
+
+    def start_build(self) -> tuple[subprocess.Popen, Path] | None:
+        """Start ``nvcc`` unless the library is already built; pair with
+        :meth:`finish_build`.  Separate halves so several sources build in
+        parallel (:func:`build_all`)."""
+        path = self.path
+        if path.exists():
+            return None
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(self.source)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        return proc, tmp
+
+    def finish_build(self, started) -> None:
+        if started is None:
+            return
+        proc, tmp = started
+        log, _ = proc.communicate()
+        self.build_log = log
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed on {self.source.name} "
+                               f"(exit {proc.returncode}):\n{log}")
+        os.replace(tmp, self.path)
+
+    def load(self) -> ctypes.CDLL:
+        if self._lib is None:
+            self.finish_build(self.start_build())
+            lib = ctypes.CDLL(str(self.path))
+            for name, argtypes in self.functions.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            lib.codo_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.codo_cuda_error_string.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+    def launch(self, name: str, *args) -> None:
+        """Call entry point ``name`` (one kernel launch); raise if it
+        returned a CUDA error, count it otherwise."""
+        lib = self.load()
+        code = getattr(lib, name)(*args)
+        if code != 0:
+            msg = lib.codo_cuda_error_string(code).decode()
+            raise RuntimeError(f"{self.source.name}:{name} failed to launch: "
+                               f"CUDA error {code} ({msg})")
+        self.launches += 1
+
+
+def build_all(libraries: Sequence[CudaLibrary]) -> float:
+    """Build every library not yet built, one ``nvcc`` each, all started
+    together; returns the wall seconds."""
+    t0 = time.perf_counter()
+    started = [(lib, lib.start_build()) for lib in libraries]
+    try:
+        for lib, s in started:
+            lib.finish_build(s)
+    finally:                      # a failed build leaves no nvcc running
+        for _lib, s in started:
+            if s is not None and s[0].poll() is None:
+                s[0].kill()
+                s[0].wait()
+    for lib in libraries:
+        lib.load()
+    return time.perf_counter() - t0

@@ -1,0 +1,172 @@
+"""``codo_torch.compile`` end to end on the CPU against ``codo.compile``.
+
+The same distinct seeded weights are bound in both packages (the
+shape-keyed ``weight_init`` would make wq, wk, wv and wproj equal and hide
+a swapped operand), and the outputs must agree within the reference's
+own ``verify`` band, 1e-5, on the generic path and with both kernel
+chains routed.  Also: the port's own ``verify``, device resolution, the
+entry points not ported yet, and the rule that the port imports neither
+jax nor the JAX package.
+"""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import codo  # noqa: E402
+import codo_torch  # noqa: E402
+from repro.models import dataflow_models as ref_dm  # noqa: E402
+from repro_torch.core.lowering import lower, verify_routing  # noqa: E402
+from repro_torch.kernels.flashattn import LIBRARY as FLASH_LIB  # noqa: E402
+from repro_torch.models import dataflow_models as dm  # noqa: E402
+
+REPO = Path(__file__).resolve().parents[1]
+BAND = dict(rtol=1e-5, atol=1e-5)
+
+
+def _weights(graph, seed=0):
+    rng = np.random.default_rng(seed)
+    return {b.name: (rng.standard_normal(b.shape) / np.sqrt(b.shape[0])
+                     ).astype(np.float32) for b in graph.weights()}
+
+
+def _pair(fn_name, *shapes, seed=0):
+    ours = codo_torch.compile(getattr(dm, fn_name), *shapes, device="cpu")
+    theirs = codo.compile(getattr(ref_dm, fn_name), *shapes)
+    ws = _weights(ours.graph, seed)
+    assert len({w.tobytes() for w in ws.values()}) == len(ws)   # distinct
+    ours.bind(**codo_torch.params_from_numpy(ws, ours.graph, "cpu"))
+    theirs.bind(**ws)
+    return ours, theirs
+
+
+@pytest.mark.parametrize("forced", [False, True])
+def test_gpt2_block_matches_reference(forced, monkeypatch):
+    monkeypatch.delenv("CODO_DISABLE_PALLAS", raising=False)
+    if forced:
+        monkeypatch.setenv("CODO_FORCE_PALLAS", "1")
+    else:
+        monkeypatch.delenv("CODO_FORCE_PALLAS", raising=False)
+    ours, theirs = _pair("gpt2_block_fn", (16, 64))
+    kernels = [g.kernel for g in ours.lower().groups]
+    assert kernels == ([g.kernel for g in theirs.lower(jit=False).groups])
+    if forced:
+        assert kernels == ["pallas:flashattn.mha+streamfuse.mmchain"]
+    else:
+        assert kernels == ["xla-fused"]
+    rng = np.random.default_rng(1)
+    for _ in range(2):
+        x = rng.standard_normal((16, 64)).astype(np.float32)
+        got = ours(x)
+        assert isinstance(got, torch.Tensor) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(theirs(x)), **BAND)
+        ours.verify(x)
+
+
+def test_routed_equals_generic_on_cpu(monkeypatch):
+    monkeypatch.setenv("CODO_FORCE_PALLAS", "1")
+    p = codo_torch.compile(dm.gpt2_block_fn, (16, 64), device="cpu")
+    p.bind(**_weights(p.graph))
+    env = p.make_env(np.random.default_rng(2).standard_normal(
+        (16, 64)).astype(np.float32))
+    routed = verify_routing(p.compiled, env, device="cpu")
+    assert routed.routed_groups
+    assert FLASH_LIB._lib is None          # CPU tensors never build a kernel
+
+
+@pytest.mark.parametrize("fn_name,shapes", [
+    ("gemm_fn", [(24, 16), (16, 20)]),
+    ("three_mm_fn", [(16, 16)] * 4),
+    ("feed_forward_fn", [(16, 32)]),
+    ("multi_head_attention_fn", [(24, 32)]),
+])
+def test_kernel_benches_of_ported_kinds_match_reference(fn_name, shapes,
+                                                        monkeypatch):
+    monkeypatch.setenv("CODO_FORCE_PALLAS", "1")
+    ours, theirs = _pair(fn_name, *shapes)
+    rng = np.random.default_rng(3)
+    xs = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    np.testing.assert_allclose(ours(*xs).numpy(), np.asarray(theirs(*xs)),
+                               **BAND)
+    ours.verify(*xs)
+
+
+def test_memo_key_tracks_routing_switches(monkeypatch):
+    monkeypatch.delenv("CODO_FORCE_PALLAS", raising=False)
+    c = codo_torch.compile(dm.gpt2_block_fn, (16, 64), device="cpu").compiled
+    generic = lower(c, device="cpu")
+    monkeypatch.setenv("CODO_FORCE_PALLAS", "1")
+    forced = lower(c, device="cpu")
+    assert [g.kernel for g in generic.groups] == ["xla-fused"]
+    assert forced.routed_groups and forced.fn is not generic.fn
+    assert lower(c, device="cpu").fn is forced.fn          # memo hit
+
+
+def test_params_from_numpy_takes_declared_dtype():
+    g = dm.gpt2_block(16, 64)
+    w = next(iter(g.weights()))
+    got = codo_torch.params_from_numpy(
+        {w.name: np.ones(w.shape, np.float64)}, g, "cpu")
+    assert got[w.name].dtype == torch.float32
+    assert got[w.name].device == torch.device("cpu")
+    with pytest.raises(ValueError, match="shape"):
+        codo_torch.params_from_numpy({w.name: np.ones((3, 3))}, g, "cpu")
+    with pytest.raises(KeyError):
+        codo_torch.params_from_numpy({"nope": np.ones(3)}, g, "cpu")
+
+
+def test_float64_inputs_bind_at_buffer_dtype():
+    p = codo_torch.compile(dm.gpt2_block_fn, (16, 64), device="cpu")
+    x = np.random.default_rng(4).standard_normal((16, 64))    # float64
+    assert p(x).dtype == torch.float32
+    with pytest.raises(ValueError, match="shape"):
+        p(np.zeros((8, 64)))
+    with pytest.raises(KeyError):
+        p.bind(not_a_buffer=x)
+
+
+def test_default_device_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        codo_torch.compile(dm.gpt2_block_fn, (16, 64))
+    p = codo_torch.compile(dm.gpt2_block_fn, (16, 64), device="cpu")
+    assert p.device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("call", [
+    lambda: codo_torch.compile(dm.gpt2_block_fn, (16, 64), device="cpu",
+                               grad=True),
+    lambda: codo_torch.compile(dm.gpt2_block_fn, (16, 64), device="cpu",
+                               mesh=object()),
+    lambda: codo_torch.compile(dm.gpt2_block_fn, (16, 64), device="cpu",
+                               autotune=True),
+    lambda: codo_torch.compile(dm.gpt2_block_fn, (16, 64),
+                               device="cpu").export("x.json"),
+    lambda: codo_torch.load("x.json"),
+])
+def test_unported_entry_points_name_their_roadmap_item(call):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item"):
+        call()
+
+
+def _imports(path: Path) -> set[str]:
+    out = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            out.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            out.add((node.module or "").split(".")[0])
+    return out
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+    files += [REPO / "src" / "codo_torch.py", REPO / "chip_smoke.py"]
+    assert len(files) > 20
+    for path in files:
+        bad = _imports(path) & {"jax", "jaxlib", "repro", "codo"}
+        assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
