@@ -10,18 +10,26 @@ In order, and failing (non-zero exit, no result line) at the first
 problem:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds every kernel of the main path from ``src/repro_torch/csrc``
+2. builds every kernel of the two paths from ``src/repro_torch/csrc``
    (one ``nvcc`` per source, all started together) and prints the time;
 3. holds each kernel against its plain PyTorch version on the card, at
-   the kernel sweep's shapes and at the main path's own, printing the max
+   the kernel sweep's shapes and at the paths' own, printing the max
    error beside its stated tolerance, and times kernel, plain version,
    bound and a library yardstick;
-4. drives the main path — ``codo_torch.compile(gpt2_block_fn, (S, 1024))``
-   with the default cost gate, distinct seeded weights bound through
-   ``params_from_numpy`` — at S=128 and S=1024: four requests each, the
-   launch counters zeroed just before and read just after, then
+4. drives the serving path — ``codo_torch.compile(gpt2_block_fn, (S,
+   1024))`` with the default cost gate, distinct seeded weights bound
+   through ``params_from_numpy`` — at S=128 and S=1024: four requests
+   each, the launch counters zeroed just before and read just after, then
    ``verify()`` against the task-by-task oracle on the card;
-5. prints the card line, the ``kernels`` JSON line and, last, the
+5. drives the training path — ``codo_torch.compile(gpt2_block_loss_fn,
+   (S, 1024), (S, 1024), grad=True)`` with the default gate, distinct
+   seeded parameters, input and target carried in through
+   ``train_state_from_numpy`` — at S=128 and S=1024: the backward routed
+   to exactly two ``streamfuse.mmgrad`` groups, four ``step()``s with the
+   launch counters zeroed just before and read just after, ``verify()``
+   on the card, and (S=128) one step against the same step of the port
+   on the CPU;
+6. prints the card line, the ``kernels`` JSON line and, last, the
    ``{"ok": true, "device": ...}`` line.
 
 The full record (every check, every timing) goes to
@@ -43,6 +51,7 @@ ROOT = Path(__file__).resolve().parent
 D_MODEL = 1024                  # GPT-2 medium width
 SEQS = (128, 1024)
 REQUESTS = 4
+TRAIN_STEPS = 4
 SEED = 0
 # Published peaks of one H100 SXM (data sheet): float32 outside the tensor
 # cores, and device memory bandwidth.  Both kernels run float32 FMAs.
@@ -58,6 +67,11 @@ TOL = {"f32": 2e-5, "bf16": 2e-2, "f32_wide": 1e-4}
 # N1=4096 run in another order — 1e-5 (the reference's CPU band) is not a
 # bound for that; 1e-4 is ~sqrt(4096)·u·|h|·|w| with headroom.
 VERIFY_BAND = 1e-4
+# The train step's verify() band on the card: the reference's own
+# (repro/api.py CompiledTrainStep.verify), loss and gradients against
+# autograd through the oracle.
+TRAIN_BAND = dict(rtol=2e-3, atol=1e-4)
+MMGRAD = "pallas:streamfuse.mmgrad"
 
 
 def fail(msg: str) -> None:
@@ -201,6 +215,83 @@ def check_chain(record: list) -> None:
           matmul_chain_plain(a, w1, w2, ew=GELU), TOL["bf16"])
 
 
+GELU_GRAD = (("gelu_grad", {}, 0),)
+SOFTMAX_GRAD = (("softmax_grad", {"axis": -1}, 0), ("scale", {"s": C}, None))
+
+
+def grad_route_operands(S: int, g) -> dict:
+    """The two routed backward chains' operands at width D, as the train
+    step hands them over: the FFN's cotangent (S, D) @ W_fc2ᵀ with the
+    gelu input (S, 4D), and the attention's (S, D) @ vᵀ with the softmax
+    output (S, S); W_fc2ᵀ and vᵀ are transposed views."""
+    import torch
+    a = torch.randn(S, D_MODEL, generator=g, device="cuda")
+    w_fc2 = torch.randn(4 * D_MODEL, D_MODEL, generator=g,
+                        device="cuda") / math.sqrt(4 * D_MODEL)
+    fc = torch.randn(S, 4 * D_MODEL, generator=g, device="cuda")
+    v = torch.randn(S, D_MODEL, generator=g, device="cuda")
+    sm = torch.softmax(torch.randn(S, S, generator=g, device="cuda"), -1)
+    return {"ffn": (a, w_fc2.t(), fc, GELU_GRAD),
+            "attn": (a, v.t(), sm, SOFTMAX_GRAD)}
+
+
+def check_grad(record: list) -> None:
+    """fused_matmul_grad against matmul_grad_plain: each tail kind, ragged
+    M/N/K, transposed w, a transposed a with an expand-view extra, float32
+    and bfloat16, and the route's own shapes."""
+    import torch
+    from repro_torch.kernels.streamfuse import (fused_matmul_grad,
+                                                matmul_grad_plain)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    tails = {"relu_grad": ((("relu_grad", {}, 0),), "x"),
+             "gelu_grad+affine": ((("gelu_grad", {}, 0),
+                                   ("affine", {"a": -1.0, "b": 0.5}, None)),
+                                  "x"),
+             "softmax_grad+scale": (SOFTMAX_GRAD, "y"),
+             "divc+softmax_grad+affine+rdivc+relu_grad": (
+                 (("divc", {"c": 3.0}, None),
+                  ("softmax_grad", {"axis": -1}, 0),
+                  ("affine", {"a": 1.0, "b": 4.0}, None),
+                  ("rdivc", {"c": 2.0}, None), ("relu_grad", {}, 1)), "yx"),
+             "softmax_grad x2+gelu": ((("softmax_grad", {}, 0),
+                                       ("softmax_grad", {}, 0),
+                                       ("gelu", {}, None)), "y")}
+    for M, K, N in [(100, 96, 200), (37, 50, 130), (128, 1024, 64)]:
+        for w_t in (False, True):
+            a = rn(M, K) * 0.3
+            w = (rn(N, K).t() if w_t else rn(K, N)) * 0.3
+            x = rn(M, N)
+            ex = {"x": x, "y": torch.softmax(x, -1)}
+            for name, (ew, kinds) in tails.items():
+                extras = [ex[k] for k in kinds]
+                check(record, f"mmgrad {M}x{K}x{N}{' wT' if w_t else ''} "
+                      f"{name}", fused_matmul_grad(a, w, *extras, ew=ew),
+                      matmul_grad_plain(a, w, *extras, ew=ew), TOL["f32"])
+    a, w, e = rn(96, 100).t(), rn(96, 72), rn(1, 72).expand(100, 72)
+    ew = (("relu_grad", {}, 0), ("scale", {"s": 2.0}, None))
+    check(record, "mmgrad aT 100x96x72 expand extra relu_grad",
+          fused_matmul_grad(a, w, e, ew=ew),
+          matmul_grad_plain(a, w, e, ew=ew), TOL["f32"])
+    for name, (ew, kinds) in [("gelu_grad", (GELU_GRAD, "x")),
+                              ("softmax_grad+scale", (SOFTMAX_GRAD, "y"))]:
+        a = (rn(128, 256) * 0.3).bfloat16()
+        w = (rn(512, 256) * 0.3).bfloat16().t()
+        x = rn(128, 512)
+        e = (torch.softmax(x, -1) if kinds == "y" else x).bfloat16()
+        check(record, f"mmgrad 128x256x512 wT {name} bf16",
+              fused_matmul_grad(a, w, e, ew=ew),
+              matmul_grad_plain(a, w, e, ew=ew), TOL["bf16"])
+    for S in SEQS:
+        for chain, (a, w, e, ew) in grad_route_operands(S, g).items():
+            check(record, f"mmgrad route {chain} {S}x{D_MODEL}x"
+                  f"{w.shape[1]}", fused_matmul_grad(a, w, e, ew=ew),
+                  matmul_grad_plain(a, w, e, ew=ew), TOL["f32_wide"])
+
+
 def measure_kernels(S: int, record: dict) -> dict:
     """Kernel, plain and library times at the main path's shapes for S,
     with the max error there."""
@@ -208,7 +299,9 @@ def measure_kernels(S: int, record: dict) -> dict:
     from repro_torch.kernels.flashattn import (flash_attention,
                                                flash_attention_plain)
     from repro_torch.kernels.streamfuse import (fused_matmul_chain,
-                                                matmul_chain_plain)
+                                                fused_matmul_grad,
+                                                matmul_chain_plain,
+                                                matmul_grad_plain)
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     iters = 20 if S <= 128 else 5
     out = {}
@@ -245,8 +338,29 @@ def measure_kernels(S: int, record: dict) -> dict:
                             + S * D_MODEL))
     out["mmchain"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
                           bound_by=by, library_ms=library)
+
+    for chain, (a, w, e, ew) in grad_route_operands(S, g).items():
+        M, K, N = a.shape[0], a.shape[1], w.shape[1]
+        err = check(record["checks"], f"mmgrad route {chain} {M}x{K}x{N}",
+                    fused_matmul_grad(a, w, e, ew=ew),
+                    matmul_grad_plain(a, w, e, ew=ew), TOL["f32_wide"])
+        ms, plain = in_turns(lambda: matmul_grad_plain(a, w, e, ew=ew),
+                             lambda: fused_matmul_grad(a, w, e, ew=ew), iters)
+        if chain == "ffn":
+            def library_grad():
+                return torch.ops.aten.gelu_backward(a @ w, e,
+                                                    approximate="tanh")
+        else:
+            def library_grad():
+                return torch._softmax_backward_data(
+                    a @ w, e, -1, torch.float32) * C
+        library = time_ms(library_grad, iters)
+        b, by = bound_ms(2.0 * M * N * K, 4.0 * (M * K + K * N + 2 * M * N))
+        out[f"mmgrad_{chain}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                      bound_ms=b, bound_by=by,
+                                      library_ms=library)
     for name, m in out.items():
-        print(f"  S={S} {name:<8s} kernel {m['ms']:.4f} ms  plain "
+        print(f"  S={S} {name:<11s} kernel {m['ms']:.4f} ms  plain "
               f"{m['plain_ms']:.4f} ms  library {m['library_ms']:.4f} ms  "
               f"bound {m['bound_ms']:.4f} ms ({m['bound_by']})")
     return out
@@ -321,22 +435,22 @@ def main_path(S: int, record: dict) -> dict:
         if not cpu_err <= VERIFY_BAND * (1 + float(outs[0].abs().max())):
             fail(f"S={S}: card and CPU disagree ({cpu_err:.3e})")
         result["cpu_max_abs_err"] = cpu_err
-    result["profile"] = profile_request(program, xs[2])
+    env = program.make_env(xs[2])
+    run = program.lower()
+    result["profile"] = profile_device(lambda: run(env))
     return result
 
 
-def profile_request(program, x) -> list:
-    """Device time by kernel name over one request (torch.profiler; a
-    second try when the first records no device activity)."""
+def profile_device(run) -> list:
+    """Device time by kernel name over one call of ``run`` (torch.profiler;
+    a second try when the first records no device activity)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    env = program.make_env(x)
-    run = program.lower()
     rows: list = []
     for _ in range(2):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            run(env)
+            run()
             torch.cuda.synchronize()
         for e in prof.key_averages():
             dev = getattr(e, "device_time_total", None)
@@ -354,6 +468,143 @@ def profile_request(program, x) -> list:
           + "; ".join(f"{r['name'][:40]} {r['device_us']:.1f} us"
                       for r in rows[:6]))
     return rows
+
+
+def _to_host(tree):
+    """Every tensor of a nest of dicts and tuples, copied to the host."""
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to_host(v) for v in tree)
+    return tree.detach().cpu()
+
+
+def _close(name: str, got, want, rtol: float, atol: float) -> float:
+    import torch
+    err = max_err(got, want)
+    if not bool(torch.allclose(got.float(), want.float(), rtol=rtol,
+                               atol=atol)):
+        fail(f"{name}: card and CPU disagree (max abs err {err:.3e}, "
+             f"rtol {rtol:.0e}, atol {atol:.1e})")
+    return err
+
+
+def train_path(S: int) -> dict:
+    """codo_torch.compile(gpt2_block_loss_fn, (S, D), (S, D), grad=True)
+    with the default gate: the backward routed to exactly two mmgrad
+    groups; a warm step, then four steps with the launch counters zeroed
+    just before and read just after; verify() on the card; and (S=128)
+    one step against the same step of the port on the CPU."""
+    import numpy as np
+    import torch
+
+    import codo_torch
+    from repro_torch.kernels.flashattn import LIBRARY as FLASH
+    from repro_torch.kernels.streamfuse import GRAD_LIBRARY as GRAD
+    from repro_torch.kernels.streamfuse import LIBRARY as CHAIN
+    from repro_torch.kernels.streamfuse.chain import grad_launches
+    from repro_torch.models.dataflow_models import gpt2_block_loss_fn
+
+    t0 = time.perf_counter()
+    step = codo_torch.compile(gpt2_block_loss_fn, (S, D_MODEL), (S, D_MODEL),
+                              grad=True)
+    groups = {ph: [g.kernel for g in getattr(step, ph).lower().groups
+                   if g.routes]
+              for ph in ("forward", "backward", "update")}
+    compile_s = time.perf_counter() - t0
+    if groups != {"forward": [], "backward": [MMGRAD, MMGRAD], "update": []}:
+        fail(f"S={S}: expected exactly two {MMGRAD} groups in the backward "
+             f"and none elsewhere, got {groups}")
+    rng = np.random.default_rng(SEED + 10 + S)
+    params = {b.name: (rng.standard_normal(b.shape) / math.sqrt(b.shape[0])
+                       ).astype(np.float32) for b in step.source.weights()}
+    if len({w.tobytes() for w in params.values()}) != len(params):
+        fail("train parameters are not distinct")
+    zero = {"m": {w: np.zeros_like(v) for w, v in params.items()},
+            "v": {w: np.zeros_like(v) for w, v in params.items()},
+            "step": np.zeros((), np.int32)}
+    x, target = (rng.standard_normal((S, D_MODEL)).astype(np.float32)
+                 for _ in range(2))
+    p, s = codo_torch.train_state_from_numpy(params, zero, step)
+    xt, tt = (torch.as_tensor(v, device="cuda") for v in (x, target))
+    p1, s1, m1 = step.step(p, s, xt, tt)           # warm (allocator, libs)
+    torch.cuda.synchronize()
+
+    FLASH.launches = CHAIN.launches = GRAD.launches = 0
+    walls, metrics = [], []
+    q, u = p1, s1
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        q, u, m = step.step(q, u, xt, tt)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t))
+        metrics.append(m)
+    launches = {"flash": FLASH.launches, "mmchain": CHAIN.launches,
+                "mmgrad": GRAD.launches}
+
+    per_step = (grad_launches(S, 4 * D_MODEL, D_MODEL, GELU_GRAD)
+                + grad_launches(S, S, D_MODEL, SOFTMAX_GRAD))
+    if launches["mmgrad"] != TRAIN_STEPS * per_step:
+        fail(f"S={S}: the mmgrad kernel launched {launches['mmgrad']} "
+             f"times in {TRAIN_STEPS} steps, expected {TRAIN_STEPS} x "
+             f"{per_step}")
+    values = {k: [float(m[k]) for m in metrics] for k in metrics[0]}
+    if not all(math.isfinite(v) for vs in values.values() for v in vs):
+        fail(f"S={S}: non-finite metrics {values}")
+    if int(u["step"]) != 1 + TRAIN_STEPS:
+        fail(f"S={S}: step counter {int(u['step'])}")
+    for w in step.param_names:
+        if not bool(torch.isfinite(q[w]).all()) or bool((q[w] == p[w]).all()):
+            fail(f"S={S}: parameter {w} not finite or not updated")
+    step.verify(xt, tt, params=p, **TRAIN_BAND)
+    print(f"  S={S}: backward groups {groups['backward']}; {TRAIN_STEPS} "
+          f"steps, wall {', '.join(f'{w:.3f}' for w in walls)} ms; "
+          f"launches {launches}; loss {values['loss'][0]:.6f} -> "
+          f"{values['loss'][-1]:.6f}; verify within rtol "
+          f"{TRAIN_BAND['rtol']:.0e} / atol {TRAIN_BAND['atol']:.0e}")
+    result = {"S": S, "groups": groups, "compile_s": compile_s,
+              "step_ms": walls, "launches": launches,
+              "launches_per_step": per_step, "metrics": values,
+              "verify_band": TRAIN_BAND}
+    if S == SEQS[0]:
+        result["cpu"] = train_card_vs_cpu(S, params, zero, x, target,
+                                          (p1, s1, m1))
+    result["profile"] = profile_device(lambda: step.step(q, u, xt, tt))
+    return result
+
+
+def train_card_vs_cpu(S: int, params, zero, x, target, card) -> dict:
+    """The first step from the same state on the card and by the port on
+    the CPU (plain versions).  Bands: loss and gradients carry the verify
+    band's rtol 2e-3 (the card's kernels and cuBLAS sum in other orders);
+    m = 0.1·g inherits it, v = 0.05·g² twice over; a parameter moves by
+    at most lr·(1 + wd·|p|) in one step, so two runs whose moments agree
+    that far give parameters within 2·lr."""
+    import codo_torch
+    from repro_torch.models.dataflow_models import gpt2_block_loss_fn
+    cpu = codo_torch.compile(gpt2_block_loss_fn, (S, D_MODEL), (S, D_MODEL),
+                             grad=True, device="cpu")
+    p, s = codo_torch.train_state_from_numpy(params, zero, cpu)
+    want = cpu.step(p, s, x, target)
+    (cp, cs, cm), (wp, ws, wm) = _to_host(card), want
+    lr = float(wm["lr"])
+    errs = {"loss": _close("loss", cm["loss"], wm["loss"], 2e-3, 0.0),
+            "grad_norm": _close("grad_norm", cm["grad_norm"],
+                                wm["grad_norm"], 2e-3, 0.0),
+            "lr": _close("lr", cm["lr"], wm["lr"], 1e-6, 0.0)}
+    for w in cpu.param_names:
+        errs[f"p {w}"] = _close(f"p {w}", cp[w], wp[w], 0.0, 2 * lr)
+        errs[f"m {w}"] = _close(f"m {w}", cs["m"][w], ws["m"][w], 2e-3, 1e-5)
+        errs[f"v {w}"] = _close(f"v {w}", cs["v"][w], ws["v"][w], 4e-3, 1e-9)
+    if not int(cs["step"]) == int(ws["step"]) == 1:
+        fail("step counters disagree")
+    worst = {k: max(v for n, v in errs.items() if n.split()[0] == k)
+             for k in ("p", "m", "v")}
+    print(f"  S={S}: one step, card vs the port on the CPU: loss "
+          f"{errs['loss']:.3e}, grad_norm {errs['grad_norm']:.3e}, lr "
+          f"{errs['lr']:.1e}; max abs err params {worst['p']:.3e} (atol "
+          f"{2 * lr:.1e}), m {worst['m']:.3e}, v {worst['v']:.3e}")
+    return {"max_abs_err": errs}
 
 
 def main() -> int:
@@ -378,7 +629,8 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
 
     from repro_torch.kernels import common, flashattn, streamfuse
-    libs = {"flash": flashattn.LIBRARY, "mmchain": streamfuse.LIBRARY}
+    libs = {"flash": flashattn.LIBRARY, "mmchain": streamfuse.LIBRARY,
+            "mmgrad": streamfuse.GRAD_LIBRARY}
     build_s = common.build_all(list(libs.values()))
     print(f"build: {build_s:.1f} s for {len(libs)} kernels (nvcc, parallel)")
     for lib in libs.values():
@@ -390,6 +642,7 @@ def main() -> int:
     print("kernels against their plain versions:")
     check_flash(record["checks"])
     check_chain(record["checks"])
+    check_grad(record["checks"])
     measured = {}
     for S in SEQS:
         measured[S] = measure_kernels(S, record)
@@ -398,18 +651,31 @@ def main() -> int:
     print("main path: codo_torch.compile(gpt2_block_fn, (S, 1024)):")
     runs = {S: main_path(S, record) for S in SEQS}
     record["main_path"] = {str(s): r for s, r in runs.items()}
+    print("train path: codo_torch.compile(gpt2_block_loss_fn, (S, 1024), "
+          "(S, 1024), grad=True):")
+    trains = {S: train_path(S) for S in SEQS}
+    record["train_path"] = {str(s): r for s, r in trains.items()}
 
+    # (entry name, measured key, source, the TPU kernel, launches of the
+    # kernel in its path's run: the mmgrad count covers both chains)
+    grad = ("src/repro_torch/csrc/chain_grad.cu",
+            "src/repro/kernels/streamfuse/chain.py:125")
     source = {"flash": ("flash_attention", "src/repro_torch/csrc/flashattn.cu",
                         "src/repro/kernels/flashattn/flashattn.py:96"),
               "mmchain": ("fused_matmul_chain", "src/repro_torch/csrc/chain.cu",
-                          "src/repro/kernels/streamfuse/chain.py:79")}
+                          "src/repro/kernels/streamfuse/chain.py:79"),
+              "mmgrad_ffn": ("fused_matmul_grad/ffn", *grad),
+              "mmgrad_attn": ("fused_matmul_grad/attn", *grad)}
     entries = []
     for S in SEQS:
         for key, (fn, src, replaces) in source.items():
             m = measured[S][key]
+            launches = (trains[S]["launches"]["mmgrad"]
+                        if key.startswith("mmgrad")
+                        else runs[S]["launches"][key])
             entries.append({
                 "name": f"{fn}[S={S}]", "route": "cuda", "source": src,
-                "replaces": replaces, "launches": runs[S]["launches"][key],
+                "replaces": replaces, "launches": launches,
                 "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                 "bound_by": m["bound_by"], "library_ms": m["library_ms"]})

@@ -12,12 +12,16 @@ port of the ``codo`` frontend (``src/codo.py``):
     program = codo_torch.compile(model, (64, 512))            # on the card
     y = program(x_tensor)
     cpu = codo_torch.compile(model, (64, 512), device="cpu")  # on the CPU
+
+    step = codo_torch.compile(loss_fn, (64, 512), (64, 512), grad=True)
+    params, state, metrics = step.step(params, state, x, target)
 """
 
-from repro_torch.api import (CodoOptions, CompiledProgram, F,  # noqa: F401
-                             ShapedBuffer, TraceError, buffer, compile, load,
-                             params_from_numpy, trace)
+from repro_torch.api import (CodoOptions, CompiledProgram,  # noqa: F401
+                             CompiledTrainStep, F, ShapedBuffer, TraceError,
+                             buffer, compile, load, params_from_numpy, trace,
+                             train_state_from_numpy)
 
-__all__ = ["CodoOptions", "CompiledProgram", "F", "ShapedBuffer",
-           "TraceError", "buffer", "compile", "load", "params_from_numpy",
-           "trace"]
+__all__ = ["CodoOptions", "CompiledProgram", "CompiledTrainStep", "F",
+           "ShapedBuffer", "TraceError", "buffer", "compile", "load",
+           "params_from_numpy", "trace", "train_state_from_numpy"]

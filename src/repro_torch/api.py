@@ -30,9 +30,15 @@ device.  Unbound weights fall back to the shape-keyed
 :meth:`CompiledProgram.bind`, or carry a reference run's numpy weights
 across with :func:`params_from_numpy`.
 
+``compile(fn, *specs, grad=True)`` differentiates a scalar-loss function
+instead and returns a :class:`CompiledTrainStep`: forward, backward and
+AdamW-update graphs, each through the same pipeline, running on the
+program's device (:func:`train_state_from_numpy` carries a reference
+run's parameters and optimizer state across).
+
 Not ported yet, each raising :class:`NotImplementedError` with its
-``ROADMAP.md`` item: ``grad=`` (Queue 1 item 5), artifacts —
-``export``/``load`` (item 6), ``autotune=`` (item 9), ``mesh=`` (item 11).
+``ROADMAP.md`` item: artifacts — ``export``/``load`` (Queue 1 item 6),
+``autotune=`` (item 9), ``mesh=`` (item 11).
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from typing import Any, Callable, Sequence
 import numpy as np
 
 from repro_torch.core import frontend
+from repro_torch.core.autodiff import TrainGraphs, build_train_graphs
 from repro_torch.core.compiler import (CodoOptions, CompiledDataflow, _UNSET,
                                        codo_opt)
 from repro_torch.core.graph import DataflowGraph
@@ -236,6 +243,15 @@ class CompiledProgram:
                              rtol=rtol, atol=atol,
                              what="diverged after lowering")
 
+    # ---- autodiff --------------------------------------------------------
+    def value_and_grad(self, *, opt=None, wrt=None) -> "CompiledTrainStep":
+        """Differentiate this program's source graph and compile the
+        forward/backward/update triple through the same pass pipeline —
+        the method form of ``compile(fn, ..., grad=True)``."""
+        return _compile_train_step(self.source, self.device,
+                                   options=self.compiled.options, opt=opt,
+                                   wrt=wrt)
+
     # ---- not ported yet --------------------------------------------------
     def autotune(self, **_kw):
         raise _not_ported("autotune", "item 9")
@@ -249,10 +265,205 @@ def _io_from_graph(graph: DataflowGraph) -> tuple[list[str], list[str]]:
             [b.name for b in graph.outputs()])
 
 
+class CompiledTrainStep:
+    """A training step compiled end to end through the pass pipeline, on
+    one device.
+
+    Three linked :class:`CompiledProgram`\\ s — ``forward`` (loss +
+    residuals), ``backward`` (cotangent walk, built by
+    :mod:`repro_torch.core.autodiff`), ``update`` (AdamW + global-norm
+    clip + warmup-cosine schedule as registry ops) — each through fusion,
+    violation elimination, cost-gated kernel routing and the compile
+    cache.  The backward's matmul → gradient-epilogue chains route to the
+    ``streamfuse.mmgrad`` kernel when the cost gate approves (or under
+    ``CODO_FORCE_PALLAS=1``).
+
+    Every value lives on the program's device: residuals pass from the
+    forward to the backward as tensors, optimizer state is tensors, and
+    :meth:`step` returns its metrics as 0-d tensors without a host sync.
+    """
+
+    def __init__(self, source: DataflowGraph, graphs: TrainGraphs,
+                 forward: CompiledProgram, backward: CompiledProgram,
+                 update: CompiledProgram):
+        self.source = source            # pre-pass loss graph (the oracle)
+        self.graphs = graphs
+        self.forward = forward
+        self.backward = backward
+        self.update = update
+        self.device = forward.device
+        self.input_names = [b.name for b in source.inputs()]
+        self.param_names = list(graphs.params)
+
+    # ---- state -----------------------------------------------------------
+    def init_params(self) -> dict:
+        """Deterministic initial parameters (shape-keyed ``weight_init``)
+        as tensors on the device."""
+        names = set(self.param_names)
+        return {b.name: _as_buffer_tensor(
+                    b, frontend.weight_init(b.shape, b.dtype), self.device)
+                for b in self.source.weights() if b.name in names}
+
+    def init_opt_state(self, params: dict | None = None) -> dict:
+        """Fresh AdamW state, zeros on the device, in the reference's
+        format: ``{"m": {...}, "v": {...}, "step": int32 scalar}``."""
+        import torch
+        shapes = {w: tuple(self.source.buffers[w].shape)
+                  for w in self.param_names}
+        if params is not None:
+            shapes = {w: tuple(params[w].shape) for w in self.param_names}
+
+        def zeros():
+            return {w: torch.zeros(s, dtype=torch.float32, device=self.device)
+                    for w, s in shapes.items()}
+
+        return {"m": zeros(), "v": zeros(),
+                "step": torch.zeros((), dtype=torch.int32, device=self.device)}
+
+    # ---- execution -------------------------------------------------------
+    def value_and_grad(self, *arrays, params: dict | None = None, **named):
+        """Run the compiled forward and backward graphs; returns ``(loss,
+        grads)``: the (1, 1) loss tensor and the gradients keyed by
+        parameter name."""
+        import torch
+        g = self.graphs
+        params = dict(params) if params is not None else self.init_params()
+        fenv = self.forward.make_env(*arrays, **params, **named)
+        fouts = self.forward.lower()(fenv)
+        benv = {g.seeds[g.loss]: torch.ones((1, 1), dtype=torch.float32,
+                                            device=self.device)}
+        for r in g.residuals:
+            benv[r] = fouts[r] if r in fouts else fenv[r]
+        bouts = self.backward.lower()(self.backward.make_env(**benv))
+        grads = {w: bouts[g.grads[w]] for w in self.param_names}
+        return fouts[g.loss], grads
+
+    def step(self, params: dict, opt_state: dict, *arrays, **named):
+        """One full training step: forward, backward, AdamW update.
+        Returns ``(new_params, new_opt_state, metrics)``; metrics carries
+        0-d tensors ``loss``, ``grad_norm`` and ``lr``.  No host sync."""
+        import torch
+        loss, grads = self.value_and_grad(*arrays, params=params, **named)
+        step = torch.as_tensor(opt_state["step"], device=self.device)
+        uenv = {"step": step.to(torch.float32).reshape(1, 1)}
+        for w in self.param_names:
+            uenv[w] = params[w]
+            uenv[f"grad_{w}"] = grads[w]
+            uenv[f"m_{w}"] = opt_state["m"][w]
+            uenv[f"v_{w}"] = opt_state["v"][w]
+        uouts = self.update.lower()(self.update.make_env(**uenv))
+        new_params = {w: uouts[f"new_{w}"] for w in self.param_names}
+        new_state = {"m": {w: uouts[f"new_m_{w}"] for w in self.param_names},
+                     "v": {w: uouts[f"new_v_{w}"] for w in self.param_names},
+                     "step": uouts["new_step"].reshape(()).to(torch.int32)}
+        metrics = {"loss": loss.reshape(()),
+                   "grad_norm": uouts["grad_norm"].reshape(()),
+                   "lr": uouts["lr"].reshape(())}
+        return new_params, new_state, metrics
+
+    def verify(self, *arrays, params: dict | None = None,
+               rtol: float = 2e-3, atol: float = 1e-4, **named) -> None:
+        """Check the compiled loss and gradients against
+        ``torch.autograd.grad`` through the source graph executed task by
+        task (the oracle), on the same device, within the reference's
+        band."""
+        import torch
+        g = self.graphs
+        params = dict(params) if params is not None else self.init_params()
+        loss, grads = self.value_and_grad(*arrays, params=params, **named)
+        env = self.forward.make_env(*arrays, **params, **named)
+        leaves = [env[w].detach().clone().requires_grad_(True)
+                  for w in self.param_names]
+        env.update(zip(self.param_names, leaves))
+        ref_loss = self.source.execute(env)[g.loss].reshape(())
+        ref_grads = torch.autograd.grad(ref_loss, leaves, allow_unused=True)
+        np.testing.assert_allclose(
+            _host(loss).reshape(()), _host(ref_loss), rtol=rtol, atol=atol,
+            err_msg="loss diverged from torch.autograd through the oracle")
+        for w, leaf, ref in zip(self.param_names, leaves, ref_grads):
+            np.testing.assert_allclose(
+                _host(grads[w]),
+                _host(torch.zeros_like(leaf) if ref is None else ref),
+                rtol=rtol, atol=atol,
+                err_msg=f"grad {w} diverged from torch.autograd through "
+                        f"the oracle")
+
+    # ---- introspection and tooling ---------------------------------------
+    def report(self) -> str:
+        lines = [f"train step {self.source.name}: "
+                 f"{len(self.param_names)} params, "
+                 f"{len(self.graphs.residuals)} residuals"]
+        for tag, p in (("forward", self.forward), ("backward", self.backward),
+                       ("update", self.update)):
+            lines.append(f"-- {tag} " + "-" * max(1, 60 - len(tag)))
+            lines.append(p.report())
+        return "\n".join(lines)
+
+    def __repr__(self) -> str:
+        return (f"<CompiledTrainStep {self.source.name} "
+                f"params={len(self.param_names)} on {self.device} "
+                f"fwd={len(self.forward.graph.tasks)}t "
+                f"bwd={len(self.backward.graph.tasks)}t "
+                f"upd={len(self.update.graph.tasks)}t>")
+
+    def autotune(self, **_kw):
+        raise _not_ported("autotune of a train step", "item 9")
+
+    def export(self, *_a, **_kw):
+        raise _not_ported("train-step artifact export", "item 6")
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().float().cpu().numpy()
+
+
+def _compile_train_step(source: DataflowGraph, device, *, options=None,
+                        cache=_UNSET, opt=None, wrt=None,
+                        **codo_kwargs) -> CompiledTrainStep:
+    graphs = build_train_graphs(source, oc=opt, wrt=wrt)
+    progs = []
+    for phase in (graphs.forward, graphs.backward, graphs.update):
+        compiled = codo_opt(phase, options, cache=cache, **codo_kwargs)
+        progs.append(CompiledProgram(phase, compiled, *_io_from_graph(phase),
+                                     device))
+    return CompiledTrainStep(source, graphs, *progs)
+
+
+def train_state_from_numpy(params: dict[str, Any], opt_state: dict,
+                           step: CompiledTrainStep, device=None):
+    """A reference run's numpy parameters and its ``{"m", "v", "step"}``
+    AdamW state as the port's: tensors on ``device`` (the step's own by
+    default), parameters at their declared dtype, moments float32, the
+    counter an int32 scalar.  Returns ``(params, opt_state)``, ready for
+    :meth:`CompiledTrainStep.step`, which then takes the reference's step
+    from the same state."""
+    import torch
+    device = step.device if device is None else torch.device(device)
+    missing = sorted(set(step.param_names) - set(params))
+    if missing:
+        raise KeyError(f"parameters missing: {missing}")
+    out = params_from_numpy(params, step.source, device)
+
+    def moments(key):
+        got = {}
+        for w in step.param_names:
+            value = np.asarray(opt_state[key][w], np.float32)
+            if value.shape != tuple(out[w].shape):
+                raise ValueError(f"{key}[{w!r}] has shape {value.shape}, "
+                                 f"the parameter {tuple(out[w].shape)}")
+            got[w] = torch.as_tensor(value, device=device)
+        return got
+
+    counter = np.asarray(opt_state["step"]).astype(np.int32).reshape(())
+    return out, {"m": moments("m"), "v": moments("v"),
+                 "step": torch.as_tensor(counter, device=device)}
+
+
 def compile(fn: Callable | DataflowGraph, *specs,  # noqa: A001 — the API name
             device=None, options: CodoOptions | None = None,
             name: str | None = None, cache=_UNSET, autotune: bool = False,
-            mesh=None, grad: bool = False, **codo_kwargs) -> CompiledProgram:
+            mesh=None, grad: bool = False, opt=None, wrt=None,
+            **codo_kwargs) -> "CompiledProgram | CompiledTrainStep":
     """Trace ``fn`` over ``specs`` (shape tuples / :func:`buffer` protos)
     and compile it through the ``codo_opt`` pipeline for ``device``
     (CUDA when ``None``; see :func:`resolve_device`).
@@ -262,8 +473,6 @@ def compile(fn: Callable | DataflowGraph, *specs,  # noqa: A001 — the API name
     ``cache=None`` disables memoization for this call.  Extra keyword
     arguments are forwarded to :func:`~repro_torch.core.compiler.codo_opt`.
     """
-    if grad:
-        raise _not_ported("grad=True (the compiled train step)", "item 5")
     if mesh is not None:
         raise _not_ported("mesh= (sharded programs)", "item 11")
     if autotune:
@@ -279,6 +488,12 @@ def compile(fn: Callable | DataflowGraph, *specs,  # noqa: A001 — the API name
                              f"graph {source.name!r}")
     else:
         source, ins, outs = frontend.trace_io(fn, *specs, name=name)
+    if grad:
+        return _compile_train_step(source, device, options=options,
+                                   cache=cache, opt=opt, wrt=wrt,
+                                   **codo_kwargs)
+    if opt is not None or wrt is not None:
+        raise TraceError("opt=/wrt= only apply with grad=True")
     compiled = codo_opt(source, options, cache=cache, **codo_kwargs)
     return CompiledProgram(source, compiled, ins, outs, device)
 
@@ -288,6 +503,7 @@ def load(path) -> CompiledProgram:
     raise _not_ported("artifact load", "item 6")
 
 
-__all__ = ["CodoOptions", "CompiledProgram", "F", "ShapedBuffer",
-           "TraceError", "buffer", "compile", "load", "params_from_numpy",
-           "resolve_device", "trace"]
+__all__ = ["CodoOptions", "CompiledProgram", "CompiledTrainStep", "F",
+           "ShapedBuffer", "TraceError", "buffer", "compile", "load",
+           "params_from_numpy", "resolve_device", "trace",
+           "train_state_from_numpy"]

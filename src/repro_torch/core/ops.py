@@ -2,9 +2,13 @@
 
 The PyTorch counterpart of ``repro/core/ops.py``: the same ``OpSpec``
 records, registry, epochs and VJP table, with torch bodies for the op
-kinds ported so far (identity, dup, fused, matmul, transpose, scale, add,
-softmax, gelu).  Any other kind raises :class:`UnknownOpError` naming it.
-No body writes in place: ``dup`` and ``identity`` alias their input.
+kinds ported so far: the forward kinds of the GPT-2 block (identity, dup,
+fused, matmul, transpose, scale, add, vadd, affine, divc, mul, softmax,
+gelu) and the gradient and optimizer kinds its train step runs
+(mean_all, bcast, relu_grad, gelu_grad, softmax_grad, sumsq, clip_scale,
+lr_sched, adamw_step).  Any other kind raises :class:`UnknownOpError`
+naming it.  No body writes in place: ``dup`` and ``identity`` alias their
+input, ``transpose`` and ``bcast`` return views.
 
 Historically every :class:`~repro.core.graph.Task` carried its numeric
 semantics as an opaque Python closure (``fn(env) -> {buf: array}``).  That
@@ -304,6 +308,156 @@ def _transpose(spec: OpSpec, env: dict) -> dict:
     if perm is None:
         perm = tuple(reversed(range(x.dim())))
     return {spec.outs[0]: x.permute(*(int(p) for p in perm))}
+
+
+@register_op("vadd")
+def _vadd(spec: OpSpec, env: dict) -> dict:
+    a = float(spec.attrs.get("alpha", 1.0))
+    b = float(spec.attrs.get("beta", 1.0))
+    return {spec.outs[0]: a * env[spec.ins[0]] + b * env[spec.ins[1]]}
+
+
+@register_op("affine")
+def _affine(spec: OpSpec, env: dict) -> dict:
+    """``a*x + b`` — the scalar-operand form of add/sub.  With ``a`` in
+    {1, -1} the result is bit-exact with the ``x + b`` / ``b - x`` it
+    stands in for."""
+    a = float(spec.attrs.get("a", 1.0))
+    b = float(spec.attrs.get("b", 0.0))
+    x = env[spec.ins[0]]
+    return {spec.outs[0]: (x if a == 1.0 else (-x if a == -1.0 else a * x)) + b}
+
+
+@register_op("divc")
+def _divc(spec: OpSpec, env: dict) -> dict:
+    """``x / c`` — true division, not scale-by-reciprocal, so traced and
+    eager results agree to the last ulp.  The divisor is a 0-d tensor on
+    ``x``'s device: PyTorch's CUDA division by a host scalar multiplies by
+    the reciprocal instead."""
+    import torch
+    x = env[spec.ins[0]]
+    c = torch.full((), float(spec.attrs["c"]), dtype=x.dtype, device=x.device)
+    return {spec.outs[0]: x / c}
+
+
+@register_op("mul")
+def _mul(spec: OpSpec, env: dict) -> dict:
+    return {spec.outs[0]: env[spec.ins[0]] * env[spec.ins[1]]}
+
+
+# --------------------------------------------------------------------------
+# Gradient and optimizer kinds: the vocabulary the autodiff pass
+# (core/autodiff.py) emits backward and AdamW-update graphs in.
+# --------------------------------------------------------------------------
+
+
+@register_op("mean_all")
+def _mean_all(spec: OpSpec, env: dict) -> dict:
+    """Full reduction to a (1, 1) scalar carrier — the loss head."""
+    return {spec.outs[0]: env[spec.ins[0]].mean().reshape(1, 1)}
+
+
+@register_op("bcast")
+def _bcast(spec: OpSpec, env: dict) -> dict:
+    """Broadcast to ``attrs['shape']`` (scalar carriers flatten first).
+    Returns an ``expand`` view — zero strides, no copy."""
+    shape = tuple(int(s) for s in spec.attrs["shape"])
+    x = env[spec.ins[0]]
+    if x.numel() == 1:
+        x = x.reshape(())
+    return {spec.outs[0]: x.expand(shape)}
+
+
+@register_op("relu_grad")
+def _relu_grad(spec: OpSpec, env: dict) -> dict:
+    g, x = env[spec.ins[0]], env[spec.ins[1]]
+    return {spec.outs[0]: g * (x > 0).to(g.dtype)}
+
+
+_GELU_C = 0.7978845608028654    # sqrt(2 / pi), the tanh gelu's constant
+
+
+@register_op("gelu_grad")
+def _gelu_grad(spec: OpSpec, env: dict) -> dict:
+    """VJP of the tanh gelu (:func:`_gelu`), in closed form:
+    ``g · (0.5(1+t) + 0.5·x·(1−t²)·√(2/π)·(1+3·0.044715·x²))`` with
+    ``t = tanh(√(2/π)(x + 0.044715·x³))``."""
+    import torch
+    g, x = env[spec.ins[0]], env[spec.ins[1]]
+    t = torch.tanh(_GELU_C * (x + 0.044715 * (x * x * x)))
+    d = 0.5 * (1.0 + t) + 0.5 * x * (1.0 - t * t) * _GELU_C * (
+        1.0 + 3.0 * 0.044715 * (x * x))
+    return {spec.outs[0]: g * d}
+
+
+@register_op("softmax_grad")
+def _softmax_grad(spec: OpSpec, env: dict) -> dict:
+    """``y * (g - sum(g*y, axis))`` with ``y`` the forward softmax output."""
+    axis = int(spec.attrs.get("axis", -1))
+    g, y = env[spec.ins[0]], env[spec.ins[1]]
+    return {spec.outs[0]: y * (g - (g * y).sum(dim=axis, keepdim=True))}
+
+
+@register_op("sumsq")
+def _sumsq(spec: OpSpec, env: dict) -> dict:
+    """float32 sum of squares to a (1, 1) carrier (one parameter's term of
+    the global gradient norm)."""
+    x = env[spec.ins[0]].float()
+    return {spec.outs[0]: (x * x).sum().reshape(1, 1)}
+
+
+@register_op("clip_scale")
+def _clip_scale(spec: OpSpec, env: dict) -> dict:
+    """Global-norm clip factor from the summed squares: outs are
+    ``(scale, norm)``, both (1, 1) carriers."""
+    import torch
+    max_norm = float(spec.attrs["max_norm"])
+    norm = torch.sqrt(env[spec.ins[0]])
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    return {spec.outs[0]: scale, spec.outs[1]: norm}
+
+
+@register_op("lr_sched")
+def _lr_sched(spec: OpSpec, env: dict) -> dict:
+    """Warmup + cosine decay in float32, the reference's arithmetic op for
+    op.  The input is the *already incremented* step (a (1, 1) float32
+    carrier)."""
+    import math
+
+    import torch
+    a = spec.attrs
+    lr0 = float(a["lr"])
+    warm_n = float(a["warmup_steps"])
+    total = float(a["total_steps"])
+    frac = float(a["min_lr_frac"])
+    step = env[spec.ins[0]].reshape(()).float()
+    warm = lr0 * (step + 1.0) / max(warm_n, 1.0)
+    prog = torch.clamp((step - warm_n) / max(total - warm_n, 1.0), 0.0, 1.0)
+    cos = lr0 * (frac + (1.0 - frac) * 0.5 * (1.0 + torch.cos(math.pi * prog)))
+    return {spec.outs[0]: torch.where(step < warm_n, warm, cos).reshape(1, 1)}
+
+
+@register_op("adamw_step")
+def _adamw_step(spec: OpSpec, env: dict) -> dict:
+    """One decoupled-weight-decay Adam update of one parameter, with the
+    global clip ``scale`` and scheduled ``lr`` as (1, 1) operands; float32
+    moments, the parameter back in its own dtype.
+    ins: (p, g, m, v, scale, lr, step2); outs: (p2, m2, v2)."""
+    import torch
+    a = spec.attrs
+    b1, b2 = float(a["b1"]), float(a["b2"])
+    eps, wd = float(a["eps"]), float(a["wd"])
+    p, g, m, v, scale, lr, step2 = (env[n] for n in spec.ins)
+    g32 = g.float() * scale.reshape(())
+    step_f = step2.reshape(()).float()
+    p32 = p.float()
+    m2 = b1 * m.float() + (1.0 - b1) * g32
+    v2 = b2 * v.float() + (1.0 - b2) * g32 * g32
+    mh = m2 / (1.0 - torch.pow(b1, step_f))
+    vh = v2 / (1.0 - torch.pow(b2, step_f))
+    delta = mh / (torch.sqrt(vh) + eps) + wd * p32
+    p2 = p32 - lr.reshape(()) * delta
+    return {spec.outs[0]: p2.to(p.dtype), spec.outs[1]: m2, spec.outs[2]: v2}
 
 
 # --------------------------------------------------------------------------

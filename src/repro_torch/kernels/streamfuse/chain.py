@@ -1,28 +1,42 @@
-"""Fused matmul chain ``ew(a @ w1) @ w2``: the Hopper kernel and its plain
-version.
+"""The streamfuse matmul kernels for Hopper and their plain versions.
 
-The counterpart of the ``fused_matmul_chain`` half of
-``repro/kernels/streamfuse/chain.py``.  Same contract: a (M, K), w1
-(K, N1), w2 (N1, N2) of one element type (float32 or bfloat16), float32
-accumulation, output in a's type, the intermediate never written to
-device memory.  ``ew`` is data, not a closure: a sequence of ``(kind,
-attrs)`` pairs over the elementwise kinds in :data:`EW_CODES`, applied in
-order — which is how it reaches the CUDA kernel (op codes plus scalar
-attributes).
+The counterpart of the ``fused_matmul_chain`` and ``fused_matmul_grad``
+halves of ``repro/kernels/streamfuse/chain.py``.
 
-Tensors on the card launch ``csrc/chain.cu``: the fused kernel over an
-(M/64, N1-chunks) grid writing float32 partials, then a reduction over the
-chunks in fixed order (two launches per call, deterministic).  Tensors on
-the CPU run :func:`matmul_chain_plain`.
+``fused_matmul_chain`` — ``ew(a @ w1) @ w2``: a (M, K), w1 (K, N1), w2
+(N1, N2) of one element type (float32 or bfloat16), float32 accumulation,
+output in a's type, the intermediate never written to device memory.
+``ew`` is data, not a closure: a sequence of ``(kind, attrs)`` pairs over
+the elementwise kinds in :data:`EW_CODES`, applied in order — which is how
+it reaches the CUDA kernel (op codes plus scalar attributes).  Tensors on
+the card launch ``csrc/chain.cu``: the fused kernel over an (M/64,
+N1-chunks) grid writing float32 partials, then a reduction over the
+chunks in fixed order (two launches per call, deterministic).
+
+``fused_matmul_grad`` — ``ew(a @ w, *extras)``, the backward pass's
+cotangent matmul with its gradient epilogue: a (M, K), w (K, N), each
+extra (M, N), one element type, float32 accumulation, output in a's type.
+``ew`` is a sequence of ``(kind, attrs, extra index)`` over
+:data:`GRAD_CODES` (the elementwise kinds plus ``relu_grad``,
+``gelu_grad`` and ``softmax_grad``, whose residual operand is
+``extras[index]``).  Every operand is read through its own strides, so
+transposed and ``expand`` views go in as they are.  Tensors on the card
+launch ``csrc/chain_grad.cu``: see :func:`fused_matmul_grad`.
+
+Tensors on the CPU run the plain versions, :func:`matmul_chain_plain`
+and :func:`matmul_grad_plain`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence
 
 from ..common import (INT, INT64, PTR, SMEM_PER_BLOCK, CudaLibrary,
                       dtype_code, on_card, stream_of)
+
+_NUM_SMS = 132                    # streaming multiprocessors of an H100
 
 # op code of each elementwise kind csrc/chain.cu replays, and the attrs
 # that fill its two float slots.
@@ -34,7 +48,7 @@ MAX_EW = 8
 
 # Tile constants of csrc/chain.cu.
 _BM, _BN, _BKK = 64, 128, 8
-_TARGET_BLOCKS = 4 * 132          # four 4-warp blocks per SM of an H100
+_TARGET_BLOCKS = 4 * _NUM_SMS    # four 4-warp blocks per SM
 
 LIBRARY = CudaLibrary("chain.cu", {
     "codo_matmul_chain": [INT, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT,
@@ -156,5 +170,200 @@ def matmul_chain_plain(a, w1, w2, *, ew: Sequence[tuple[str, dict]] = ()):
     return (h @ w2.float()).to(a.dtype)
 
 
-__all__ = ["EW_CODES", "LIBRARY", "apply_ew_plain", "chunk_columns",
-           "ew_codes", "fused_matmul_chain", "matmul_chain_plain"]
+# --------------------------------------------------------------------------
+# matmul -> *ewise gradient epilogue (backward-pass chains)
+# --------------------------------------------------------------------------
+
+# The gradient kinds csrc/chain_grad.cu replays beside EW_CODES: each takes
+# the chain value and one residual operand.
+GRAD_KINDS = ("relu_grad", "gelu_grad", "softmax_grad")
+GRAD_CODES = {**EW_CODES, "relu_grad": (7, ()), "gelu_grad": (8, ()),
+              "softmax_grad": (9, ())}
+_SOFTMAX_GRAD = GRAD_CODES["softmax_grad"][0]
+# One stage of a gradient tail: (kind, attrs, index of its extra or None).
+GradStage = tuple[str, dict, "int | None"]
+
+# Tile constants of csrc/chain_grad.cu: a (GRAD_BM x GRAD_BN) output tile a
+# block, and the least contraction depth a K split gets.  At 168 registers
+# a thread, three 4-warp blocks are resident on an SM.
+GRAD_BM, GRAD_BN = 64, 128
+_MIN_K_SPLIT = 64
+_GRAD_SLOTS = 3 * _NUM_SMS
+# The split choice's cost model (float32, H100): split partial sums cost
+# a write and a read each at 3.35 TB/s, and one wave of resident blocks
+# advances one k in about 0.254 us — the FFN chain at S=1024 in
+# chip_smoke.py takes 0.38 ms for 4 waves of 344 k plus 30 us of sums.
+_WAVE_K_US = 0.254
+_BYTES_PER_US = 3.35e6
+
+GRAD_LIBRARY = CudaLibrary("chain_grad.cu", {
+    "codo_matmul_grad": [INT, PTR, INT64, INT64, PTR, INT64, INT64, PTR,
+                         INT, INT, INT, INT, INT, INT, INT, INT, PTR, PTR,
+                         PTR, PTR, INT, PTR, PTR, PTR, PTR],
+    "codo_matmul_grad_rows": [INT, PTR, INT, PTR, INT, INT, INT, INT, PTR,
+                              PTR, PTR, PTR, INT, PTR, PTR, PTR, PTR],
+})
+
+
+def grad_ew_codes(ew, n_extras: int):
+    """(op codes, first attrs, second attrs, extra indices) of a gradient
+    tail; the extra index is -1 for a stage that reads none."""
+    if len(ew) > MAX_EW or n_extras > MAX_EW:
+        raise ValueError(f"the grad kernel replays at most {MAX_EW} "
+                         f"elementwise ops and extras, got {len(ew)} and "
+                         f"{n_extras}")
+    ops, a, b, ex = [], [], [], []
+    for kind, attrs, idx in ew:
+        if kind in GRAD_KINDS:
+            if idx is None or not 0 <= idx < n_extras:
+                raise ValueError(f"{kind} reads one residual operand: extra "
+                                 f"index {idx!r} of {n_extras} extras")
+            ops.append(GRAD_CODES[kind][0])
+            a.append(0.0)
+            b.append(0.0)
+            ex.append(int(idx))
+            continue
+        if idx is not None:
+            raise ValueError(f"{kind} reads no residual operand, got extra "
+                             f"index {idx!r}")
+        (op,), (va,), (vb,) = ew_codes([(kind, attrs)])
+        ops.append(op)
+        a.append(va)
+        b.append(vb)
+        ex.append(-1)
+    return ops, a, b, ex
+
+
+@functools.lru_cache(maxsize=256)
+def k_splits(M: int, N: int, K: int) -> tuple[int, int]:
+    """(splits, depth of each) of the contraction, each depth a whole
+    number of 8-deep stages and at least 64 when split.  Few output tiles
+    leave most of the card idle (the FFN chain at S=128 has 64 tiles for
+    396 block slots), and a tile count just past a whole number of waves
+    leaves the last wave short: the choice minimises waves times depth
+    plus the traffic of the split partial sums."""
+    tiles = -(-M // GRAD_BM) * -(-N // GRAD_BN)
+    best = None
+    for want in range(1, max(1, K // _MIN_K_SPLIT) + 1):
+        depth = -(-K // want)
+        per = _BKK * -(-depth // _BKK)
+        splits = -(-K // per)
+        waves = -(-tiles * splits // _GRAD_SLOTS)
+        cost = waves * per * _WAVE_K_US
+        if splits > 1:
+            cost += 8.0 * splits * M * N / _BYTES_PER_US
+        if best is None or cost < best[0]:
+            best = (cost, splits, per)
+    return best[1], best[2]
+
+
+def grad_smem_bytes() -> int:
+    """Two buffers each of the padded a and w tiles."""
+    return 4 * 2 * _BKK * ((GRAD_BM + 4) + (GRAD_BN + 4))
+
+
+def grad_launches(M: int, N: int, K: int, ew) -> int:
+    """Kernel launches of one :func:`fused_matmul_grad` call: the tiled
+    product, plus the row pass when the contraction is split or the tail
+    holds a ``softmax_grad``."""
+    one_pass = (k_splits(M, N, K)[0] == 1
+                and all(kind != "softmax_grad" for kind, _, _ in ew))
+    return 1 if one_pass else 2
+
+
+def _check_grad(a, w, extras):
+    import torch
+    if a.dim() != 2 or w.dim() != 2 or any(e.dim() != 2 for e in extras):
+        raise ValueError("fused_matmul_grad wants 2-D a, w and extras")
+    if a.shape[1] != w.shape[0]:
+        raise ValueError(f"shapes do not chain: {tuple(a.shape)} @ "
+                         f"{tuple(w.shape)}")
+    mn = (a.shape[0], w.shape[1])
+    if any(tuple(e.shape) != mn for e in extras):
+        raise ValueError(f"extras must be {mn}, got "
+                         f"{[tuple(e.shape) for e in extras]}")
+    dtypes = {a.dtype, w.dtype, *(e.dtype for e in extras)}
+    if len(dtypes) != 1 or a.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"a/w/extras must share float32 or bfloat16, got "
+                        f"{sorted(map(str, dtypes))}")
+
+
+def _c_array(ctype, values):
+    return (ctype * max(len(values), 1))(*values)
+
+
+def fused_matmul_grad(a, w, *extras, ew: Sequence[GradStage]):
+    """``ew(a @ w, *extras)`` (tensors on the card), or its plain version
+    (on the CPU).
+
+    On the card: the tiled product over an (N/128, M/64, splits) grid,
+    the tail's leading elementwise stages applied in registers on the
+    output tile.  A ``softmax_grad`` needs its row's whole dot, and a split
+    contraction its partial sums: then the first launch writes float32
+    values and a second, one block a row, sums the splits in order, takes
+    each ``softmax_grad``'s row dot as a fixed-order block reduction and
+    applies the rest of the tail.  Deterministic; no atomics."""
+    import torch
+    _check_grad(a, w, extras)
+    if not on_card(a, w, *extras):
+        return matmul_grad_plain(a, w, *extras, ew=ew)
+    ops, ea, eb, ex = grad_ew_codes(ew, len(extras))
+    M, K = a.shape
+    N = w.shape[1]
+    splits, per = k_splits(M, N, K)
+    first_sg = ops.index(_SOFTMAX_GRAD) if _SOFTMAX_GRAD in ops else len(ops)
+    out = torch.empty((M, N), dtype=a.dtype, device=a.device)
+    one_pass = splits == 1 and first_sg == len(ops)
+    if one_pass:
+        dst, n_apply = out, len(ops)
+    else:
+        dst = torch.empty((splits, M, N), dtype=torch.float32,
+                          device=a.device)
+        n_apply = first_sg if splits == 1 else 0
+    tail = (len(ops), _c_array(ctypes.c_int, ops),
+            _c_array(ctypes.c_float, ea), _c_array(ctypes.c_float, eb),
+            _c_array(ctypes.c_int, ex), len(extras),
+            _c_array(ctypes.c_void_p, [e.data_ptr() for e in extras]),
+            _c_array(ctypes.c_longlong, [e.stride(0) for e in extras]),
+            _c_array(ctypes.c_longlong, [e.stride(1) for e in extras]))
+    code, stream = dtype_code(a), stream_of(a)
+    with torch.cuda.device(a.device):
+        GRAD_LIBRARY.launch("codo_matmul_grad", code, a.data_ptr(),
+                            a.stride(0), a.stride(1), w.data_ptr(),
+                            w.stride(0), w.stride(1), dst.data_ptr(),
+                            int(one_pass), M, N, K, per, splits, n_apply,
+                            *tail, stream)
+        if not one_pass:
+            GRAD_LIBRARY.launch("codo_matmul_grad_rows", code,
+                                dst.data_ptr(), splits, out.data_ptr(), M, N,
+                                n_apply, *tail, stream)
+    return out
+
+
+def apply_grad_ew_plain(h, ew, extras):
+    """A gradient tail in plain PyTorch: the gradient kinds through the op
+    registry's own bodies, the others through :func:`apply_ew_plain`."""
+    from ...core.ops import OpSpec, op_impl
+    for kind, attrs, idx in ew:
+        if kind in GRAD_KINDS:
+            spec = OpSpec(kind, ("h", "x"), ("y",), dict(attrs))
+            h = op_impl(kind)(spec, {"h": h, "x": extras[idx]})["y"]
+        else:
+            h = apply_ew_plain(h, [(kind, attrs)])
+    return h
+
+
+def matmul_grad_plain(a, w, *extras, ew: Sequence[GradStage]):
+    """The kernel's function in plain PyTorch ops, float32 throughout."""
+    _check_grad(a, w, extras)
+    grad_ew_codes(ew, len(extras))
+    h = apply_grad_ew_plain(a.float() @ w.float(), ew,
+                            [e.float() for e in extras])
+    return h.to(a.dtype)
+
+
+__all__ = ["EW_CODES", "GRAD_CODES", "GRAD_KINDS", "GRAD_LIBRARY", "LIBRARY",
+           "apply_ew_plain", "apply_grad_ew_plain", "chunk_columns",
+           "ew_codes", "fused_matmul_chain", "fused_matmul_grad",
+           "grad_ew_codes", "grad_launches", "k_splits",
+           "matmul_chain_plain", "matmul_grad_plain"]

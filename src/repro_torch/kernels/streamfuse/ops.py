@@ -1,31 +1,40 @@
-"""CODO kernel-pattern registration for the streamfuse matmul chain.
+"""CODO kernel-pattern registration for the streamfuse matmul kernels.
 
-The counterpart of the ``streamfuse.mmchain`` half of
-``repro/kernels/streamfuse/ops.py``:
+The counterpart of the ``streamfuse.mmchain`` and ``streamfuse.mmgrad``
+halves of ``repro/kernels/streamfuse/ops.py``:
 
 =======================  ===========================  =====================
 pattern name             op pattern                   kernel
 =======================  ===========================  =====================
 ``streamfuse.mmchain``   ``matmul → *ewise → matmul`` ``fused_matmul_chain``
+``streamfuse.mmgrad``    ``matmul → *ewise`` (grad)   ``fused_matmul_grad``
 =======================  ===========================  =====================
 
-The feasibility guard is the reference's, pure graph analysis.  The
-factory turns the chain's elementwise tasks into ``(kind, attrs)`` data
-for the kernel; where the step runs follows from its operands' device
-(:mod:`repro_torch.kernels.common`).  ``streamfuse.conv``,
-``streamfuse.softmaxmm`` and ``streamfuse.mmgrad`` are not ported yet.
+The feasibility guards are the reference's, pure graph analysis.  The
+factories turn the chain's elementwise tasks into data for the kernel
+(``(kind, attrs)`` stages; for mmgrad also the index of each stage's
+residual operand); where the step runs follows from its operands' device
+(:mod:`repro_torch.kernels.common`).  There is no VMEM budget: the
+kernels tile what the TPU kernel held whole, so the factories check only
+that their tiling fits (``smem_ok``).  ``streamfuse.conv`` and
+``streamfuse.softmaxmm`` are not ported yet.
 """
 
 from __future__ import annotations
 
 from ...core.routing import KernelPattern, register_kernel_pattern
-from ..common import all_f32
-from .chain import MAX_EW, fused_matmul_chain
+from ..common import all_f32, smem_ok
+from .chain import (MAX_EW, fused_matmul_chain, fused_matmul_grad,
+                    grad_smem_bytes)
 
 # Elementwise spec kinds a kernel can replay on a tile: exactly one
 # operand (the chain value), attrs-only parameters.
 EW_KINDS = frozenset({"relu", "gelu", "scale", "affine", "divc", "rdivc",
                       "identity"})
+
+# Gradient-epilogue kinds (backward chains): chain value first operand,
+# residual operands read alongside it at the same (row, column).
+GRAD_EW_KINDS = frozenset({"relu_grad", "gelu_grad", "softmax_grad"})
 
 
 def _mm_chain_feasible(graph, tasks) -> bool:
@@ -63,12 +72,77 @@ def _mm_chain_factory(graph, group, tasks, tile=None):
     return run
 
 
+def _mm_grad_feasible(graph, tasks) -> bool:
+    """Backward chains only: a cotangent matmul whose elementwise tail
+    contains at least one gradient kind (so forward ``matmul → ewise``
+    prefixes are never claimed and the longer ``mmchain`` match still
+    supersedes this one over shared tasks)."""
+    mm, tail = tasks[0], tasks[1:]
+    if any(t.spec is None for t in tasks) or not tail:
+        return False
+    if mm.spec.kind != "matmul" or len(mm.spec.ins) != 2:
+        return False
+    a_buf, w_buf = mm.spec.ins
+    mn = graph.buffers[mm.spec.outs[0]].shape
+    shapes = (graph.buffers[a_buf].shape, graph.buffers[w_buf].shape, mn)
+    if any(len(s) != 2 for s in shapes):
+        return False
+    prev, has_grad = mm.spec.outs[0], False
+    for t in tail:
+        kind = t.spec.kind
+        if kind in GRAD_EW_KINDS:
+            has_grad = True
+        elif kind not in EW_KINDS:
+            return False
+        if not t.spec.ins or t.spec.ins[0] != prev:
+            return False
+        for b in t.spec.ins[1:]:        # residual operands ride the stream
+            if graph.buffers[b].shape != mn or not all_f32(graph, b):
+                return False
+        if kind == "softmax_grad" and int(
+                t.spec.attrs.get("axis", -1)) not in (-1, 1):
+            return False                # the row pass spans full rows only
+        prev = t.spec.outs[0]
+    if not has_grad:
+        return False
+    return all_f32(graph, a_buf, w_buf, tail[-1].spec.outs[0])
+
+
+def grad_tail(tail_tasks):
+    """``(ew, extra_bufs)`` of a gradient epilogue: each stage as ``(kind,
+    attrs, extra index)``, the residual operands bound positionally in
+    ``extra_bufs`` order (the reference's ``_grad_ew_applier`` order)."""
+    ew, extra_bufs = [], []
+    for t in tail_tasks:
+        residuals = t.spec.ins[1:]      # one for a gradient kind, else none
+        ew.append((t.spec.kind, dict(t.spec.attrs),
+                   len(extra_bufs) if residuals else None))
+        extra_bufs.extend(residuals)
+    return tuple(ew), extra_bufs
+
+
+def _mm_grad_factory(graph, group, tasks, tile=None):
+    mm, tail = tasks[0], tasks[1:]
+    a_buf, w_buf = mm.spec.ins
+    out_buf = tail[-1].spec.outs[0]
+    ew, extra_bufs = grad_tail(tail)
+    if len(ew) > MAX_EW or not smem_ok(grad_smem_bytes()):
+        return None                     # a tail or tiling the kernel lacks
+
+    def run(env):
+        return {out_buf: fused_matmul_grad(env[a_buf], env[w_buf],
+                                           *(env[b] for b in extra_bufs),
+                                           ew=ew)}
+
+    return run
+
+
 _REGISTERED = False
 
 
 def register() -> None:
-    """Register the mmchain kernel pattern with the routing layer
-    (idempotent — repeated ``register_all()`` calls do not churn the
+    """Register the mmchain and mmgrad kernel patterns with the routing
+    layer (idempotent — repeated ``register_all()`` calls do not churn the
     registry epoch)."""
     global _REGISTERED
     if _REGISTERED:
@@ -78,3 +152,7 @@ def register() -> None:
         name="streamfuse.mmchain", pattern=("matmul", "*ewise", "matmul"),
         factory=_mm_chain_factory, feasible=_mm_chain_feasible,
         description="ew(a@w1)@w2 with the intermediate kept on chip"))
+    register_kernel_pattern(KernelPattern(
+        name="streamfuse.mmgrad", pattern=("matmul", "*ewise"),
+        factory=_mm_grad_factory, feasible=_mm_grad_feasible,
+        description="ew(a@w, *residuals) backward gradient epilogue"))

@@ -6,7 +6,8 @@ a swapped operand), and the outputs must agree within the reference's
 own ``verify`` band, 1e-5, on the generic path and with both kernel
 chains routed.  Also: the port's own ``verify``, device resolution, the
 entry points not ported yet, and the rule that the port imports neither
-jax nor the JAX package.
+jax nor the JAX package.  The train step (``grad=True``) is held against
+the reference in ``tests/test_torch_train.py``.
 """
 
 import ast
@@ -138,8 +139,10 @@ def test_default_device_needs_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("call", [
-    lambda: codo_torch.compile(dm.gpt2_block_fn, (16, 64), device="cpu",
-                               grad=True),
+    lambda: codo_torch.compile(dm.gpt2_block_loss_fn, (8, 16), (8, 16),
+                               device="cpu", grad=True).export("x.json"),
+    lambda: codo_torch.compile(dm.gpt2_block_loss_fn, (8, 16), (8, 16),
+                               device="cpu", grad=True).autotune(),
     lambda: codo_torch.compile(dm.gpt2_block_fn, (16, 64), device="cpu",
                                mesh=object()),
     lambda: codo_torch.compile(dm.gpt2_block_fn, (16, 64), device="cpu",

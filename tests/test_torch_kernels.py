@@ -25,6 +25,10 @@ from repro.kernels.flashattn.ref import \
     attention_ref as jax_attention_ref  # noqa: E402
 from repro.kernels.streamfuse.chain import \
     fused_matmul_chain as jax_chain  # noqa: E402
+from repro.kernels.streamfuse.chain import \
+    fused_matmul_grad as jax_grad  # noqa: E402
+from repro.kernels.streamfuse.ref import \
+    matmul_grad_ref as jax_grad_ref  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
 from repro_torch.kernels.flashattn import (LIBRARY as FLASH_LIB,  # noqa: E402
                                            attention_ref, flash_attention,
@@ -32,12 +36,20 @@ from repro_torch.kernels.flashattn import (LIBRARY as FLASH_LIB,  # noqa: E402
 from repro_torch.kernels.flashattn.flashattn import (key_splits,  # noqa: E402
                                                      smem_bytes, tiling_ok)
 from repro_torch.kernels.streamfuse import (LIBRARY as CHAIN_LIB,  # noqa: E402
+                                            GRAD_LIBRARY as GRAD_LIB,
                                             fused_matmul_chain,
+                                            fused_matmul_grad,
                                             matmul_chain_plain,
-                                            matmul_chain_ref)
+                                            matmul_chain_ref,
+                                            matmul_grad_plain,
+                                            matmul_grad_ref)
 from repro_torch.kernels.streamfuse.chain import (EW_CODES,  # noqa: E402
-                                                  apply_ew_plain,
-                                                  chunk_columns, ew_codes)
+                                                  GRAD_CODES, apply_ew_plain,
+                                                  apply_grad_ew_plain,
+                                                  chunk_columns, ew_codes,
+                                                  grad_ew_codes,
+                                                  grad_launches,
+                                                  grad_smem_bytes, k_splits)
 from repro_torch.kernels.streamfuse.chain import \
     smem_bytes as smem_bytes_chain  # noqa: E402
 
@@ -250,6 +262,152 @@ def test_chain_rejects_bad_operands():
 
 
 # --------------------------------------------------------------------------
+# fused matmul + gradient epilogue (backward chains)
+# --------------------------------------------------------------------------
+
+# Tails as (kind, attrs, extra index); "x" extras are unit normals, "y"
+# extras rows of a softmax.
+GRAD_TAILS = {
+    "relu_grad": ((("relu_grad", {}, 0),), "x"),
+    "gelu_grad": ((("gelu_grad", {}, 0),), "x"),
+    "softmax_grad_scale": ((("softmax_grad", {"axis": -1}, 0),
+                            ("scale", {"s": 0.125}, None)), "y"),
+    "mixed": ((("divc", {"c": 3.0}, None), ("softmax_grad", {"axis": 1}, 0),
+               ("affine", {"a": -1.0, "b": 0.25}, None),
+               ("relu_grad", {}, 1), ("gelu", {}, None),
+               ("identity", {}, None)), "yx"),
+}
+
+
+def _grad_operands(M, K, N, extras, w_t, bf16, seed=0):
+    """Seeded numpy a (M, K), w (K, N) — built as (N, K) and handed over
+    transposed when ``w_t`` — and the extras, with torch and jax twins."""
+    a = _rand((M, K), seed, 0.3)
+    w = _rand((N, K), seed + 1, 0.3).T if w_t else _rand((K, N), seed + 1,
+                                                           0.3)
+    x = _rand((M, N), seed + 2)
+    y = np.exp(x - x.max(1, keepdims=True))
+    y = (y / y.sum(1, keepdims=True)).astype(np.float32)
+    ex = [{"x": x, "y": y}[k] for k in extras]
+    tw = torch.from_numpy(np.ascontiguousarray(w.T)).t() if w_t else \
+        torch.from_numpy(w)
+    tw = tw.bfloat16() if bf16 else tw
+    return (a, w, ex), (_t(a, bf16), tw, [_t(e, bf16) for e in ex])
+
+
+def _ref_grad_tail(ew):
+    """The tail as the reference builds it: registry impls as one
+    ``ew(h, *extras)`` callable."""
+    def fn(h, *extras):
+        for kind, attrs, idx in ew:
+            ins = ("h",) if idx is None else ("h", "e")
+            spec = ref_ops.OpSpec(kind, ins, ("o",), dict(attrs))
+            env = {"h": h} if idx is None else {"h": h, "e": extras[idx]}
+            h = ref_ops.op_impl(kind)(spec, env)["o"]
+        return h
+    return fn
+
+
+@pytest.mark.parametrize("tail", sorted(GRAD_TAILS))
+@pytest.mark.parametrize("M,K,N,w_t,bf16", [
+    (32, 64, 48, False, False), (32, 64, 48, True, False),
+    (37, 50, 130, False, False), (37, 50, 130, True, False),
+    (32, 64, 48, True, True)])
+def test_grad_plain_matches_jax_kernel(M, K, N, w_t, bf16, tail):
+    ew, kinds = GRAD_TAILS[tail]
+    (a, w, ex), (ta, tw, tex) = _grad_operands(M, K, N, kinds, w_t, bf16)
+    assert tw.is_contiguous() != w_t
+    got = fused_matmul_grad(ta, tw, *tex, ew=ew)
+    assert got.shape == (M, N)
+    assert got.dtype == (torch.bfloat16 if bf16 else torch.float32)
+    want = jax_grad(_j(a, bf16), _j(w, bf16), *(_j(e, bf16) for e in ex),
+                    ew=_ref_grad_tail(ew), interpret=True)
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(bf16))
+    if not bf16:
+        oracle = matmul_grad_ref(ta, tw, tex, lambda h, *e: apply_grad_ew_plain(
+            h, ew, e))
+        np.testing.assert_allclose(got.numpy(), oracle.numpy(), **_tol(False))
+        jax_oracle = jax_grad_ref(jnp.asarray(a), jnp.asarray(w),
+                                  [jnp.asarray(e) for e in ex],
+                                  _ref_grad_tail(ew))
+        np.testing.assert_allclose(got.numpy(), np.asarray(jax_oracle),
+                                   **_tol(False))
+
+
+def test_grad_plain_reads_transposed_and_expanded_operands():
+    """The route hands w over as a transposed view and may hand an extra
+    over as an ``expand`` view (``bcast``): both go in as they are."""
+    a = torch.from_numpy(_rand((24, 40), 0)).t()          # (40, 24) view
+    w = torch.from_numpy(_rand((16, 24), 1)).t()          # (24, 16) view
+    e = torch.from_numpy(_rand((1, 16), 2)).expand(40, 16)
+    assert e.stride(0) == 0 and a.stride(0) == 1 and w.stride(0) == 1
+    ew = (("relu_grad", {}, 0), ("scale", {"s": 2.0}, None))
+    got = fused_matmul_grad(a, w, e, ew=ew)
+    want = 2.0 * (a.contiguous() @ w.contiguous()) * (e.contiguous() > 0)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_grad_codes_cover_every_tail_kind():
+    from repro.kernels.streamfuse.ops import EW_KINDS as REF_EW_KINDS
+    from repro.kernels.streamfuse.ops import GRAD_EW_KINDS as REF_GRAD_KINDS
+    from repro_torch.kernels.streamfuse.ops import GRAD_EW_KINDS
+    assert set(GRAD_CODES) == set(REF_EW_KINDS) | set(REF_GRAD_KINDS)
+    assert GRAD_EW_KINDS == REF_GRAD_KINDS
+    assert {k: GRAD_CODES[k] for k in EW_CODES} == EW_CODES
+    assert grad_ew_codes([("gelu_grad", {}, 1), ("affine", {"b": 2.0}, None),
+                          ("softmax_grad", {"axis": -1}, 0)], 2) == (
+        [8, 4, 9], [0.0, 1.0, 0.0], [0.0, 2.0, 0.0], [1, -1, 0])
+    with pytest.raises(ValueError, match="residual"):
+        grad_ew_codes([("relu_grad", {}, None)], 1)
+    with pytest.raises(ValueError, match="residual"):
+        grad_ew_codes([("relu_grad", {}, 1)], 1)
+    with pytest.raises(ValueError, match="no residual"):
+        grad_ew_codes([("relu", {}, 0)], 1)
+    with pytest.raises(ValueError, match="softmax'"):
+        grad_ew_codes([("softmax", {}, None)], 0)
+    with pytest.raises(ValueError, match="at most"):
+        grad_ew_codes([("relu", {}, None)] * 9, 0)
+
+
+@pytest.mark.parametrize("M,N,K,want", [
+    (128, 4096, 1024, 6), (1024, 4096, 1024, 3), (128, 128, 1024, 16),
+    (1024, 1024, 1024, 3), (37, 130, 50, 1), (8, 8, 4096, 64), (4, 4, 3, 1)])
+def test_grad_splits_cover_k_and_fill_the_card(M, N, K, want):
+    """The route's shapes split K: too few output tiles for the card's
+    396 block slots (S=128), or a last wave left short (S=1024)."""
+    splits, per = k_splits(M, N, K)
+    assert splits == want
+    assert per % 8 == 0 and (splits - 1) * per < K <= splits * per
+    assert splits == 1 or per >= 64
+    assert common.smem_ok(grad_smem_bytes())
+
+
+def test_grad_launch_count_per_call():
+    """One launch when the tail is elementwise and K is not split; the row
+    pass joins for a softmax_grad or split partial sums."""
+    gelu = [("gelu_grad", {}, 0)]
+    soft = [("softmax_grad", {}, 0), ("scale", {"s": 0.125}, None)]
+    assert grad_launches(37, 130, 50, gelu) == 1
+    assert grad_launches(37, 130, 50, soft) == 2
+    assert grad_launches(128, 4096, 1024, gelu) == 2     # split K
+    assert grad_launches(1024, 4096, 1024, gelu) == 2
+    assert grad_launches(128, 128, 1024, soft) == 2
+
+
+def test_grad_rejects_bad_operands():
+    z = torch.zeros
+    with pytest.raises(ValueError, match="chain"):
+        fused_matmul_grad(z(4, 3), z(4, 5), ew=())
+    with pytest.raises(ValueError, match="extras"):
+        fused_matmul_grad(z(4, 3), z(3, 5), z(5, 4), ew=(("relu_grad", {}, 0),))
+    with pytest.raises(TypeError):
+        fused_matmul_grad(z(4, 3), z(3, 5), z(4, 5).double(),
+                          ew=(("relu_grad", {}, 0),))
+    with pytest.raises(ValueError, match="residual"):
+        matmul_grad_plain(z(4, 3), z(3, 5), ew=(("gelu_grad", {}, 0),))
+
+
+# --------------------------------------------------------------------------
 # dispatch and the build
 # --------------------------------------------------------------------------
 
@@ -267,6 +425,16 @@ def test_cpu_tensors_run_the_plain_version_and_launch_nothing():
     assert FLASH_LIB._lib is None and CHAIN_LIB._lib is None   # nothing built
 
 
+def test_cpu_tensors_run_the_grad_plain_version_and_launch_nothing():
+    before = GRAD_LIB.launches
+    a, x = (torch.from_numpy(_rand((8, 8), i)) for i in range(2))
+    ew = (("gelu_grad", {}, 0),)
+    torch.testing.assert_close(fused_matmul_grad(a, a, x, ew=ew),
+                               matmul_grad_plain(a, a, x, ew=ew),
+                               rtol=0, atol=0)
+    assert GRAD_LIB.launches == before and GRAD_LIB._lib is None
+
+
 def test_mixed_devices_raise():
     with pytest.raises(ValueError, match="one CUDA device"):
         common.on_card(torch.zeros(2), torch.zeros(2, device="meta"))
@@ -274,18 +442,19 @@ def test_mixed_devices_raise():
 
 
 def test_library_paths_hash_the_sources():
-    for lib in (FLASH_LIB, CHAIN_LIB):
+    for lib in (FLASH_LIB, CHAIN_LIB, GRAD_LIB):
         path = lib.path
         assert path.parent == common.BUILD_DIR and path.suffix == ".so"
         assert path.name.startswith(lib.source.stem + "-")
         assert path == lib.path                    # stable
-    assert FLASH_LIB.path != CHAIN_LIB.path
+    assert len({FLASH_LIB.path, CHAIN_LIB.path, GRAD_LIB.path}) == 3
     assert "sm_90a" in " ".join(common.NVCC_FLAGS)
 
 
 @pytest.mark.parametrize("source,replaces", [
     ("flashattn.cu", "repro/kernels/flashattn/flashattn.py: flash_attention"),
     ("chain.cu", "repro/kernels/streamfuse/chain.py: fused_matmul_chain"),
+    ("chain_grad.cu", "repro/kernels/streamfuse/chain.py: fused_matmul_grad"),
 ])
 def test_kernel_sources_name_what_they_replace(source, replaces):
     text = (common.CSRC / source).read_text()

@@ -1,10 +1,12 @@
 """The port's op registry against the reference's jnp bodies.
 
 Same seeded numpy inputs through both registries.  Indexing and exact
-arithmetic (identity, dup, transpose, add, scale) must match bit for bit;
-gelu, softmax and matmul within rtol 1e-6 / atol 2e-6 (torch and XLA:CPU
-evaluate tanh, exp and the dot in another order: about 1e-6 apart on
-unit-scale inputs).  Every other kind is not ported and must say so.
+arithmetic (identity, dup, transpose, bcast, add, vadd, affine, scale,
+mul, divc, relu_grad) must match bit for bit; gelu, softmax, matmul, the
+reductions and the gradient and optimizer kinds within rtol 1e-6 /
+atol 2e-6 (torch and XLA:CPU evaluate tanh, exp, pow and the sums in
+another order: about 1e-6 apart on unit-scale inputs).  Every other kind
+is not ported and must say so.
 """
 
 import numpy as np
@@ -17,8 +19,14 @@ from repro.core import ops as ref_ops  # noqa: E402
 from repro_torch.core import frontend as F  # noqa: E402
 from repro_torch.core import ops  # noqa: E402
 
-PORTED = ["add", "dup", "fused", "gelu", "identity", "matmul", "scale",
-          "softmax", "transpose"]
+PORTED = ["adamw_step", "add", "affine", "bcast", "clip_scale", "divc", "dup",
+          "fused", "gelu", "gelu_grad", "identity", "lr_sched", "matmul",
+          "mean_all", "mul", "relu_grad", "scale", "softmax", "softmax_grad",
+          "sumsq", "transpose", "vadd"]
+# The update graph's optimizer attributes (the reference's defaults).
+ADAM = {"b1": 0.9, "b2": 0.95, "eps": 1e-8, "wd": 0.1}
+SCHED = {"lr": 3e-4, "warmup_steps": 100, "total_steps": 10000,
+         "min_lr_frac": 0.1}
 BAND = dict(rtol=1e-6, atol=2e-6)
 
 
@@ -52,6 +60,24 @@ EXACT = {
     "add": (ops.OpSpec("add", ("a", "b"), ("y",)), [(6, 5), (6, 5)]),
     "scale": (ops.OpSpec("scale", ("x",), ("y",), {"s": 0.125}), [(6, 5)]),
     "scale_odd": (ops.OpSpec("scale", ("x",), ("y",), {"s": 1 / 3}), [(6, 5)]),
+    "vadd_sub": (ops.OpSpec("vadd", ("a", "b"), ("y",),
+                            {"alpha": 1.0, "beta": -1.0}), [(6, 5), (6, 5)]),
+    "vadd_scaled": (ops.OpSpec("vadd", ("a", "b"), ("y",),
+                               {"alpha": 0.5, "beta": 2.0}), [(6, 5), (6, 5)]),
+    "mul": (ops.OpSpec("mul", ("a", "b"), ("y",)), [(6, 5), (6, 5)]),
+    "affine_neg": (ops.OpSpec("affine", ("x",), ("y",), {"a": -1.0, "b": 2.5}),
+                   [(6, 5)]),
+    "affine_pos": (ops.OpSpec("affine", ("x",), ("y",), {"a": 1.0, "b": 1.0}),
+                   [(6, 5)]),
+    "affine_any": (ops.OpSpec("affine", ("x",), ("y",), {"a": 0.3, "b": -1.0}),
+                   [(6, 5)]),
+    "divc": (ops.OpSpec("divc", ("x",), ("y",), {"c": 3.0}), [(6, 5)]),
+    "divc_count": (ops.OpSpec("divc", ("x",), ("y",), {"c": 2048.0}),
+                   [(1, 1)]),
+    "bcast": (ops.OpSpec("bcast", ("x",), ("y",), {"shape": (6, 5)}),
+              [(1, 1)]),
+    "relu_grad": (ops.OpSpec("relu_grad", ("g", "x"), ("y",)),
+                  [(6, 5), (6, 5)]),
 }
 
 BANDED = {
@@ -63,6 +89,14 @@ BANDED = {
     "matmul": (ops.OpSpec("matmul", ("a", "b"), ("y",)), [(16, 64), (64, 24)]),
     "matmul_batched": (ops.OpSpec("matmul", ("a", "b"), ("y",)),
                        [(3, 8, 16), (3, 16, 8)]),
+    "mean_all": (ops.OpSpec("mean_all", ("x",), ("y",)), [(32, 64)]),
+    "gelu_grad": (ops.OpSpec("gelu_grad", ("g", "x"), ("y",)),
+                  [(64, 48), (64, 48)]),
+    "softmax_grad": (ops.OpSpec("softmax_grad", ("g", "y"), ("o",),
+                                {"axis": -1}), [(32, 40), (32, 40)]),
+    "softmax_grad_axis0": (ops.OpSpec("softmax_grad", ("g", "y"), ("o",),
+                                      {"axis": 0}), [(32, 40), (32, 40)]),
+    "sumsq": (ops.OpSpec("sumsq", ("x",), ("y",)), [(64, 48)]),
     "fused": (ops.OpSpec("fused", parts=(
         ops.OpSpec("scale", ("x",), ("h",), {"s": 2.0}),
         ops.OpSpec("gelu", ("h",), ("y",)))), [(16, 32)]),
@@ -100,8 +134,9 @@ def test_registry_holds_exactly_the_ported_kinds():
     assert ops.registered_ops() == PORTED
 
 
-@pytest.mark.parametrize("kind", ["relu", "conv2d", "mv", "vadd",
-                                  "mean_all", "gelu_grad"])
+@pytest.mark.parametrize("kind", ["relu", "conv2d", "mv",
+                                  "conv2d_input_grad", "maxpool2d_grad",
+                                  "rglru_scan"])
 def test_unported_kind_raises_naming_it(kind):
     with pytest.raises(ops.UnknownOpError, match=kind):
         ops.materialize(ops.OpSpec(kind, ("x",), ("y",)))
@@ -119,6 +154,60 @@ def test_dup_and_identity_alias_without_writing():
     assert ops.materialize(ops.OpSpec("identity", ("x",), ("y",)))(
         {"x": x})["y"] is x
     torch.testing.assert_close(x, before, rtol=0, atol=0)
+
+
+def _scalar(v):
+    return np.full((1, 1), v, np.float32)
+
+
+# (spec, inputs) of the update graph's kinds at the values a train step
+# gives them: the step counter before, at and past warmup, a gradient
+# norm above and below the clip, moments at several steps.
+OPTIMIZER = {
+    **{f"lr_sched_step{n}": (ops.OpSpec("lr_sched", ("s",), ("lr",), SCHED),
+                             [_scalar(n)])
+       for n in (1, 3, 99, 100, 500, 9999, 20000)},
+    "clip_scale_clipped": (ops.OpSpec("clip_scale", ("ss",), ("sc", "n"),
+                                      {"max_norm": 1.0}), [_scalar(16.7)]),
+    "clip_scale_under": (ops.OpSpec("clip_scale", ("ss",), ("sc", "n"),
+                                    {"max_norm": 1.0}), [_scalar(0.25)]),
+    "clip_scale_zero": (ops.OpSpec("clip_scale", ("ss",), ("sc", "n"),
+                                   {"max_norm": 1.0}), [_scalar(0.0)]),
+    **{f"adamw_step{n}": (ops.OpSpec(
+        "adamw_step", ("p", "g", "m", "v", "sc", "lr", "s"),
+        ("p2", "m2", "v2"), ADAM),
+        [_rand(16, 24, seed=1) * 0.1, _rand(16, 24, seed=2),
+         _rand(16, 24, seed=3) * 0.01, np.abs(_rand(16, 24, seed=4)) * 1e-4,
+         _scalar(0.4), _scalar(3e-4 * (n + 1) / 100), _scalar(n)])
+       for n in (1, 7, 500)},
+}
+
+
+@pytest.mark.parametrize("case", sorted(OPTIMIZER))
+def test_optimizer_kinds_within_band(case):
+    spec, arrays = OPTIMIZER[case]
+    got, want = _both(spec, arrays)
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype
+        np.testing.assert_allclose(got[k], want[k], **BAND)
+
+
+def test_bcast_is_an_expand_view():
+    x = torch.full((1, 1), 0.5)
+    y = ops.materialize(ops.OpSpec("bcast", ("x",), ("y",),
+                                   {"shape": (3, 4)}))({"x": x})["y"]
+    assert y.shape == (3, 4) and y.stride() == (0, 0)
+    assert y.data_ptr() == x.data_ptr()
+
+
+def test_divc_is_true_division():
+    """``x / c``, not ``x * (1 / c)``: the two differ on some inputs."""
+    x = torch.from_numpy(_rand(64, 64))
+    spec = ops.OpSpec("divc", ("x",), ("y",), {"c": 3.0})
+    y = ops.materialize(spec)({"x": x})["y"]
+    np.testing.assert_array_equal(y.numpy(), x.numpy() / np.float32(3.0))
+    assert (y != x * np.float32(1 / 3)).any()
 
 
 def test_transpose_is_a_view():
