@@ -362,11 +362,13 @@ class CompiledTrainStep:
         return new_params, new_state, metrics
 
     def verify(self, *arrays, params: dict | None = None,
-               rtol: float = 2e-3, atol: float = 1e-4, **named) -> None:
+               rtol: float = 2e-3, atol: float = 1e-4, **named) -> dict:
         """Check the compiled loss and gradients against
         ``torch.autograd.grad`` through the source graph executed task by
         task (the oracle), on the same device, within the reference's
-        band."""
+        band.  Returns ``{"loss" or parameter: (max abs error, max abs
+        oracle value)}``, so a caller can hold each tensor to a band of its
+        own scale."""
         import torch
         g = self.graphs
         params = dict(params) if params is not None else self.init_params()
@@ -377,16 +379,19 @@ class CompiledTrainStep:
         env.update(zip(self.param_names, leaves))
         ref_loss = self.source.execute(env)[g.loss].reshape(())
         ref_grads = torch.autograd.grad(ref_loss, leaves, allow_unused=True)
-        np.testing.assert_allclose(
-            _host(loss).reshape(()), _host(ref_loss), rtol=rtol, atol=atol,
-            err_msg="loss diverged from torch.autograd through the oracle")
+        pairs = {"loss": (_host(loss).reshape(()), _host(ref_loss))}
         for w, leaf, ref in zip(self.param_names, leaves, ref_grads):
+            pairs[w] = (_host(grads[w]),
+                        _host(torch.zeros_like(leaf) if ref is None else ref))
+        for name, (got, want) in pairs.items():
+            what = name if name == "loss" else f"grad {name}"
             np.testing.assert_allclose(
-                _host(grads[w]),
-                _host(torch.zeros_like(leaf) if ref is None else ref),
-                rtol=rtol, atol=atol,
-                err_msg=f"grad {w} diverged from torch.autograd through "
-                        f"the oracle")
+                got, want, rtol=rtol, atol=atol,
+                err_msg=f"{what} diverged from torch.autograd through the "
+                        f"oracle")
+        return {name: (float(np.abs(got - want).max()),
+                       float(np.abs(want).max()))
+                for name, (got, want) in pairs.items()}
 
     # ---- introspection and tooling ---------------------------------------
     def report(self) -> str:
@@ -430,15 +435,15 @@ def _compile_train_step(source: DataflowGraph, device, *, options=None,
 
 
 def train_state_from_numpy(params: dict[str, Any], opt_state: dict,
-                           step: CompiledTrainStep, device=None):
+                           step: CompiledTrainStep):
     """A reference run's numpy parameters and its ``{"m", "v", "step"}``
-    AdamW state as the port's: tensors on ``device`` (the step's own by
-    default), parameters at their declared dtype, moments float32, the
-    counter an int32 scalar.  Returns ``(params, opt_state)``, ready for
+    AdamW state as the port's: tensors on the step's device, parameters at
+    their declared dtype, moments float32, the counter an int32 scalar.
+    Returns ``(params, opt_state)``, ready for
     :meth:`CompiledTrainStep.step`, which then takes the reference's step
     from the same state."""
     import torch
-    device = step.device if device is None else torch.device(device)
+    device = step.device
     missing = sorted(set(step.param_names) - set(params))
     if missing:
         raise KeyError(f"parameters missing: {missing}")

@@ -257,18 +257,17 @@ def k_splits(M: int, N: int, K: int) -> tuple[int, int]:
     return best[1], best[2]
 
 
-def grad_smem_bytes() -> int:
-    """Two buffers each of the padded a and w tiles."""
-    return 4 * 2 * _BKK * ((GRAD_BM + 4) + (GRAD_BN + 4))
+def grad_one_pass(M: int, N: int, K: int, ew) -> bool:
+    """Whether a :func:`fused_matmul_grad` call is the tiled product
+    alone: the contraction is not split and no ``softmax_grad`` follows.
+    Otherwise the row pass follows it."""
+    return (k_splits(M, N, K)[0] == 1
+            and all(kind != "softmax_grad" for kind, _, _ in ew))
 
 
 def grad_launches(M: int, N: int, K: int, ew) -> int:
-    """Kernel launches of one :func:`fused_matmul_grad` call: the tiled
-    product, plus the row pass when the contraction is split or the tail
-    holds a ``softmax_grad``."""
-    one_pass = (k_splits(M, N, K)[0] == 1
-                and all(kind != "softmax_grad" for kind, _, _ in ew))
-    return 1 if one_pass else 2
+    """Kernel launches of one :func:`fused_matmul_grad` call."""
+    return 1 if grad_one_pass(M, N, K, ew) else 2
 
 
 def _check_grad(a, w, extras):
@@ -292,9 +291,42 @@ def _c_array(ctype, values):
     return (ctype * max(len(values), 1))(*values)
 
 
-def fused_matmul_grad(a, w, *extras, ew: Sequence[GradStage]):
+class GradTail:
+    """A gradient tail as the kernel takes it: the stages' op codes and
+    attributes as C arrays, and the first ``softmax_grad`` (where the row
+    pass takes over).  The mmgrad factory builds one a route, so a call
+    does not re-derive them; the extras' stride arrays are kept by their
+    strides, which a route's operands repeat."""
+
+    def __init__(self, ew: Sequence[GradStage], n_extras: int):
+        ops, ea, eb, ex = grad_ew_codes(ew, n_extras)
+        self.ew = tuple(ew)
+        self.n_extras = n_extras
+        self.first_sg = (ops.index(_SOFTMAX_GRAD) if _SOFTMAX_GRAD in ops
+                         else len(ops))
+        self.n_ops = len(ops)
+        self.codes = (len(ops), _c_array(ctypes.c_int, ops),
+                      _c_array(ctypes.c_float, ea),
+                      _c_array(ctypes.c_float, eb),
+                      _c_array(ctypes.c_int, ex), n_extras)
+        self._strides: dict = {}
+
+    def args(self, extras) -> tuple:
+        """The tail's arguments of both C entry points for these extras."""
+        key = tuple(e.stride() for e in extras)
+        strides = self._strides.get(key)
+        if strides is None:
+            strides = self._strides[key] = (
+                _c_array(ctypes.c_longlong, [s[0] for s in key]),
+                _c_array(ctypes.c_longlong, [s[1] for s in key]))
+        ptrs = _c_array(ctypes.c_void_p, [e.data_ptr() for e in extras])
+        return (*self.codes, ptrs, *strides)
+
+
+def fused_matmul_grad(a, w, *extras, ew: "Sequence[GradStage] | GradTail"):
     """``ew(a @ w, *extras)`` (tensors on the card), or its plain version
-    (on the CPU).
+    (on the CPU).  ``ew`` is the stages, or a :class:`GradTail` built from
+    them once.
 
     On the card: the tiled product over an (N/128, M/64, splits) grid,
     the tail's leading elementwise stages applied in registers on the
@@ -305,38 +337,35 @@ def fused_matmul_grad(a, w, *extras, ew: Sequence[GradStage]):
     applies the rest of the tail.  Deterministic; no atomics."""
     import torch
     _check_grad(a, w, extras)
+    tail = ew if isinstance(ew, GradTail) else GradTail(ew, len(extras))
+    if tail.n_extras != len(extras):
+        raise ValueError(f"the tail was built for {tail.n_extras} extras, "
+                         f"got {len(extras)}")
     if not on_card(a, w, *extras):
-        return matmul_grad_plain(a, w, *extras, ew=ew)
-    ops, ea, eb, ex = grad_ew_codes(ew, len(extras))
+        return matmul_grad_plain(a, w, *extras, ew=tail.ew)
     M, K = a.shape
     N = w.shape[1]
     splits, per = k_splits(M, N, K)
-    first_sg = ops.index(_SOFTMAX_GRAD) if _SOFTMAX_GRAD in ops else len(ops)
+    one_pass = grad_one_pass(M, N, K, tail.ew)
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
-    one_pass = splits == 1 and first_sg == len(ops)
     if one_pass:
-        dst, n_apply = out, len(ops)
+        dst, n_apply = out, tail.n_ops
     else:
         dst = torch.empty((splits, M, N), dtype=torch.float32,
                           device=a.device)
-        n_apply = first_sg if splits == 1 else 0
-    tail = (len(ops), _c_array(ctypes.c_int, ops),
-            _c_array(ctypes.c_float, ea), _c_array(ctypes.c_float, eb),
-            _c_array(ctypes.c_int, ex), len(extras),
-            _c_array(ctypes.c_void_p, [e.data_ptr() for e in extras]),
-            _c_array(ctypes.c_longlong, [e.stride(0) for e in extras]),
-            _c_array(ctypes.c_longlong, [e.stride(1) for e in extras]))
+        n_apply = tail.first_sg if splits == 1 else 0
+    args = tail.args(extras)
     code, stream = dtype_code(a), stream_of(a)
     with torch.cuda.device(a.device):
         GRAD_LIBRARY.launch("codo_matmul_grad", code, a.data_ptr(),
                             a.stride(0), a.stride(1), w.data_ptr(),
                             w.stride(0), w.stride(1), dst.data_ptr(),
                             int(one_pass), M, N, K, per, splits, n_apply,
-                            *tail, stream)
+                            *args, stream)
         if not one_pass:
             GRAD_LIBRARY.launch("codo_matmul_grad_rows", code,
                                 dst.data_ptr(), splits, out.data_ptr(), M, N,
-                                n_apply, *tail, stream)
+                                n_apply, *args, stream)
     return out
 
 
@@ -362,8 +391,9 @@ def matmul_grad_plain(a, w, *extras, ew: Sequence[GradStage]):
     return h.to(a.dtype)
 
 
-__all__ = ["EW_CODES", "GRAD_CODES", "GRAD_KINDS", "GRAD_LIBRARY", "LIBRARY",
-           "apply_ew_plain", "apply_grad_ew_plain", "chunk_columns",
-           "ew_codes", "fused_matmul_chain", "fused_matmul_grad",
-           "grad_ew_codes", "grad_launches", "k_splits",
-           "matmul_chain_plain", "matmul_grad_plain"]
+__all__ = ["EW_CODES", "GRAD_CODES", "GRAD_KINDS", "GRAD_LIBRARY", "GradTail",
+           "LIBRARY", "apply_ew_plain", "apply_grad_ew_plain",
+           "chunk_columns", "ew_codes", "fused_matmul_chain",
+           "fused_matmul_grad", "grad_ew_codes", "grad_launches",
+           "grad_one_pass", "k_splits", "matmul_chain_plain",
+           "matmul_grad_plain"]

@@ -13,19 +13,20 @@ pattern name             op pattern                   kernel
 The feasibility guards are the reference's, pure graph analysis.  The
 factories turn the chain's elementwise tasks into data for the kernel
 (``(kind, attrs)`` stages; for mmgrad also the index of each stage's
-residual operand); where the step runs follows from its operands' device
+residual operand, turned into the kernel's op codes once a route); where
+the step runs follows from its operands' device
 (:mod:`repro_torch.kernels.common`).  There is no VMEM budget: the
-kernels tile what the TPU kernel held whole, so the factories check only
-that their tiling fits (``smem_ok``).  ``streamfuse.conv`` and
+kernels tile what the TPU kernel held whole (mmchain sizes its N1 chunk
+to the shared memory, mmgrad's tiles are fixed and small), so the
+factories check only the tail's length.  ``streamfuse.conv`` and
 ``streamfuse.softmaxmm`` are not ported yet.
 """
 
 from __future__ import annotations
 
 from ...core.routing import KernelPattern, register_kernel_pattern
-from ..common import all_f32, smem_ok
-from .chain import (MAX_EW, fused_matmul_chain, fused_matmul_grad,
-                    grad_smem_bytes)
+from ..common import all_f32
+from .chain import MAX_EW, GradTail, fused_matmul_chain, fused_matmul_grad
 
 # Elementwise spec kinds a kernel can replay on a tile: exactly one
 # operand (the chain value), attrs-only parameters.
@@ -126,13 +127,14 @@ def _mm_grad_factory(graph, group, tasks, tile=None):
     a_buf, w_buf = mm.spec.ins
     out_buf = tail[-1].spec.outs[0]
     ew, extra_bufs = grad_tail(tail)
-    if len(ew) > MAX_EW or not smem_ok(grad_smem_bytes()):
-        return None                     # a tail or tiling the kernel lacks
+    if len(ew) > MAX_EW:
+        return None                     # longer tail than the kernel replays
+    codes = GradTail(ew, len(extra_bufs))
 
     def run(env):
         return {out_buf: fused_matmul_grad(env[a_buf], env[w_buf],
                                            *(env[b] for b in extra_bufs),
-                                           ew=ew)}
+                                           ew=codes)}
 
     return run
 

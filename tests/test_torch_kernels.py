@@ -44,12 +44,13 @@ from repro_torch.kernels.streamfuse import (LIBRARY as CHAIN_LIB,  # noqa: E402
                                             matmul_grad_plain,
                                             matmul_grad_ref)
 from repro_torch.kernels.streamfuse.chain import (EW_CODES,  # noqa: E402
-                                                  GRAD_CODES, apply_ew_plain,
+                                                  GRAD_CODES, GradTail,
+                                                  apply_ew_plain,
                                                   apply_grad_ew_plain,
                                                   chunk_columns, ew_codes,
                                                   grad_ew_codes,
                                                   grad_launches,
-                                                  grad_smem_bytes, k_splits)
+                                                  grad_one_pass, k_splits)
 from repro_torch.kernels.streamfuse.chain import \
     smem_bytes as smem_bytes_chain  # noqa: E402
 
@@ -379,7 +380,6 @@ def test_grad_splits_cover_k_and_fill_the_card(M, N, K, want):
     assert splits == want
     assert per % 8 == 0 and (splits - 1) * per < K <= splits * per
     assert splits == 1 or per >= 64
-    assert common.smem_ok(grad_smem_bytes())
 
 
 def test_grad_launch_count_per_call():
@@ -392,6 +392,33 @@ def test_grad_launch_count_per_call():
     assert grad_launches(128, 4096, 1024, gelu) == 2     # split K
     assert grad_launches(1024, 4096, 1024, gelu) == 2
     assert grad_launches(128, 128, 1024, soft) == 2
+    assert grad_one_pass(37, 130, 50, gelu)
+    assert not grad_one_pass(128, 4096, 1024, gelu)
+
+
+def test_prepared_tail_gives_the_same_result_and_keeps_its_arrays():
+    """The mmgrad factory hands the wrapper a GradTail built once a
+    route: the same answer as the stages themselves, the op codes as the
+    kernel takes them, and one set of stride arrays per stride pattern."""
+    ew = (("softmax_grad", {}, 0), ("scale", {"s": 0.125}, None),
+          ("relu_grad", {}, 1))
+    tail = GradTail(ew, 2)
+    assert (tail.n_ops, tail.first_sg) == (3, 0)
+    n, ops, _, _, ex, n_extras = tail.codes
+    assert (n, list(ops), list(ex), n_extras) == (
+        3, [GRAD_CODES[k][0] for k, _, _ in ew], [0, -1, 1], 2)
+    a = torch.from_numpy(_rand((12, 20), 0))
+    w = torch.from_numpy(_rand((16, 20), 1)).t()
+    y = torch.softmax(torch.from_numpy(_rand((12, 16), 2)), -1)
+    x = torch.from_numpy(_rand((12, 16), 3))
+    torch.testing.assert_close(fused_matmul_grad(a, w, y, x, ew=tail),
+                               matmul_grad_plain(a, w, y, x, ew=ew),
+                               rtol=0, atol=0)
+    first, again = tail.args((y, x)), tail.args((y.clone(), x.clone()))
+    assert first[-2] is again[-2] and first[-1] is again[-1]
+    assert list(first[-2]) == [16, 16] and list(first[-1]) == [1, 1]
+    with pytest.raises(ValueError, match="built for 2 extras"):
+        fused_matmul_grad(a, w, y, ew=tail)
 
 
 def test_grad_rejects_bad_operands():

@@ -97,7 +97,7 @@ def runs():
             ref_p, ref_s, ref_m = theirs.step(ref_p, ref_s, x, t)
             out["ref_steps"].append((ref_p, ref_s, ref_m))
         out["launched"] = GRAD_LIBRARY.launches - launches
-        ours.verify(x, t, params=p)
+        out["verify"] = ours.verify(x, t, params=p)
     return out
 
 
@@ -237,12 +237,24 @@ def test_state_lives_on_the_device_as_tensors(runs):
     assert int(s["step"]) == 1
 
 
+def test_verify_reports_each_tensor_beside_its_scale(runs):
+    """verify() returns (max abs error, max abs oracle value) for the loss
+    and every gradient, so the card's smoke run can hold each tensor to a
+    band of its own scale; here they agree to the summation order."""
+    report = runs["verify"]
+    assert set(report) == {"loss", *runs["ours"].param_names}
+    for name, (err, scale) in report.items():
+        assert scale > 0.0, name
+        assert err <= 1e-4 * scale, (name, err, scale)
+
+
 def test_train_state_from_numpy_checks_what_it_carries(runs):
     ours, params = runs["ours"], runs["params"]
     state = runs["theirs"].init_opt_state(params)
     p, s = codo_torch.train_state_from_numpy(params, state, ours)
     w = ours.param_names[0]
     np.testing.assert_array_equal(p[w].numpy(), params[w])
+    assert {p[w].device, s["m"][w].device, s["step"].device} == {ours.device}
     assert s["step"].dtype == torch.int32 and s["m"][w].dtype == torch.float32
     with pytest.raises(KeyError, match="missing"):
         codo_torch.train_state_from_numpy(
