@@ -10,13 +10,15 @@ In order, and failing (non-zero exit, no result line) at the first
 problem:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds every kernel of the two paths from ``src/repro_torch/csrc``
-   (one ``nvcc`` per source, all started together) and prints the time;
+2. builds every kernel of the three paths from ``src/repro_torch/csrc``
+   (one ``nvcc`` per source, all started together) and prints the time
+   and each kernel's registers and spills;
 3. holds each kernel against its plain PyTorch version on the card, at
    the kernel sweep's shapes and at the paths' own, printing the max
    error beside its stated tolerance, and times kernel, plain version,
    bound and a library yardstick, and takes each kernel's profiled device
-   time over the same calls;
+   time over the same calls; shows that the generic ``conv2d`` body is
+   full float32 on the card with cuDNN's TF32 flag at its default;
 4. drives the serving path — ``codo_torch.compile(gpt2_block_fn, (S,
    1024))`` with the default cost gate, distinct seeded weights bound
    through ``params_from_numpy`` — at S=128 and S=1024: four requests
@@ -30,7 +32,15 @@ problem:
    launch counters zeroed just before and read just after, ``verify()``
    on the card with each gradient also held to a band of its own scale,
    and (S=128) one step against the same step of the port on the CPU;
-6. prints the card line, the ``kernels`` JSON line and, last, the
+6. drives the CNN serving path — ``codo_torch.compile(resnet18_fn, (N, 3,
+   224, 224))`` at N=1 and N=8 and ``vgg16_fn`` at N=1, default gate,
+   fan-in-scaled seeded weights (``random_inputs``) bound through
+   ``params_from_numpy`` — with the routed groups asserted (five
+   ``streamfuse.conv`` chains; thirteen plus the ``streamfuse.mmchain``
+   head), four requests with the launch counters zeroed just before and
+   read just after (one conv kernel launch per chain a request), then
+   ``verify()`` on the card and (N=1) the card against the port on the CPU;
+7. prints the card line, the ``kernels`` JSON line and, last, the
    ``{"ok": true, "device": ...}`` line.
 
 The full record (every check, every timing) goes to
@@ -87,6 +97,31 @@ GRAD_TOL = 1e-4
 # skipped update (1) or a flipped sign (2) does not.
 UPDATE_TOL = 1e-2
 MMGRAD = "pallas:streamfuse.mmgrad"
+# The CNN path: ImageNet's 224 x 224 input, ResNet-18 at N = 1 and 8,
+# VGG-16 at N = 1.  Conv tolerances: the reference sweep's 1e-4
+# (tests/test_kernels.py, rtol and atol) at its shapes and the ragged
+# ones; at the route shapes 1e-4 of each output's own scale (sums of up
+# to 4608 float32 products in another order than the plain version: the
+# readings are ~1e-6 of the scale).
+IMAGE = 224
+CNN_BATCHES = (1, 8)
+CONV_TOL = 1e-4
+CONV = "pallas:streamfuse.conv"
+MMCHAIN = "pallas:streamfuse.mmchain"
+# The routed pad -> conv -> relu chains, (C, CO, H = W), K = 3: ResNet-18's
+# five stride-1 chains and VGG-16's thirteen.
+RESNET_ROUTES = [(64, 64, 56), (64, 64, 56), (128, 128, 28), (256, 256, 14),
+                 (512, 512, 7)]
+VGG_ROUTES = [(3, 64, 224), (64, 64, 224), (64, 128, 112), (128, 128, 112),
+              (128, 256, 56), (256, 256, 56), (256, 256, 56), (256, 512, 28),
+              (512, 512, 28), (512, 512, 28), (512, 512, 14), (512, 512, 14),
+              (512, 512, 14)]
+# VGG-16's fc -> relu -> fc head, routed to the chain kernel at one row.
+VGG_HEAD = (1, 512 * 7 * 7, 512, 512)
+RELU = (("relu", {}),)
+# The generic conv2d body on the card against float64, with cuDNN's TF32
+# flag at its default: full float32 reads ~1e-7 of the scale, TF32 ~1e-3.
+F32_CONV_TOL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -100,6 +135,15 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip()
+
+
+def zero_counts() -> None:
+    """Every kernel library's launch counters to 0 (just before a path
+    is driven)."""
+    from repro_torch.kernels import flashattn, streamfuse
+    for lib in (flashattn.LIBRARY, streamfuse.LIBRARY,
+                streamfuse.GRAD_LIBRARY, streamfuse.CONV_LIBRARY):
+        lib.reset_counts()
 
 
 def time_ms(fn, iters: int) -> float:
@@ -307,6 +351,293 @@ def check_grad(record: list) -> None:
                   matmul_grad_plain(a, w, e, ew=ew), TOL["f32_wide"])
 
 
+def conv_operands(N, C, H, W, CO, K, g, dtype=None):
+    """x (N, C, H, W) and w (CO, C, K, K) on the card, w over the square
+    root of its fan-in (outputs O(1))."""
+    import torch
+    x = torch.randn(N, C, H, W, generator=g, device="cuda")
+    w = torch.randn(CO, C, K, K, generator=g, device="cuda") / math.sqrt(
+        C * K * K)
+    return (x, w) if dtype is None else (x.to(dtype), w.to(dtype))
+
+
+def check_scaled(record: list, name: str, got, want, tol: float) -> float:
+    """Max error over the reference's own scale, failing past ``tol``."""
+    import torch
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        fail(f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)} or "
+             f"non-finite values")
+    err, scale = max_err(got, want), float(want.float().abs().max())
+    rel = scaled(name, err, scale, tol)
+    print(f"  {name:<48s} max_abs_err {err:.3e} = {rel:.2e} of scale "
+          f"{scale:.2f}  tol {tol:.0e}  ok")
+    record.append({"case": name, "max_abs_err": err, "max_abs_ref": scale,
+                   "rel_err": rel, "tol": tol, "ok": True})
+    return err
+
+
+def check_conv(record: list) -> None:
+    """fused_pad_conv_relu against pad_conv_relu_plain: the reference
+    sweep's shapes in float32 and bfloat16, ragged shapes, ResNet-18's
+    route shapes at N = 1 and 8 and VGG-16's at N = 1; and VGG-16's
+    one-row mmchain head."""
+    import torch
+    from repro_torch.kernels.streamfuse import (fused_matmul_chain,
+                                                fused_pad_conv_relu,
+                                                matmul_chain_plain,
+                                                pad_conv_relu_plain)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    sweep = [(1, 3, 16, 16, 8, 3), (2, 4, 8, 12, 4, 5), (1, 8, 24, 24, 16, 3)]
+    ragged = [(1, 3, 9, 7, 5, 7), (2, 3, 5, 13, 6, 5), (2, 5, 17, 30, 70, 3),
+              (3, 3, 31, 29, 9, 5)]
+    for shape in sweep + ragged:
+        for dtype, tol in ([(torch.float32, CONV_TOL),
+                            (torch.bfloat16, TOL["bf16"])]
+                           if shape in sweep else [(torch.float32, CONV_TOL)]):
+            x, w = conv_operands(*shape, g, dtype)
+            check(record, f"conv {'x'.join(map(str, shape))} "
+                  f"{str(dtype)[6:]}", fused_pad_conv_relu(x, w),
+                  pad_conv_relu_plain(x, w), tol)
+    for N, routes, model in [(1, RESNET_ROUTES, "resnet18"),
+                             (8, RESNET_ROUTES, "resnet18"),
+                             (1, VGG_ROUTES, "vgg16")]:
+        for C, CO, H in sorted(set(routes)):
+            x, w = conv_operands(N, C, H, H, CO, 3, g)
+            check_scaled(record, f"conv route {model} {N}x{C}x{H}x{H}->{CO}",
+                         fused_pad_conv_relu(x, w), pad_conv_relu_plain(x, w),
+                         CONV_TOL)
+    M, K, N1, N2 = VGG_HEAD
+    a = torch.randn(M, K, generator=g, device="cuda")
+    w1 = torch.randn(K, N1, generator=g, device="cuda") / math.sqrt(K)
+    w2 = torch.randn(N1, N2, generator=g, device="cuda") / math.sqrt(N1)
+    check_scaled(record, f"mmchain vgg16 head {M}x{K}x{N1}x{N2} relu",
+                 fused_matmul_chain(a, w1, w2, ew=RELU),
+                 matmul_chain_plain(a, w1, w2, ew=RELU), TOL["f32_wide"])
+
+
+def check_conv_precision(record: dict) -> None:
+    """The generic conv2d body on the card, with cuDNN's TF32 flag left at
+    its default, against float64 on the card: full float32.  A plain
+    F.conv2d under the same flag is read beside it."""
+    import torch
+    from repro_torch.core.ops import OpSpec, op_impl
+    flag = torch.backends.cudnn.allow_tf32
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    x, w = conv_operands(1, 256, 16, 16, 256, 3, g)
+    spec = OpSpec("conv2d", ("x", "w"), ("y",), {"stride": 1, "groups": 1})
+    body = op_impl("conv2d")(spec, {"x": x, "w": w})["y"]
+    exact = torch.nn.functional.conv2d(x.double(), w.double())
+    plain = torch.nn.functional.conv2d(x, w)
+    scale = float(exact.abs().max())
+    body_rel = max_err(body, exact) / scale
+    plain_rel = max_err(plain, exact) / scale
+    print(f"  conv2d body, cudnn.allow_tf32={flag}: {body_rel:.2e} of scale "
+          f"against float64 (band {F32_CONV_TOL:.0e}); F.conv2d under the "
+          f"same flag {plain_rel:.2e}")
+    record["conv2d_precision"] = {"cudnn_allow_tf32": flag,
+                                  "body_rel_err": body_rel,
+                                  "plain_conv2d_rel_err": plain_rel,
+                                  "tol": F32_CONV_TOL}
+    if not body_rel <= F32_CONV_TOL:
+        fail(f"the conv2d body is not full float32 on the card "
+             f"({body_rel:.2e} of scale, band {F32_CONV_TOL:.0e})")
+
+
+def measure_conv(N: int, routes, record: dict) -> dict:
+    """The conv kernel at one request's route shapes: kernel, plain and
+    cuDNN (full float32) times, profiled device time, bound and max
+    error; each summed over the request's chains (a shape that repeats is
+    timed once and counted each time)."""
+    import torch
+    from repro_torch.core.ops import full_f32_convolutions
+    from repro_torch.kernels.streamfuse import (fused_pad_conv_relu,
+                                                pad_conv_relu_plain)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6 + N)
+    keys = ("ms", "plain_ms", "library_ms", "device_ms", "flops", "bytes")
+    total = dict.fromkeys(keys, 0.0)
+    total["max_abs_err"], shapes = 0.0, []
+    for C, CO, H in sorted(set(routes), key=routes.index):
+        count = routes.count((C, CO, H))
+        x, w = conv_operands(N, C, H, H, CO, 3, g)
+        err = max_err(fused_pad_conv_relu(x, w), pad_conv_relu_plain(x, w))
+        iters = 20 if N * H * H * C * CO <= 8 * 56 * 56 * 64 * 64 else 5
+
+        def library():
+            with full_f32_convolutions():
+                return torch.relu(torch.nn.functional.conv2d(x, w, padding=1))
+
+        ms, plain = in_turns(lambda: pad_conv_relu_plain(x, w),
+                             lambda: fused_pad_conv_relu(x, w), iters)
+        m = {"ms": ms, "plain_ms": plain, "library_ms": time_ms(library, iters),
+             "device_ms": device_ms(lambda: fused_pad_conv_relu(x, w), iters),
+             "flops": 2.0 * N * H * H * CO * C * 9,
+             "bytes": 4.0 * (N * C * H * H + CO * C * 9 + N * CO * H * H)}
+        m["bound_ms"], m["bound_by"] = bound_ms(m["flops"], m["bytes"])
+        shapes.append({"N": N, "C": C, "CO": CO, "H": H, "count": count,
+                       "max_abs_err": err, **m})
+        for k in keys:
+            total[k] += count * m[k]
+        total["max_abs_err"] = max(total["max_abs_err"], err)
+        print(f"  N={N} conv {C}x{H}x{H}->{CO} (x{count}): kernel "
+              f"{ms:.4f} ms (device {m['device_ms']:.4f})  plain {plain:.4f}"
+              f"  cuDNN {m['library_ms']:.4f}  bound {m['bound_ms']:.4f} "
+              f"({m['bound_by']})")
+    total["bound_ms"], total["bound_by"] = bound_ms(total["flops"],
+                                                    total["bytes"])
+    total["shapes"] = shapes
+    return total
+
+
+def measure_head(record: dict) -> dict:
+    """The chain kernel at VGG-16's one-row fc -> relu -> fc head."""
+    import torch
+    from repro_torch.kernels.streamfuse import (fused_matmul_chain,
+                                                matmul_chain_plain)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    M, K, N1, N2 = VGG_HEAD
+    a = torch.randn(M, K, generator=g, device="cuda")
+    w1 = torch.randn(K, N1, generator=g, device="cuda") / math.sqrt(K)
+    w2 = torch.randn(N1, N2, generator=g, device="cuda") / math.sqrt(N1)
+    err = max_err(fused_matmul_chain(a, w1, w2, ew=RELU),
+                  matmul_chain_plain(a, w1, w2, ew=RELU))
+    ms, plain = in_turns(lambda: matmul_chain_plain(a, w1, w2, ew=RELU),
+                         lambda: fused_matmul_chain(a, w1, w2, ew=RELU), 10)
+    library = time_ms(lambda: torch.relu(a @ w1) @ w2, 10)
+    b, by = bound_ms(2.0 * M * N1 * (K + N2),
+                     4.0 * (M * K + K * N1 + N1 * N2 + M * N2))
+    out = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+               bound_by=by, library_ms=library,
+               device_ms=device_ms(lambda: fused_matmul_chain(
+                   a, w1, w2, ew=RELU), 10))
+    print(f"  vgg16 head mmchain {M}x{K}x{N1}x{N2}: kernel {ms:.4f} ms "
+          f"(device {out['device_ms']:.4f})  plain {plain:.4f}  library "
+          f"{library:.4f}  bound {b:.4f} ({by})")
+    return out
+
+
+def conv_route_shapes(program) -> list:
+    """(C, CO, H) of each routed pad -> conv -> relu chain, read from the
+    lowered program's routes: x from the pad task, w from the conv."""
+    graph = program.graph
+    shapes = []
+    for group in program.lower().groups:
+        for route in group.routes:
+            if route.kernel != "streamfuse.conv":
+                continue
+            pad_t, conv_t = (graph.task(t) for t in route.tasks[:2])
+            x = graph.buffers[pad_t.spec.ins[0]].shape
+            w = graph.buffers[conv_t.spec.ins[1]].shape
+            if x[2] != x[3] or w[2:] != (3, 3):
+                fail(f"unexpected conv route shape x {x}, w {w}")
+            shapes.append((x[1], w[0], x[2]))
+    return shapes
+
+
+def cnn_path(model: str, N: int, routes) -> dict:
+    """codo_torch.compile(<model>_fn, (N, 3, 224, 224)) with the default
+    gate, fan-in-scaled seeded weights (random_inputs) bound through
+    params_from_numpy: the routed groups asserted, four requests with the
+    launch counters zeroed just before and read just after, verify() on
+    the card, and (N = 1) the card against the port on the CPU."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    import codo_torch
+    from repro_torch.kernels.flashattn import LIBRARY as FLASH
+    from repro_torch.kernels.streamfuse import CONV_LIBRARY as CONVLIB
+    from repro_torch.kernels.streamfuse import GRAD_LIBRARY as GRAD
+    from repro_torch.kernels.streamfuse import LIBRARY as CHAIN
+    from repro_torch.kernels.streamfuse.streamfuse import conv_launches
+    from repro_torch.models import dataflow_models as dm
+
+    fn = getattr(dm, f"{model}_fn")
+    shape = (N, 3, IMAGE, IMAGE)
+    t0 = time.perf_counter()
+    program = codo_torch.compile(fn, shape)
+    env = dm.random_inputs(program.graph, seed=SEED + 20 + N)
+    weights = {k: v for k, v in env.items()
+               if program.graph.buffers[k].kind == "weight"}
+    if len({w.tobytes() for w in weights.values()}) != len(weights):
+        fail(f"{model}: bound weights are not distinct")
+    program.bind(**codo_torch.params_from_numpy(weights, program.graph,
+                                                program.device))
+    routed = Counter(g.kernel for g in program.lower().groups if g.routes)
+    compile_s = time.perf_counter() - t0
+    want = ({CONV: len(routes)} if model == "resnet18"
+            else {CONV: len(routes), MMCHAIN: 1})
+    if routed != want:
+        fail(f"{model} N={N}: expected routed groups {want}, got "
+             f"{dict(routed)}")
+    if sorted(conv_route_shapes(program)) != sorted(routes):
+        fail(f"{model} N={N}: route shapes {conv_route_shapes(program)} are "
+             f"not {routes}")
+    rng = np.random.default_rng(SEED + 30 + N)
+    xs = [rng.standard_normal(shape).astype(np.float32)
+          for _ in range(REQUESTS)]
+    program(xs[0])                                  # warm (allocator, libs)
+    torch.cuda.synchronize()
+
+    zero_counts()
+    outs, walls = [], []
+    for x in xs:
+        t = time.perf_counter()
+        y = program(x)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t))
+        outs.append(y)
+    conv_calls = CONVLIB.entry_launches["codo_pad_conv_relu"]
+    launches = {"conv": conv_calls, "conv_all": CONVLIB.launches,
+                "mmchain": CHAIN.launches, "flash": FLASH.launches,
+                "mmgrad": GRAD.launches}
+
+    for y in outs:
+        if tuple(y.shape) != (N, 1000) or not bool(torch.isfinite(y).all()):
+            fail(f"{model} N={N}: output not finite or not ({N}, 1000)")
+    if len({float(y.double().sum()) for y in outs}) != REQUESTS:
+        fail(f"{model} N={N}: distinct requests gave identical outputs")
+    per_request = sum(conv_launches((N, C, H, H), (CO, C, 3, 3))
+                      for C, CO, H in routes)
+    if (conv_calls != REQUESTS * len(routes)
+            or CONVLIB.launches != REQUESTS * per_request):
+        fail(f"{model} N={N}: conv launches {launches}, expected "
+             f"{REQUESTS} x {len(routes)} kernel calls and {REQUESTS} x "
+             f"{per_request} launches in all")
+    if model == "vgg16" and launches["mmchain"] != REQUESTS * 2:
+        fail(f"vgg16: the head's chain kernel ran {launches['mmchain']} "
+             f"launches in {REQUESTS} requests, expected {2 * REQUESTS}")
+    if launches["flash"] or launches["mmgrad"]:
+        fail(f"{model}: a kernel off the path launched: {launches}")
+    program.verify(xs[1], rtol=VERIFY_BAND, atol=VERIFY_BAND)
+    env = program.make_env(xs[1])
+    got = program.lower()(env)[program.output_names[0]]
+    ref = program.source.execute(env)[program.output_names[0]]
+    err, scale = max_err(got, ref), float(ref.abs().max())
+    print(f"  {model} N={N}: groups {dict(routed)}; {REQUESTS} requests, "
+          f"wall {', '.join(f'{w:.3f}' for w in walls)} ms; launches "
+          f"{launches}; verify max_abs_err {err:.3e} (output scale "
+          f"{scale:.3f}) within {VERIFY_BAND:.0e}")
+    result = {"model": model, "N": N, "groups": dict(routed),
+              "compile_s": compile_s, "request_ms": walls,
+              "launches": launches, "conv_launches_per_request": per_request,
+              "verify_max_abs_err": err, "verify_scale": scale,
+              "verify_band": VERIFY_BAND}
+    if N == 1:
+        cpu = codo_torch.compile(fn, shape, device="cpu")
+        cpu.bind(**weights)
+        cpu_err = max_err(outs[0].cpu(), cpu(xs[0]))
+        print(f"  {model} N={N}: card vs the port on the CPU max_abs_err "
+              f"{cpu_err:.3e}")
+        if not cpu_err <= VERIFY_BAND * (1 + float(outs[0].abs().max())):
+            fail(f"{model}: card and CPU disagree ({cpu_err:.3e})")
+        result["cpu_max_abs_err"] = cpu_err
+    env = program.make_env(xs[2])
+    run = program.lower()
+    result["profile"] = profile_device(lambda: run(env))
+    return result
+
+
 def measure_kernels(S: int, record: dict) -> dict:
     """Kernel, plain and library times at the main path's shapes for S,
     the kernel's profiled device time, and the max error there."""
@@ -430,7 +761,7 @@ def main_path(S: int, record: dict) -> dict:
     program(xs[0])                                  # warm (allocator, libs)
     torch.cuda.synchronize()
 
-    FLASH.launches = CHAIN.launches = 0
+    zero_counts()
     outs, walls = [], []
     for x in xs:
         t = time.perf_counter()
@@ -590,7 +921,7 @@ def train_path(S: int) -> dict:
     p1, s1, m1 = step.step(p, s, xt, tt)           # warm (allocator, libs)
     torch.cuda.synchronize()
 
-    FLASH.launches = CHAIN.launches = GRAD.launches = 0
+    zero_counts()
     walls, metrics = [], []
     q, u = p1, s1
     for _ in range(TRAIN_STEPS):
@@ -691,8 +1022,10 @@ def main() -> int:
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device: the port's kernels run on the card")
+    # cuBLAS float32 matmuls in full float32 (PyTorch's default, stated);
+    # cuDNN's TF32 flag stays at its default: the conv2d body and the
+    # oracle turn it off for their own calls (check_conv_precision).
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(0)
     t_start = time.perf_counter()
     record: dict = {"checks": []}
@@ -704,7 +1037,8 @@ def main() -> int:
 
     from repro_torch.kernels import common, flashattn, streamfuse
     libs = {"flash": flashattn.LIBRARY, "mmchain": streamfuse.LIBRARY,
-            "mmgrad": streamfuse.GRAD_LIBRARY}
+            "mmgrad": streamfuse.GRAD_LIBRARY,
+            "conv": streamfuse.CONV_LIBRARY}
     build_s = common.build_all(list(libs.values()))
     print(f"build: {build_s:.1f} s for {len(libs)} kernels (nvcc, parallel)")
     for lib in libs.values():
@@ -717,10 +1051,20 @@ def main() -> int:
     check_flash(record["checks"])
     check_chain(record["checks"])
     check_grad(record["checks"])
+    check_conv(record["checks"])
+    check_conv_precision(record)
     measured = {}
     for S in SEQS:
         measured[S] = measure_kernels(S, record)
     record["measured"] = {str(s): m for s, m in measured.items()}
+    cnn_cases = [("resnet18", N, RESNET_ROUTES) for N in CNN_BATCHES]
+    cnn_cases.append(("vgg16", 1, VGG_ROUTES))
+    conv_measured = {(m, N): measure_conv(N, routes, record)
+                     for m, N, routes in cnn_cases}
+    head = measure_head(record)
+    record["measured_conv"] = {f"{m} N={N}": v
+                               for (m, N), v in conv_measured.items()}
+    record["measured_vgg16_head"] = head
 
     print("main path: codo_torch.compile(gpt2_block_fn, (S, 1024)):")
     runs = {S: main_path(S, record) for S in SEQS}
@@ -729,6 +1073,10 @@ def main() -> int:
           "(S, 1024), grad=True):")
     trains = {S: train_path(S) for S in SEQS}
     record["train_path"] = {str(s): r for s, r in trains.items()}
+    print(f"CNN path: codo_torch.compile(<model>_fn, (N, 3, {IMAGE}, "
+          f"{IMAGE})):")
+    cnns = {(m, N): cnn_path(m, N, routes) for m, N, routes in cnn_cases}
+    record["cnn_path"] = {f"{m} N={N}": r for (m, N), r in cnns.items()}
 
     # One entry a kernel and S.  fused_matmul_grad's serves both backward
     # chains, and its launch counter counts both: its entry carries that
@@ -761,6 +1109,21 @@ def main() -> int:
                 "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                 "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
+    conv_src = ("src/repro_torch/csrc/pad_conv_relu.cu",
+                "src/repro/kernels/streamfuse/streamfuse.py:58")
+    cnn_entries = [(f"fused_pad_conv_relu[{m} N={N}]", *conv_src,
+                    conv_measured[(m, N)], cnns[(m, N)]["launches"]["conv"])
+                   for m, N, _ in cnn_cases]
+    cnn_entries.append(("fused_matmul_chain[vgg16 N=1 head]",
+                        *source["mmchain"][1:], head,
+                        cnns[("vgg16", 1)]["launches"]["mmchain"]))
+    for name, src, replaces, m, launches in cnn_entries:
+        entries.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
     record["kernels"] = entries
     record["card"] = card
     record["seconds"] = time.perf_counter() - t_start

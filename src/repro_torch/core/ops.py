@@ -1,14 +1,18 @@
 """Declarative op registry: ``Task`` numerics as data, not closures.
 
 The PyTorch counterpart of ``repro/core/ops.py``: the same ``OpSpec``
-records, registry, epochs and VJP table, with torch bodies for the op
-kinds ported so far: the forward kinds of the GPT-2 block (identity, dup,
-fused, matmul, transpose, scale, add, vadd, affine, divc, mul, softmax,
-gelu) and the gradient and optimizer kinds its train step runs
-(mean_all, bcast, relu_grad, gelu_grad, softmax_grad, sumsq, clip_scale,
-lr_sched, adamw_step).  Any other kind raises :class:`UnknownOpError`
-naming it.  No body writes in place: ``dup`` and ``identity`` alias their
-input, ``transpose`` and ``bcast`` return views.
+records, registry, epochs and VJP table, with torch bodies for every
+forward kind but the two recurrences (identity, dup, fused, zeros,
+fill_interior, pad2d, conv2d, relu, gelu, add, vadd, scale, affine, divc,
+rdivc, div, mul, const, softmax, matmul, mv, transpose, maxpool2d, mean,
+reshape, concat, split, slice) and for the gradient and optimizer kinds
+the GPT-2 block's train step runs (mean_all, bcast, relu_grad, gelu_grad,
+softmax_grad, sumsq, clip_scale, lr_sched, adamw_step).  Any other kind
+(``rglru_scan``, ``ssd_scan``, the other gradient kinds) raises
+:class:`UnknownOpError` naming it.  No body writes in place: ``dup`` and
+``identity`` alias their input, ``transpose``, ``bcast``, ``split`` and
+``slice`` return views.  ``conv2d`` runs in full float32 whatever
+``torch.backends.cudnn.allow_tf32`` says.
 
 Historically every :class:`~repro.core.graph.Task` carried its numeric
 semantics as an opaque Python closure (``fn(env) -> {buf: array}``).  That
@@ -268,6 +272,87 @@ def _fused(spec: OpSpec, env: dict) -> dict:
     return out
 
 
+def _env_device(env: dict):
+    """The device of the environment's tensors (the CPU when it holds
+    none): where an op with no tensor operand puts its result."""
+    import torch
+    for v in env.values():
+        if isinstance(v, torch.Tensor):
+            return v.device
+    return torch.device("cpu")
+
+
+@register_op("zeros")
+def _zeros(spec: OpSpec, env: dict) -> dict:
+    """Init half of the Fig. 4b init/pad multi-producer pair: a zeroed
+    canvas of ``attrs['shape']`` (no operands)."""
+    import numpy as np
+    import torch
+    shape = tuple(int(s) for s in spec.attrs["shape"])
+    dtype = np.dtype(spec.attrs.get("dtype", "float32"))
+    return {spec.outs[0]: torch.zeros(
+        shape, dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
+        device=_env_device(env))}
+
+
+@register_op("fill_interior")
+def _fill_interior(spec: OpSpec, env: dict) -> dict:
+    """Fill half of the init/pad pair: the canvas the init producer staged
+    under this spec's own output name, with ``x`` written into its
+    interior.  The canvas is copied, not written in place."""
+    import torch
+    p = int(spec.attrs["pad"])
+    x = env[spec.ins[0]]
+    canvas = env.get(spec.outs[0])
+    if canvas is None:
+        n, c, h, w = x.shape
+        canvas = torch.zeros((n, c, h + 2 * p, w + 2 * p), dtype=x.dtype,
+                             device=x.device)
+    out = canvas.clone()
+    out[:, :, p:p + x.shape[2], p:p + x.shape[3]] = x
+    return {spec.outs[0]: out}
+
+
+@register_op("pad2d")
+def _pad2d(spec: OpSpec, env: dict) -> dict:
+    import torch
+    p = int(spec.attrs["pad"])
+    return {spec.outs[0]: torch.nn.functional.pad(env[spec.ins[0]],
+                                                  (p, p, p, p))}
+
+
+def full_f32_convolutions():
+    """Context in which cuDNN convolutions run in full float32.  cuDNN
+    takes float32 convolutions through TF32 by default
+    (``torch.backends.cudnn.allow_tf32``), which keeps about three
+    decimal digits; the op bodies, and the oracle that runs them, must not
+    depend on that global flag.  The other cuDNN flags keep their
+    values."""
+    import torch
+    c = torch.backends.cudnn
+    return c.flags(enabled=c.enabled, benchmark=c.benchmark,
+                   deterministic=c.deterministic, allow_tf32=False)
+
+
+@register_op("conv2d")
+def _conv2d(spec: OpSpec, env: dict) -> dict:
+    """NCHW × OIHW, VALID (the pad is its own task), in full float32
+    (:func:`full_f32_convolutions`)."""
+    import torch
+    s = int(spec.attrs.get("stride", 1))
+    g = int(spec.attrs.get("groups", 1))
+    with full_f32_convolutions():
+        y = torch.nn.functional.conv2d(env[spec.ins[0]], env[spec.ins[1]],
+                                       stride=s, groups=g)
+    return {spec.outs[0]: y}
+
+
+@register_op("relu")
+def _relu(spec: OpSpec, env: dict) -> dict:
+    import torch
+    return {spec.outs[0]: torch.relu(env[spec.ins[0]])}
+
+
 @register_op("gelu")
 def _gelu(spec: OpSpec, env: dict) -> dict:
     """``jax.nn.gelu``'s default: the tanh approximation."""
@@ -340,9 +425,95 @@ def _divc(spec: OpSpec, env: dict) -> dict:
     return {spec.outs[0]: x / c}
 
 
+@register_op("rdivc")
+def _rdivc(spec: OpSpec, env: dict) -> dict:
+    """``c / x`` as true division: the constant is a 0-d tensor, since
+    PyTorch's ``c / x`` for a Python ``c`` multiplies ``x``'s reciprocal
+    by ``c``."""
+    import torch
+    x = env[spec.ins[0]]
+    c = torch.full((), float(spec.attrs["c"]), dtype=x.dtype, device=x.device)
+    return {spec.outs[0]: c / x}
+
+
+@register_op("div")
+def _div(spec: OpSpec, env: dict) -> dict:
+    return {spec.outs[0]: env[spec.ins[0]] / env[spec.ins[1]]}
+
+
 @register_op("mul")
 def _mul(spec: OpSpec, env: dict) -> dict:
     return {spec.outs[0]: env[spec.ins[0]] * env[spec.ins[1]]}
+
+
+@register_op("const")
+def _const(spec: OpSpec, env: dict) -> dict:
+    """A compile-time constant array (an array-left operand lifted into a
+    trace), its value plain data in ``attrs``."""
+    import numpy as np
+    import torch
+    value = np.array(spec.attrs["value"],
+                     dtype=np.dtype(spec.attrs.get("dtype", "float32")))
+    return {spec.outs[0]: torch.as_tensor(value, device=_env_device(env))}
+
+
+@register_op("mv")
+def _mv(spec: OpSpec, env: dict) -> dict:
+    A = env[spec.ins[0]]
+    if spec.attrs.get("trans", False):
+        A = A.T
+    return {spec.outs[0]: A @ env[spec.ins[1]]}
+
+
+@register_op("maxpool2d")
+def _maxpool2d(spec: OpSpec, env: dict) -> dict:
+    """k × k windows at stride k, VALID (a ragged edge is dropped)."""
+    import torch
+    k = int(spec.attrs["k"])
+    return {spec.outs[0]: torch.nn.functional.max_pool2d(env[spec.ins[0]],
+                                                         k, k)}
+
+
+@register_op("mean")
+def _mean(spec: OpSpec, env: dict) -> dict:
+    axes = tuple(int(a) for a in spec.attrs["axes"])
+    return {spec.outs[0]: env[spec.ins[0]].mean(dim=axes)}
+
+
+@register_op("reshape")
+def _reshape(spec: OpSpec, env: dict) -> dict:
+    shape = tuple(int(s) for s in spec.attrs["shape"])
+    return {spec.outs[0]: env[spec.ins[0]].reshape(shape)}
+
+
+@register_op("concat")
+def _concat(spec: OpSpec, env: dict) -> dict:
+    import torch
+    axis = int(spec.attrs.get("axis", 0))
+    return {spec.outs[0]: torch.cat([env[b] for b in spec.ins], dim=axis)}
+
+
+@register_op("split")
+def _split(spec: OpSpec, env: dict) -> dict:
+    """Multi-output inverse of concat: ``sizes`` partitions ``axis``; the
+    pieces are views."""
+    axis = int(spec.attrs.get("axis", 0))
+    x = env[spec.ins[0]]
+    out, off = {}, 0
+    for o, s in zip(spec.outs, spec.attrs["sizes"]):
+        out[o] = x.narrow(axis, off, int(s))
+        off += int(s)
+    return out
+
+
+@register_op("slice")
+def _slice(spec: OpSpec, env: dict) -> dict:
+    """Static rectangular window: ``starts``/``sizes`` per dimension (a
+    view)."""
+    x = env[spec.ins[0]]
+    ix = tuple(slice(int(st), int(st) + int(sz))
+               for st, sz in zip(spec.attrs["starts"], spec.attrs["sizes"]))
+    return {spec.outs[0]: x[ix]}
 
 
 # --------------------------------------------------------------------------

@@ -6,7 +6,8 @@ oracle, and the routing registration.  The CUDA sources live in
 ``repro_torch/csrc`` and build at first use (:mod:`.common`).
 
 * ``flashattn``  — streaming online-softmax attention (GQA/causal/SWA)
-* ``streamfuse`` — ``ew(a @ w1) @ w2`` matmul chains and the backward
+* ``streamfuse`` — the fused ``pad → conv → relu`` streaming kernel
+  (conv), ``ew(a @ w1) @ w2`` matmul chains and the backward
   ``ew(a @ w, *residuals)`` gradient epilogues (mmchain, mmgrad)
 """
 

@@ -24,6 +24,7 @@ import os
 import shutil
 import subprocess
 import time
+from collections import Counter
 from pathlib import Path
 from typing import Sequence
 
@@ -99,12 +100,15 @@ class CudaLibrary:
 
     ``functions`` maps each exported C entry point to its ctypes argument
     types; every entry point returns an ``int`` CUDA error code.
-    ``launches`` counts successful :meth:`launch` calls."""
+    ``launches`` counts successful :meth:`launch` calls, and
+    ``entry_launches`` the same by entry point (a kernel apart from its
+    helper passes); :meth:`reset_counts` zeroes both."""
 
     def __init__(self, source: str, functions: dict[str, Sequence]):
         self.source = CSRC / source
         self.functions = dict(functions)
         self.launches = 0
+        self.entry_launches: Counter[str] = Counter()
         self.build_log = ""
         self._lib = None
 
@@ -165,6 +169,11 @@ class CudaLibrary:
             raise RuntimeError(f"{self.source.name}:{name} failed to launch: "
                                f"CUDA error {code} ({msg})")
         self.launches += 1
+        self.entry_launches[name] += 1
+
+    def reset_counts(self) -> None:
+        self.launches = 0
+        self.entry_launches.clear()
 
 
 def build_all(libraries: Sequence[CudaLibrary]) -> float:

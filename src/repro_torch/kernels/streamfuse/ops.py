@@ -1,11 +1,12 @@
-"""CODO kernel-pattern registration for the streamfuse matmul kernels.
+"""CODO kernel-pattern registration for the streamfuse kernels.
 
-The counterpart of the ``streamfuse.mmchain`` and ``streamfuse.mmgrad``
-halves of ``repro/kernels/streamfuse/ops.py``:
+The counterpart of the ``streamfuse.conv``, ``streamfuse.mmchain`` and
+``streamfuse.mmgrad`` parts of ``repro/kernels/streamfuse/ops.py``:
 
 =======================  ===========================  =====================
 pattern name             op pattern                   kernel
 =======================  ===========================  =====================
+``streamfuse.conv``      ``pad → conv → ewise``       ``fused_pad_conv_relu``
 ``streamfuse.mmchain``   ``matmul → *ewise → matmul`` ``fused_matmul_chain``
 ``streamfuse.mmgrad``    ``matmul → *ewise`` (grad)   ``fused_matmul_grad``
 =======================  ===========================  =====================
@@ -17,9 +18,10 @@ residual operand, turned into the kernel's op codes once a route); where
 the step runs follows from its operands' device
 (:mod:`repro_torch.kernels.common`).  There is no VMEM budget: the
 kernels tile what the TPU kernel held whole (mmchain sizes its N1 chunk
-to the shared memory, mmgrad's tiles are fixed and small), so the
-factories check only the tail's length.  ``streamfuse.conv`` and
-``streamfuse.softmaxmm`` are not ported yet.
+to the shared memory, mmgrad's and conv's tiles are fixed and small), so
+the factories check only the tail's length.  The conv chain's ``pad2d``
+output is interior to the route and never materialized: the kernel reads
+the unpadded input.  ``streamfuse.softmaxmm`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from __future__ import annotations
 from ...core.routing import KernelPattern, register_kernel_pattern
 from ..common import all_f32
 from .chain import MAX_EW, GradTail, fused_matmul_chain, fused_matmul_grad
+from .streamfuse import fused_pad_conv_relu
 
 # Elementwise spec kinds a kernel can replay on a tile: exactly one
 # operand (the chain value), attrs-only parameters.
@@ -36,6 +39,43 @@ EW_KINDS = frozenset({"relu", "gelu", "scale", "affine", "divc", "rdivc",
 # Gradient-epilogue kinds (backward chains): chain value first operand,
 # residual operands read alongside it at the same (row, column).
 GRAD_EW_KINDS = frozenset({"relu_grad", "gelu_grad", "softmax_grad"})
+
+
+def _conv_feasible(graph, tasks) -> bool:
+    pad_t, conv_t, relu_t = tasks
+    if any(t.spec is None for t in tasks):
+        return False
+    if (pad_t.spec.kind, conv_t.spec.kind, relu_t.spec.kind) != (
+            "pad2d", "conv2d", "relu"):
+        return False
+    if int(conv_t.spec.attrs.get("stride", 1)) != 1:
+        return False
+    if int(conv_t.spec.attrs.get("groups", 1)) != 1:
+        return False
+    if conv_t.spec.ins[0] != pad_t.spec.outs[0]:
+        return False
+    x_buf, w_buf = pad_t.spec.ins[0], conv_t.spec.ins[1]
+    x_shape = graph.buffers[x_buf].shape
+    w_shape = graph.buffers[w_buf].shape
+    if len(x_shape) != 4 or len(w_shape) != 4:
+        return False
+    k = w_shape[-1]
+    if w_shape[-2] != k or k % 2 != 1:
+        return False
+    if int(pad_t.spec.attrs.get("pad", -1)) != k // 2:     # SAME only
+        return False
+    return all_f32(graph, x_buf, w_buf, relu_t.spec.outs[0])
+
+
+def _conv_factory(graph, group, tasks, tile=None):
+    pad_t, conv_t, relu_t = tasks
+    x_buf, w_buf = pad_t.spec.ins[0], conv_t.spec.ins[1]
+    out_buf = relu_t.spec.outs[0]
+
+    def run(env):
+        return {out_buf: fused_pad_conv_relu(env[x_buf], env[w_buf])}
+
+    return run
 
 
 def _mm_chain_feasible(graph, tasks) -> bool:
@@ -143,13 +183,18 @@ _REGISTERED = False
 
 
 def register() -> None:
-    """Register the mmchain and mmgrad kernel patterns with the routing
-    layer (idempotent — repeated ``register_all()`` calls do not churn the
-    registry epoch)."""
+    """Register the conv, mmchain and mmgrad kernel patterns with the
+    routing layer, conv first as the reference does (pattern ties go to
+    the earlier registration), idempotently — repeated ``register_all()``
+    calls do not churn the registry epoch."""
     global _REGISTERED
     if _REGISTERED:
         return
     _REGISTERED = True
+    register_kernel_pattern(KernelPattern(
+        name="streamfuse.conv", pattern=("pad", "conv", "ewise"),
+        factory=_conv_factory, feasible=_conv_feasible,
+        description="fused pad->conv->relu streaming kernel (Fig. 2)"))
     register_kernel_pattern(KernelPattern(
         name="streamfuse.mmchain", pattern=("matmul", "*ewise", "matmul"),
         factory=_mm_chain_factory, feasible=_mm_chain_feasible,

@@ -1,6 +1,19 @@
-"""Plain PyTorch oracles for the streamfuse matmul kernels (the
-``matmul_chain_ref`` and ``matmul_grad_ref`` halves of
-``repro/kernels/streamfuse/ref.py``)."""
+"""Plain PyTorch oracles for the streamfuse kernels (the
+``pad_conv_relu_ref``, ``matmul_chain_ref`` and ``matmul_grad_ref``
+parts of ``repro/kernels/streamfuse/ref.py``)."""
+
+
+def pad_conv_relu_ref(x, w):
+    """``relu(conv2d(pad(x), w))``, stride 1, SAME, in float32 (cuDNN
+    without TF32 on the card), back in x's type."""
+    import torch
+
+    from ...core.ops import full_f32_convolutions
+    p = w.shape[-1] // 2
+    xp = torch.nn.functional.pad(x.float(), (p, p, p, p))
+    with full_f32_convolutions():
+        y = torch.nn.functional.conv2d(xp, w.float())
+    return torch.relu(y).to(x.dtype)
 
 
 def matmul_chain_ref(a, w1, w2, ew=()):

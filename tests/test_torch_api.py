@@ -29,9 +29,17 @@ REPO = Path(__file__).resolve().parents[1]
 BAND = dict(rtol=1e-5, atol=1e-5)
 
 
+def _fan_in(shape):
+    """Rows of an (in, out) matrix; C·K·K of an OIHW conv kernel."""
+    return int(np.prod(shape[1:])) if len(shape) == 4 else shape[0]
+
+
 def _weights(graph, seed=0):
+    """Distinct seeded weights over the square root of their fan-in, so
+    activations stay O(1) through a deep CNN and the band measures
+    rounding, not growth."""
     rng = np.random.default_rng(seed)
-    return {b.name: (rng.standard_normal(b.shape) / np.sqrt(b.shape[0])
+    return {b.name: (rng.standard_normal(b.shape) / np.sqrt(_fan_in(b.shape))
                      ).astype(np.float32) for b in graph.weights()}
 
 
@@ -84,6 +92,14 @@ def test_routed_equals_generic_on_cpu(monkeypatch):
     ("three_mm_fn", [(16, 16)] * 4),
     ("feed_forward_fn", [(16, 32)]),
     ("multi_head_attention_fn", [(24, 32)]),
+    ("resnet18_fn", [(1, 3, 8, 8)]),
+    ("vgg16_fn", [(1, 3, 32, 32)]),
+    ("conv3_block_fn", [(1, 3, 14, 14)]),
+    ("residual_block_fn", [(1, 8, 12, 12)]),
+    ("dws_conv_block_fn", [(1, 8, 12, 12)]),
+    ("atax_fn", [(48, 40), (40,)]),
+    ("mvt_fn", [(40, 40), (40,), (40,)]),
+    ("residual_mlp_fn", [(8, 32)]),
 ])
 def test_kernel_benches_of_ported_kinds_match_reference(fn_name, shapes,
                                                         monkeypatch):

@@ -36,6 +36,7 @@ from repro_torch.kernels.flashattn import (LIBRARY as FLASH_LIB,  # noqa: E402
 from repro_torch.kernels.flashattn.flashattn import (key_splits,  # noqa: E402
                                                      smem_bytes, tiling_ok)
 from repro_torch.kernels.streamfuse import (LIBRARY as CHAIN_LIB,  # noqa: E402
+                                            CONV_LIBRARY as CONV_LIB,
                                             GRAD_LIBRARY as GRAD_LIB,
                                             fused_matmul_chain,
                                             fused_matmul_grad,
@@ -462,6 +463,13 @@ def test_cpu_tensors_run_the_grad_plain_version_and_launch_nothing():
     assert GRAD_LIB.launches == before and GRAD_LIB._lib is None
 
 
+def test_launch_counts_reset_together():
+    lib = common.CudaLibrary("chain.cu", {})
+    lib.launches, lib.entry_launches["codo_matmul_chain"] = 2, 1
+    lib.reset_counts()
+    assert lib.launches == 0 and not lib.entry_launches
+
+
 def test_mixed_devices_raise():
     with pytest.raises(ValueError, match="one CUDA device"):
         common.on_card(torch.zeros(2), torch.zeros(2, device="meta"))
@@ -469,12 +477,13 @@ def test_mixed_devices_raise():
 
 
 def test_library_paths_hash_the_sources():
-    for lib in (FLASH_LIB, CHAIN_LIB, GRAD_LIB):
+    libs = (FLASH_LIB, CHAIN_LIB, GRAD_LIB, CONV_LIB)
+    for lib in libs:
         path = lib.path
         assert path.parent == common.BUILD_DIR and path.suffix == ".so"
         assert path.name.startswith(lib.source.stem + "-")
         assert path == lib.path                    # stable
-    assert len({FLASH_LIB.path, CHAIN_LIB.path, GRAD_LIB.path}) == 3
+    assert len({lib.path for lib in libs}) == 4
     assert "sm_90a" in " ".join(common.NVCC_FLAGS)
 
 
@@ -482,6 +491,8 @@ def test_library_paths_hash_the_sources():
     ("flashattn.cu", "repro/kernels/flashattn/flashattn.py: flash_attention"),
     ("chain.cu", "repro/kernels/streamfuse/chain.py: fused_matmul_chain"),
     ("chain_grad.cu", "repro/kernels/streamfuse/chain.py: fused_matmul_grad"),
+    ("pad_conv_relu.cu",
+     "repro/kernels/streamfuse/streamfuse.py: fused_pad_conv_relu"),
 ])
 def test_kernel_sources_name_what_they_replace(source, replaces):
     text = (common.CSRC / source).read_text()

@@ -2,11 +2,14 @@
 
 Same seeded numpy inputs through both registries.  Indexing and exact
 arithmetic (identity, dup, transpose, bcast, add, vadd, affine, scale,
-mul, divc, relu_grad) must match bit for bit; gelu, softmax, matmul, the
-reductions and the gradient and optimizer kinds within rtol 1e-6 /
-atol 2e-6 (torch and XLA:CPU evaluate tanh, exp, pow and the sums in
-another order: about 1e-6 apart on unit-scale inputs).  Every other kind
-is not ported and must say so.
+mul, divc, rdivc, div, relu, relu_grad, pad2d, the zeros/fill_interior
+pair, maxpool2d, reshape, const, concat, split, slice) must match bit for
+bit; gelu, softmax, matmul, mv, mean, the reductions and the gradient and
+optimizer kinds within rtol 1e-6 / atol 2e-6 (torch and XLA:CPU evaluate
+tanh, exp, pow and the sums in another order: about 1e-6 apart on
+unit-scale inputs); conv2d within rtol 1e-5 / atol 1e-5 (sums of up to
+C·K·K = 72 products in another order, outputs up to about 30).  Every
+other kind is not ported and must say so.
 """
 
 import numpy as np
@@ -19,15 +22,18 @@ from repro.core import ops as ref_ops  # noqa: E402
 from repro_torch.core import frontend as F  # noqa: E402
 from repro_torch.core import ops  # noqa: E402
 
-PORTED = ["adamw_step", "add", "affine", "bcast", "clip_scale", "divc", "dup",
-          "fused", "gelu", "gelu_grad", "identity", "lr_sched", "matmul",
-          "mean_all", "mul", "relu_grad", "scale", "softmax", "softmax_grad",
-          "sumsq", "transpose", "vadd"]
+PORTED = ["adamw_step", "add", "affine", "bcast", "clip_scale", "concat",
+          "const", "conv2d", "div", "divc", "dup", "fill_interior", "fused",
+          "gelu", "gelu_grad", "identity", "lr_sched", "matmul", "maxpool2d",
+          "mean", "mean_all", "mul", "mv", "pad2d", "rdivc", "relu",
+          "relu_grad", "reshape", "scale", "slice", "softmax", "softmax_grad",
+          "split", "sumsq", "transpose", "vadd", "zeros"]
 # The update graph's optimizer attributes (the reference's defaults).
 ADAM = {"b1": 0.9, "b2": 0.95, "eps": 1e-8, "wd": 0.1}
 SCHED = {"lr": 3e-4, "warmup_steps": 100, "total_steps": 10000,
          "min_lr_frac": 0.1}
 BAND = dict(rtol=1e-6, atol=2e-6)
+CONV_BAND = dict(rtol=1e-5, atol=1e-5)
 
 
 def _rand(*shape, seed=0):
@@ -78,6 +84,36 @@ EXACT = {
               [(1, 1)]),
     "relu_grad": (ops.OpSpec("relu_grad", ("g", "x"), ("y",)),
                   [(6, 5), (6, 5)]),
+    "relu": (ops.OpSpec("relu", ("x",), ("y",)), [(2, 3, 6, 5)]),
+    "rdivc": (ops.OpSpec("rdivc", ("x",), ("y",), {"c": 3.0}), [(6, 5)]),
+    "div": (ops.OpSpec("div", ("a", "b"), ("y",)), [(6, 5), (6, 5)]),
+    "pad2d": (ops.OpSpec("pad2d", ("x",), ("y",), {"pad": 2}),
+              [(2, 3, 5, 4)]),
+    "zeros": (ops.OpSpec("zeros", (), ("y",), {"shape": (2, 3, 4, 4),
+                                                "dtype": "float32"}), []),
+    "fill_interior": (ops.OpSpec("fill_interior", ("x",), ("y",),
+                                 {"pad": 1}), [(2, 3, 5, 4)]),
+    # the Fig. 4b init/fill pair after the coarse pass fused its producers
+    "pad_pair": (ops.OpSpec("fused", ("x",), ("p",), parts=(
+        ops.OpSpec("zeros", (), ("p",), {"shape": (1, 2, 9, 8),
+                                          "dtype": "float32"}),
+        ops.OpSpec("fill_interior", ("x",), ("p",), {"pad": 2}))),
+        [(1, 2, 5, 4)]),
+    "maxpool2d": (ops.OpSpec("maxpool2d", ("x",), ("y",), {"k": 2}),
+                  [(2, 3, 8, 6)]),
+    "maxpool2d_ragged": (ops.OpSpec("maxpool2d", ("x",), ("y",), {"k": 2}),
+                         [(1, 2, 7, 5)]),
+    "reshape": (ops.OpSpec("reshape", ("x",), ("y",), {"shape": (2, -1)}),
+                [(2, 3, 4, 4)]),
+    "const": (ops.OpSpec("const", (), ("y",), {
+        "value": ((1.5, -2.0, 0.25), (3.0, 0.1, -7.0)),
+        "dtype": "float32"}), []),
+    "concat": (ops.OpSpec("concat", ("a", "b", "c"), ("y",), {"axis": 1}),
+               [(4, 3), (4, 5), (4, 1)]),
+    "split": (ops.OpSpec("split", ("x",), ("y0", "y1", "y2"),
+                         {"axis": 1, "sizes": (3, 5, 1)}), [(4, 9)]),
+    "slice": (ops.OpSpec("slice", ("x",), ("y",), {
+        "starts": (1, 0, 2), "sizes": (2, 3, 3)}), [(4, 3, 6)]),
 }
 
 BANDED = {
@@ -100,6 +136,28 @@ BANDED = {
     "fused": (ops.OpSpec("fused", parts=(
         ops.OpSpec("scale", ("x",), ("h",), {"s": 2.0}),
         ops.OpSpec("gelu", ("h",), ("y",)))), [(16, 32)]),
+    "mv": (ops.OpSpec("mv", ("A", "x"), ("y",)), [(48, 40), (40,)]),
+    "mv_trans": (ops.OpSpec("mv", ("A", "x"), ("y",), {"trans": True}),
+                 [(48, 40), (48,)]),
+    "mean": (ops.OpSpec("mean", ("x",), ("y",), {"axes": (2, 3)}),
+             [(2, 16, 7, 7)]),
+}
+
+# conv2d: the reference's jax.lax.conv_general_dilated against the port's
+# body (full float32), VALID on an already padded input.
+CONV = {
+    "conv2d": (ops.OpSpec("conv2d", ("x", "w"), ("y",),
+                          {"stride": 1, "groups": 1}),
+               [(2, 8, 10, 9), (6, 8, 3, 3)]),
+    "conv2d_stride2": (ops.OpSpec("conv2d", ("x", "w"), ("y",),
+                                  {"stride": 2, "groups": 1}),
+                       [(1, 3, 15, 15), (8, 3, 7, 7)]),
+    "conv2d_1x1": (ops.OpSpec("conv2d", ("x", "w"), ("y",),
+                              {"stride": 1, "groups": 1}),
+                   [(1, 16, 6, 6), (12, 16, 1, 1)]),
+    "conv2d_depthwise": (ops.OpSpec("conv2d", ("x", "w"), ("y",),
+                                    {"stride": 2, "groups": 8}),
+                         [(1, 8, 9, 9), (8, 1, 3, 3)]),
 }
 
 
@@ -130,11 +188,19 @@ def test_banded_kinds_within_band(case):
         np.testing.assert_allclose(got[k], want[k], **BAND)
 
 
+@pytest.mark.parametrize("case", sorted(CONV))
+def test_conv2d_within_band(case):
+    spec, shapes = CONV[case]
+    got, want = _both(spec, [_rand(*s, seed=i) for i, s in enumerate(shapes)])
+    assert got["y"].shape == want["y"].shape
+    np.testing.assert_allclose(got["y"], want["y"], **CONV_BAND)
+
+
 def test_registry_holds_exactly_the_ported_kinds():
     assert ops.registered_ops() == PORTED
 
 
-@pytest.mark.parametrize("kind", ["relu", "conv2d", "mv",
+@pytest.mark.parametrize("kind", ["ssd_scan", "outer", "mean_grad",
                                   "conv2d_input_grad", "maxpool2d_grad",
                                   "rglru_scan"])
 def test_unported_kind_raises_naming_it(kind):
