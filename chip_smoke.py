@@ -10,8 +10,8 @@ In order, and failing (non-zero exit, no result line) at the first
 problem:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds every kernel of the three paths from ``src/repro_torch/csrc``
-   (one ``nvcc`` per source, all started together) and prints the time
+2. builds every kernel of the port from ``src/repro_torch/csrc`` (eight
+   sources, one ``nvcc`` each, all started together) and prints the time
    and each kernel's registers and spills;
 3. holds each kernel against its plain PyTorch version on the card, at
    the kernel sweep's shapes and at the paths' own, printing the max
@@ -40,7 +40,19 @@ problem:
    head), four requests with the launch counters zeroed just before and
    read just after (one conv kernel launch per chain a request), then
    ``verify()`` on the card and (N=1) the card against the port on the CPU;
-7. prints the card line, the ``kernels`` JSON line and, last, the
+7. drives the recurrence and attention-tail paths at published widths —
+   ``rglru_block_fn`` (2, 2048, 4096), ``ssd_block_fn`` (16, 96, 64, 128),
+   ``mha_batched_fn`` (16, 2048, 256) and the bare tail ``matmul(softmax(s),
+   v)`` at (1024, 1024) @ (1024, 64) and (2048, 2048) @ (2048, 256) —
+   through ``codo_torch.compile`` with the default gate and seeded inputs
+   in each model's domain: the one routed group asserted (``rglru.scan``,
+   ``ssd.scan``, ``flashattn.mha``, ``streamfuse.softmaxmm``), four
+   requests with the launch counters zeroed just before and read just
+   after (that kernel's count and no other), ``verify()`` on the card and
+   the card against the port on the CPU; then the blocked matmul through
+   ``ops.mm`` at (1024, 1024) @ (1024, 4096), four calls counted the same
+   way;
+8. prints the card line, the ``kernels`` JSON line and, last, the
    ``{"ok": true, "device": ...}`` line.
 
 The full record (every check, every timing) goes to
@@ -122,6 +134,27 @@ RELU = (("relu", {}),)
 # The generic conv2d body on the card against float64, with cuDNN's TF32
 # flag at its default: full float32 reads ~1e-7 of the scale, TF32 ~1e-3.
 F32_CONV_TOL = 1e-5
+# The recurrence and attention-tail slice at published widths, float32:
+# RecurrentGemma-9B's recurrence (d_model 4096 over its local window of
+# 2048, B = 2) and attention (16 heads of 256 at S = 2048, heads folded);
+# Mamba-2 780M's SSD chunk states (d_inner 3072 = 48 heads of 64, d_state
+# 128, chunk 256 at S = 4096: 16 chunks, B = 2); the attention tail at one
+# GPT-2-medium head and one RecurrentGemma-9B head; the blocked matmul at
+# the GPT-2-medium FFN's fc, (M, K, N).
+RGLRU_SHAPE = (2, 2048, 4096)
+SSD_SHAPE = (16, 96, 64, 128)
+MHA_SHAPE = (16, 2048, 256)
+TAIL_SHAPES = [(1024, 1024, 64), (2048, 2048, 256)]
+MM_SHAPE = (1024, 1024, 4096)
+# Bands, kernel against plain version: the reference sweep's
+# (tests/test_kernels.py) — rglru 1e-4, ssd 1e-5, matmul 1e-3 in float32
+# and 5e-2 in bfloat16 — and flash's for the attention tail (TOL).
+RGLRU_TOL, SSD_TOL = 1e-4, 1e-5
+MM_TOL = {"f32": 1e-3, "bf16": 5e-2}
+RGLRU = "pallas:rglru.scan"
+SSD = "pallas:ssd.scan"
+FLASH = "pallas:flashattn.mha"
+SOFTMAXMM = "pallas:streamfuse.softmaxmm"
 
 
 def fail(msg: str) -> None:
@@ -137,12 +170,21 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
+def all_libraries() -> dict:
+    """Every kernel library of the port, by the short name the record
+    uses."""
+    from repro_torch.kernels import flashattn, matmul, rglru, ssd, streamfuse
+    return {"flash": flashattn.LIBRARY, "mmchain": streamfuse.LIBRARY,
+            "mmgrad": streamfuse.GRAD_LIBRARY,
+            "conv": streamfuse.CONV_LIBRARY,
+            "softmaxmm": streamfuse.SOFTMAX_LIBRARY, "rglru": rglru.LIBRARY,
+            "ssd": ssd.LIBRARY, "matmul": matmul.LIBRARY}
+
+
 def zero_counts() -> None:
     """Every kernel library's launch counters to 0 (just before a path
     is driven)."""
-    from repro_torch.kernels import flashattn, streamfuse
-    for lib in (flashattn.LIBRARY, streamfuse.LIBRARY,
-                streamfuse.GRAD_LIBRARY, streamfuse.CONV_LIBRARY):
+    for lib in all_libraries().values():
         lib.reset_counts()
 
 
@@ -840,9 +882,13 @@ def device_ms(fn, iters: int) -> float:
     return sum(r["device_us"] for r in rows) / iters / 1e3
 
 
-def profile_device(run) -> list:
-    """Device time by kernel name over one call of ``run``, printed."""
+def profile_device(run, calls: int = 1) -> list:
+    """Device time by kernel name over one call of ``run``, printed; with
+    ``calls``, ``run`` makes that many requests and the rows are per
+    request."""
     rows = device_rows(run)
+    for r in rows:
+        r["device_us"] /= calls
     total = sum(r["device_us"] for r in rows)
     print(f"    profile: {total:.1f} us on the device, by kernel: "
           + "; ".join(f"{r['name'][:40]} {r['device_us']:.1f} us"
@@ -1012,6 +1058,332 @@ def train_card_vs_cpu(S: int, params, zero, x, target, card) -> dict:
     return {"errors": errs, "grad_tol": GRAD_TOL, "update_tol": UPDATE_TOL}
 
 
+def gates(shape, g, lo: float, hi: float):
+    """Uniform values in [lo, hi) on the card: a recurrence's gates or
+    decays, in the model's domain (a standard normal is not a gate)."""
+    import torch
+    return lo + (hi - lo) * torch.rand(*shape, generator=g, device="cuda")
+
+
+def rglru_operands(B, S, D, g, dtype=None):
+    """a in [0.5, 0.999), b = 0.1·N(0, 1): the reference sweep's domain."""
+    import torch
+    a = gates((B, S, D), g, 0.5, 0.999)
+    b = 0.1 * torch.randn(B, S, D, generator=g, device="cuda")
+    return (a, b) if dtype is None else (a.to(dtype), b.to(dtype))
+
+
+def ssd_operands(nc, BH, P, N, g):
+    """states 0.1·N(0, 1), decays in [0.5, 0.99): the sweep's domain."""
+    import torch
+    st = 0.1 * torch.randn(nc, BH, P, N, generator=g, device="cuda")
+    return st, gates((nc, BH, 1, 1), g, 0.5, 0.99)
+
+
+def check_slice(record: list) -> None:
+    """The four kernels of the recurrence / attention-tail slice against
+    their plain versions: the reference sweep's shapes, ragged edges and
+    the route shapes; rglru also across chunk lengths, the tail with a
+    transposed s and N wider than a block's columns, matmul in bfloat16
+    and against torch.matmul."""
+    import torch
+    from repro_torch.kernels.matmul import matmul_plain, mm
+    from repro_torch.kernels.rglru import rglru_scan, rglru_scan_plain
+    from repro_torch.kernels.rglru.rglru import chunk_length
+    from repro_torch.kernels.ssd import ssd_chunk_scan, ssd_chunk_scan_plain
+    from repro_torch.kernels.streamfuse import (fused_softmax_matmul,
+                                                softmax_matmul_plain)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 40)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    for B, S, D, chunk in [(2, 256, 64, 128), (1, 128, 128, 32),
+                           (3, 64, 32, 64), (2, 100, 40, 16),
+                           (2, 77, 24, 128)]:
+        a, b = rglru_operands(B, S, D, g)
+        check(record, f"rglru {B}x{S}x{D} chunk={chunk}",
+              rglru_scan(a, b, chunk=chunk),
+              rglru_scan_plain(a, b, chunk=chunk), RGLRU_TOL)
+    a, b = rglru_operands(2, 256, 64, g, torch.bfloat16)
+    check(record, "rglru 2x256x64 chunk=64 bf16", rglru_scan(a, b, chunk=64),
+          rglru_scan_plain(a, b, chunk=64), TOL["bf16"])
+    a, b = rglru_operands(*RGLRU_SHAPE, g)
+    plain = rglru_scan_plain(a, b, chunk=chunk_length(*RGLRU_SHAPE))
+    for chunk in (chunk_length(*RGLRU_SHAPE), 128, 2048):
+        check(record, f"rglru route {'x'.join(map(str, RGLRU_SHAPE))} "
+              f"chunk={chunk}", rglru_scan(a, b, chunk=chunk), plain,
+              RGLRU_TOL)
+    for shape in [(8, 4, 16, 32), (4, 8, 8, 16), (16, 2, 32, 8), (5, 3, 7, 9),
+                  SSD_SHAPE]:
+        st, dec = ssd_operands(*shape, g)
+        route = " route" if shape == SSD_SHAPE else ""
+        check(record, f"ssd{route} {'x'.join(map(str, shape))}",
+              ssd_chunk_scan(st, dec), ssd_chunk_scan_plain(st, dec), SSD_TOL)
+    for M, K, N in [(128, 256, 64), (256, 128, 32), (64, 64, 96)]:
+        for dtype, tol in [(torch.float32, TOL["f32"]),
+                           (torch.bfloat16, TOL["bf16"])]:
+            sv, v = (2 * rn(M, K)).to(dtype), rn(K, N).to(dtype)
+            check(record, f"softmaxmm {M}x{K}x{N} {str(dtype)[6:]}",
+                  fused_softmax_matmul(sv, v), softmax_matmul_plain(sv, v),
+                  tol)
+    for name, sv, v in [("ragged 100x77x50", rn(100, 77), rn(77, 50)),
+                        ("sT 50x77x30", rn(77, 50).t(), rn(77, 30)),
+                        ("wide 64x64x600", rn(64, 64), rn(64, 600))]:
+        check(record, f"softmaxmm {name}", fused_softmax_matmul(sv, v),
+              softmax_matmul_plain(sv, v), TOL["f32"])
+    for M, K, N in TAIL_SHAPES:
+        sv, v = rn(M, K), rn(K, N)
+        check(record, f"softmaxmm route {M}x{K}x{N}",
+              fused_softmax_matmul(sv, v), softmax_matmul_plain(sv, v),
+              TOL["f32_wide"])
+    for M, N, K in [(128, 128, 128), (256, 128, 384), (128, 384, 256),
+                    (512, 128, 128), (100, 130, 77)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            a, b = rn(M, K).to(dtype), rn(K, N).to(dtype)
+            key = "f32" if dtype == torch.float32 else "bf16"
+            check(record, f"matmul {M}x{K}x{N} {key}", mm(a, b),
+                  matmul_plain(a, b), MM_TOL[key])
+    M, K, N = MM_SHAPE
+    a, b = rn(M, K) / math.sqrt(K), rn(K, N)
+    got = mm(a, b)
+    check(record, f"matmul route {M}x{K}x{N}", got, matmul_plain(a, b),
+          MM_TOL["f32"])
+    check(record, f"matmul route {M}x{K}x{N} vs torch.matmul", got,
+          torch.matmul(a, b), MM_TOL["f32"])
+
+
+def measure_slice(record: dict) -> dict:
+    """Each slice kernel at its route shape: event and profiled device
+    time, plain time, the bound and the library yardstick (none for the
+    scans: no single PyTorch call computes a linear recurrence)."""
+    import torch
+    from repro_torch.kernels.flashattn import (flash_attention,
+                                               flash_attention_plain)
+    from repro_torch.kernels.matmul import matmul_plain, mm
+    from repro_torch.kernels.rglru import rglru_scan, rglru_scan_plain
+    from repro_torch.kernels.rglru.rglru import chunk_length
+    from repro_torch.kernels.ssd import ssd_chunk_scan, ssd_chunk_scan_plain
+    from repro_torch.kernels.streamfuse import (fused_softmax_matmul,
+                                                softmax_matmul_plain)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    iters = 10
+    out = {}
+
+    def record_one(name, kernel, plain, library, flops, nbytes, err):
+        ms, plain_ms = in_turns(plain, kernel, iters)
+        b, by = bound_ms(flops, nbytes)
+        m = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                 bound_by=by, flops=flops, bytes=nbytes,
+                 library_ms=None if library is None else time_ms(library,
+                                                                 iters),
+                 device_ms=device_ms(kernel, iters))
+        lib = "none" if m["library_ms"] is None else f"{m['library_ms']:.4f}"
+        print(f"  {name:<28s} kernel {ms:.4f} ms (device "
+              f"{m['device_ms']:.4f})  plain {plain_ms:.4f}  library {lib}  "
+              f"bound {b:.4f} ({by})")
+        out[name] = m
+
+    B, S, D = RGLRU_SHAPE
+    a, b = rglru_operands(B, S, D, g)
+    ch = chunk_length(B, S, D)
+    n = B * S * D
+    record_one("rglru", lambda: rglru_scan(a, b, chunk=ch),
+               lambda: rglru_scan_plain(a, b, chunk=ch), None, 2.0 * n,
+               4.0 * 3 * n, max_err(rglru_scan(a, b, chunk=ch),
+                                    rglru_scan_plain(a, b, chunk=ch)))
+    st, dec = ssd_operands(*SSD_SHAPE, g)
+    n = st.numel()
+    record_one("ssd", lambda: ssd_chunk_scan(st, dec),
+               lambda: ssd_chunk_scan_plain(st, dec), None, 2.0 * n,
+               4.0 * (2 * n + dec.numel()),
+               max_err(ssd_chunk_scan(st, dec), ssd_chunk_scan_plain(st, dec)))
+    BH, S, hd = MHA_SHAPE
+    q, k, v = (torch.randn(BH, 1, S, hd, generator=g, device="cuda")
+               for _ in range(3))
+    kw = dict(causal=False, window=0, scale=1.0 / math.sqrt(hd))
+    record_one("flash_mha", lambda: flash_attention(q, k, v, **kw),
+               lambda: flash_attention_plain(q, k, v, **kw),
+               lambda: torch.nn.functional.scaled_dot_product_attention(
+                   q, k, v, scale=kw["scale"]),
+               4.0 * BH * S * S * hd, 4.0 * 4 * BH * S * hd,
+               max_err(flash_attention(q, k, v, **kw),
+                       flash_attention_plain(q, k, v, **kw)))
+    for M, K, N in TAIL_SHAPES:
+        sv = torch.randn(M, K, generator=g, device="cuda")
+        vv = torch.randn(K, N, generator=g, device="cuda")
+        record_one(f"softmaxmm_{M}x{K}x{N}",
+                   lambda: fused_softmax_matmul(sv, vv),
+                   lambda: softmax_matmul_plain(sv, vv),
+                   lambda: torch.softmax(sv, -1) @ vv,
+                   2.0 * M * K * N + 4.0 * M * K, 4.0 * (M * K + K * N + M * N),
+                   max_err(fused_softmax_matmul(sv, vv),
+                           softmax_matmul_plain(sv, vv)))
+    M, K, N = MM_SHAPE
+    am = torch.randn(M, K, generator=g, device="cuda") / math.sqrt(K)
+    bm = torch.randn(K, N, generator=g, device="cuda")
+    record_one("matmul", lambda: mm(am, bm), lambda: matmul_plain(am, bm),
+               lambda: torch.matmul(am, bm), 2.0 * M * N * K,
+               4.0 * (M * K + K * N + M * N),
+               max_err(mm(am, bm), matmul_plain(am, bm)))
+    return out
+
+
+def attention_tail_fn(s, v):
+    """The bare attention tail, ``matmul(softmax(s), v)`` with s an input:
+    the graph that routes ``streamfuse.softmaxmm`` (no catalog model does:
+    ``flashattn.mha`` claims the whole chain where the scores are made)."""
+    from repro_torch.core import frontend as F
+    return F.matmul(F.softmax(s), v)
+
+
+def slice_workloads() -> list:
+    """(name, function, shapes, the routed group, the library that must
+    launch, its launches a request, seeded input maker) of each path of
+    the slice."""
+    import numpy as np
+
+    from repro_torch.kernels.rglru.rglru import chunk_length
+    from repro_torch.kernels.rglru.rglru import launches as rglru_launches
+    from repro_torch.kernels.streamfuse.chain import softmax_mm_launches
+    from repro_torch.models.rglru import rglru_block_fn
+    from repro_torch.models.ssm import ssd_block_fn
+    from repro_torch.models.transformer import mha_batched_fn
+
+    def rglru_inputs(rng):
+        a = rng.uniform(0.5, 0.999, RGLRU_SHAPE).astype(np.float32)
+        gate = rng.uniform(0.0, 1.0, RGLRU_SHAPE).astype(np.float32)
+        return [a, gate, rng.standard_normal(RGLRU_SHAPE).astype(np.float32)]
+
+    def ssd_inputs(rng):
+        nc, BH = SSD_SHAPE[:2]
+        return [(0.1 * rng.standard_normal(SSD_SHAPE)).astype(np.float32),
+                rng.uniform(0.5, 0.99, (nc, BH, 1, 1)).astype(np.float32)]
+
+    def normals(*shapes):
+        return lambda rng: [rng.standard_normal(s).astype(np.float32)
+                            for s in shapes]
+
+    nc, BH = SSD_SHAPE[:2]
+    B, S, D = RGLRU_SHAPE
+    out = [("rglru_block", rglru_block_fn, [RGLRU_SHAPE] * 3, RGLRU, "rglru",
+            rglru_launches(S, chunk_length(B, S, D)), rglru_inputs),
+           ("ssd_block", ssd_block_fn, [SSD_SHAPE, (nc, BH, 1, 1)], SSD,
+            "ssd", 1, ssd_inputs),
+           ("mha_batched", mha_batched_fn, [MHA_SHAPE] * 3, FLASH, "flash",
+            2, normals(*[MHA_SHAPE] * 3))]
+    for M, K, N in TAIL_SHAPES:
+        out.append((f"attention_tail {M}x{K}x{N}", attention_tail_fn,
+                    [(M, K), (K, N)], SOFTMAXMM, "softmaxmm",
+                    softmax_mm_launches(M, K, N), normals((M, K), (K, N))))
+    return out
+
+
+def slice_path(seed, name, fn, shapes, group, lib_name, per_request,
+               make_inputs) -> dict:
+    """codo_torch.compile(fn, *shapes) with the default gate: the one
+    routed group asserted, four requests with the launch counters zeroed
+    just before and read just after (the slice's kernel and no other, its
+    expected count a request), verify() on the card, the card against
+    the port on the CPU, and one profiled request."""
+    import numpy as np
+    import torch
+
+    import codo_torch
+    t0 = time.perf_counter()
+    program = codo_torch.compile(fn, *shapes)
+    groups = [g.kernel for g in program.lower().groups if g.routes]
+    compile_s = time.perf_counter() - t0
+    if groups != [group]:
+        fail(f"{name}: expected the one routed group {group}, got {groups}")
+    rng = np.random.default_rng(seed)
+    xs = [make_inputs(rng) for _ in range(REQUESTS)]
+    # A layer's inputs come from the layer before it, on the card: they
+    # are placed there as set-up, not copied in each request.
+    dev = [[torch.as_tensor(a, device="cuda") for a in x] for x in xs]
+    program(*dev[0])                                # warm (allocator, libs)
+    torch.cuda.synchronize()
+
+    zero_counts()
+    outs, walls = [], []
+    for x in dev:
+        t = time.perf_counter()
+        y = program(*x)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t))
+        outs.append(y)
+    launches = {k: lib.launches for k, lib in all_libraries().items()}
+
+    want_shape = tuple(program.graph.buffers[program.output_names[0]].shape)
+    for y in outs:
+        if tuple(y.shape) != want_shape or not bool(torch.isfinite(y).all()):
+            fail(f"{name}: output not finite or not {want_shape}")
+    if len({float(y.double().sum()) for y in outs}) != REQUESTS:
+        fail(f"{name}: distinct requests gave identical outputs")
+    if launches[lib_name] != REQUESTS * per_request or any(
+            n for k, n in launches.items() if k != lib_name):
+        fail(f"{name}: expected {REQUESTS} x {per_request} {lib_name} "
+             f"launches and no other kernel, got {launches}")
+    program.verify(*dev[1], rtol=VERIFY_BAND, atol=VERIFY_BAND)
+    env = program.make_env(*dev[1])
+    got = program.lower()(env)[program.output_names[0]]
+    ref = program.source.execute(env)[program.output_names[0]]
+    err, scale = max_err(got, ref), float(ref.abs().max())
+    cpu = codo_torch.compile(fn, *shapes, device="cpu")
+    cpu_err = max_err(outs[0].cpu(), cpu(*xs[0]))
+    if not cpu_err <= VERIFY_BAND * (1 + float(outs[0].abs().max())):
+        fail(f"{name}: card and CPU disagree ({cpu_err:.3e})")
+    print(f"  {name}: group {group}; {REQUESTS} requests, wall "
+          f"{', '.join(f'{w:.3f}' for w in walls)} ms; launches "
+          f"{launches[lib_name]} ({lib_name}); verify max_abs_err {err:.3e} "
+          f"(output scale {scale:.3f}) within {VERIFY_BAND:.0e}; card vs "
+          f"the port on the CPU {cpu_err:.3e}")
+    run = program.lower()
+    env = program.make_env(*dev[2])
+    return {"name": name, "shapes": shapes, "group": group,
+            "compile_s": compile_s, "request_ms": walls,
+            "launches": launches, "kernel_launches": launches[lib_name],
+            "launches_per_request": per_request,
+            "verify_max_abs_err": err, "verify_scale": scale,
+            "verify_band": VERIFY_BAND, "cpu_max_abs_err": cpu_err,
+            "profile": profile_device(lambda: [run(env) for _ in range(3)],
+                                      calls=3)}
+
+
+def mm_path() -> dict:
+    """The blocked matmul through its public wrapper ops.mm (no pattern
+    routes it) at the FFN's fc shape: four calls with the launch counters
+    zeroed just before and read just after."""
+    import torch
+    from repro_torch.kernels.matmul import mm
+    g = torch.Generator(device="cuda").manual_seed(SEED + 42)
+    M, K, N = MM_SHAPE
+    xs = [torch.randn(M, K, generator=g, device="cuda") / math.sqrt(K)
+          for _ in range(REQUESTS)]
+    w = torch.randn(K, N, generator=g, device="cuda")
+    mm(xs[0], w)
+    torch.cuda.synchronize()
+    zero_counts()
+    walls, outs = [], []
+    for x in xs:
+        t = time.perf_counter()
+        outs.append(mm(x, w))
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t))
+    launches = {k: lib.launches for k, lib in all_libraries().items()}
+    if launches["matmul"] != REQUESTS or sum(launches.values()) != REQUESTS:
+        fail(f"ops.mm: expected {REQUESTS} matmul launches, got {launches}")
+    err = max(max_err(y, torch.matmul(x, w)) for x, y in zip(xs, outs))
+    scale = max(float(torch.matmul(x, w).abs().max()) for x in xs)
+    if not err <= MM_TOL["f32"] * (1 + scale):
+        fail(f"ops.mm against torch.matmul: {err:.3e}")
+    print(f"  ops.mm {M}x{K}x{N}: {REQUESTS} calls, wall "
+          f"{', '.join(f'{t:.3f}' for t in walls)} ms; launches "
+          f"{launches['matmul']}; against torch.matmul {err:.3e}")
+    return {"request_ms": walls, "launches": launches,
+            "max_abs_err_vs_torch": err}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail("src/repro_torch not found beside chip_smoke.py: run it from a "
@@ -1035,16 +1407,17 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
-    from repro_torch.kernels import common, flashattn, streamfuse
-    libs = {"flash": flashattn.LIBRARY, "mmchain": streamfuse.LIBRARY,
-            "mmgrad": streamfuse.GRAD_LIBRARY,
-            "conv": streamfuse.CONV_LIBRARY}
+    from repro_torch.kernels import common
+    libs = all_libraries()
     build_s = common.build_all(list(libs.values()))
     print(f"build: {build_s:.1f} s for {len(libs)} kernels (nvcc, parallel)")
+    record["ptxas"] = {}
     for lib in libs.values():
-        for line in lib.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {lib.source.name}: {line.strip()}")
+        lines = [line.strip() for line in lib.build_log.splitlines()
+                 if "registers" in line or "spill" in line]
+        record["ptxas"][lib.source.name] = lines
+        for line in lines:
+            print(f"  {lib.source.name}: {line}")
     record["build_s"] = build_s
 
     print("kernels against their plain versions:")
@@ -1053,6 +1426,7 @@ def main() -> int:
     check_grad(record["checks"])
     check_conv(record["checks"])
     check_conv_precision(record)
+    check_slice(record["checks"])
     measured = {}
     for S in SEQS:
         measured[S] = measure_kernels(S, record)
@@ -1065,6 +1439,9 @@ def main() -> int:
     record["measured_conv"] = {f"{m} N={N}": v
                                for (m, N), v in conv_measured.items()}
     record["measured_vgg16_head"] = head
+    print("slice kernels at their route shapes:")
+    slice_measured = measure_slice(record)
+    record["measured_slice"] = slice_measured
 
     print("main path: codo_torch.compile(gpt2_block_fn, (S, 1024)):")
     runs = {S: main_path(S, record) for S in SEQS}
@@ -1077,6 +1454,14 @@ def main() -> int:
           f"{IMAGE})):")
     cnns = {(m, N): cnn_path(m, N, routes) for m, N, routes in cnn_cases}
     record["cnn_path"] = {f"{m} N={N}": r for (m, N), r in cnns.items()}
+    print("recurrence and attention-tail paths: codo_torch.compile(<fn>, "
+          "*shapes):")
+    slices = {w[0]: slice_path(SEED + 50 + i, *w)
+              for i, w in enumerate(slice_workloads())}
+    record["slice_path"] = slices
+    print("the blocked matmul through ops.mm:")
+    mm_run = mm_path()
+    record["mm_path"] = mm_run
 
     # One entry a kernel and S.  fused_matmul_grad's serves both backward
     # chains, and its launch counter counts both: its entry carries that
@@ -1117,6 +1502,30 @@ def main() -> int:
     cnn_entries.append(("fused_matmul_chain[vgg16 N=1 head]",
                         *source["mmchain"][1:], head,
                         cnns[("vgg16", 1)]["launches"]["mmchain"]))
+    tails = [f"{M}x{K}x{N}" for M, K, N in TAIL_SHAPES]
+    cnn_entries += [
+        ("rglru_scan[rglru_block " + "x".join(map(str, RGLRU_SHAPE)) + "]",
+         "src/repro_torch/csrc/rglru_scan.cu",
+         "src/repro/kernels/rglru/rglru.py:49", slice_measured["rglru"],
+         slices["rglru_block"]["kernel_launches"]),
+        ("ssd_chunk_scan[ssd_block " + "x".join(map(str, SSD_SHAPE)) + "]",
+         "src/repro_torch/csrc/ssd_scan.cu",
+         "src/repro/kernels/ssd/ssd.py:45", slice_measured["ssd"],
+         slices["ssd_block"]["kernel_launches"]),
+        ("flash_attention[mha_batched " + "x".join(map(str, MHA_SHAPE)) + "]",
+         *source["flash"][1:], slice_measured["flash_mha"],
+         slices["mha_batched"]["kernel_launches"])]
+    cnn_entries += [
+        (f"fused_softmax_matmul[attention_tail {t}]",
+         "src/repro_torch/csrc/softmax_mm.cu",
+         "src/repro/kernels/streamfuse/chain.py:185",
+         slice_measured[f"softmaxmm_{t}"],
+         slices[f"attention_tail {t}"]["kernel_launches"]) for t in tails]
+    cnn_entries.append((
+        "matmul[ops.mm " + "x".join(map(str, MM_SHAPE)) + "]",
+        "src/repro_torch/csrc/matmul.cu",
+        "src/repro/kernels/matmul/matmul.py:49", slice_measured["matmul"],
+        mm_run["launches"]["matmul"]))
     for name, src, replaces, m, launches in cnn_entries:
         entries.append({
             "name": name, "route": "cuda", "source": src,

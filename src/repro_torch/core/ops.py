@@ -2,14 +2,14 @@
 
 The PyTorch counterpart of ``repro/core/ops.py``: the same ``OpSpec``
 records, registry, epochs and VJP table, with torch bodies for every
-forward kind but the two recurrences (identity, dup, fused, zeros,
-fill_interior, pad2d, conv2d, relu, gelu, add, vadd, scale, affine, divc,
-rdivc, div, mul, const, softmax, matmul, mv, transpose, maxpool2d, mean,
-reshape, concat, split, slice) and for the gradient and optimizer kinds
+forward kind (identity, dup, fused, zeros, fill_interior, pad2d, conv2d,
+relu, gelu, add, vadd, scale, affine, divc, rdivc, div, mul, const,
+softmax, matmul, mv, transpose, maxpool2d, mean, reshape, concat, split,
+slice, rglru_scan, ssd_scan) and for the gradient and optimizer kinds
 the GPT-2 block's train step runs (mean_all, bcast, relu_grad, gelu_grad,
 softmax_grad, sumsq, clip_scale, lr_sched, adamw_step).  Any other kind
-(``rglru_scan``, ``ssd_scan``, the other gradient kinds) raises
-:class:`UnknownOpError` naming it.  No body writes in place: ``dup`` and
+(the other gradient kinds, ``rglru_scan_grad`` and ``ssd_scan_grad``
+among them) raises :class:`UnknownOpError` naming it.  No body writes in place: ``dup`` and
 ``identity`` alias their input, ``transpose``, ``bcast``, ``split`` and
 ``slice`` return views.  ``conv2d`` runs in full float32 whatever
 ``torch.backends.cudnn.allow_tf32`` says.
@@ -514,6 +514,50 @@ def _slice(spec: OpSpec, env: dict) -> dict:
     ix = tuple(slice(int(st), int(st) + int(sz))
                for st, sz in zip(spec.attrs["starts"], spec.attrs["sizes"]))
     return {spec.outs[0]: x[ix]}
+
+
+def _rglru_reference(a, b):
+    """RG-LRU recurrence h_t = a_t * h_{t-1} + b_t over axis 1 of (B, S, D)
+    operands, h_{-1} = 0, in a's type: a loop over time in the reference's
+    step order.  No closed form (a cumulative product divided out would
+    underflow over long sequences)."""
+    import torch
+    h = torch.zeros_like(a[:, 0])
+    hs = []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1)
+
+
+def _ssd_reference(states, decay):
+    """SSD inter-chunk recurrence over (nc, BH, P, N) end states and
+    (nc, BH, 1, 1) decays: the state carried *into* each chunk, h_0 = 0,
+    in the states' type — each chunk's h emitted before chunk c folds in."""
+    import torch
+    h = torch.zeros_like(states[0])
+    prevs = []
+    for c in range(states.shape[0]):
+        prevs.append(h)
+        h = h * decay[c] + states[c]
+    return torch.stack(prevs, dim=0)
+
+
+@register_op("rglru_scan")
+def _rglru_scan(spec: OpSpec, env: dict) -> dict:
+    """RG-LRU linear recurrence over axis 1 of (B, S, D) operands.  The
+    generic sequential definition; the routed ``rglru.scan`` kernel
+    replaces it with the CUDA scan."""
+    return {spec.outs[0]: _rglru_reference(env[spec.ins[0]],
+                                           env[spec.ins[1]])}
+
+
+@register_op("ssd_scan")
+def _ssd_scan(spec: OpSpec, env: dict) -> dict:
+    """Mamba-2 SSD inter-chunk state recurrence: the state carried into
+    each chunk.  The generic sequential definition; the routed ``ssd.scan``
+    kernel replaces it with the CUDA scan."""
+    return {spec.outs[0]: _ssd_reference(env[spec.ins[0]], env[spec.ins[1]])}
 
 
 # --------------------------------------------------------------------------

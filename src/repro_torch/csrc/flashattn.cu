@@ -35,8 +35,11 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "online_softmax.cuh"
 
 namespace {
+
+using namespace codo_softmax;
 
 constexpr int BQ = 16;          // query rows per block
 constexpr int BK = 64;          // keys per tile
@@ -44,25 +47,6 @@ constexpr int DK = 64;          // hd columns per K chunk
 constexpr int KPAD = DK + 4;    // K chunk row stride: float4-aligned, no conflicts
 constexpr int BKV = 8;          // keys per V chunk
 constexpr int THREADS = 256;    // 8 warps: warp w owns rows 2w, 2w+1
-constexpr float NEG_INF = -1e30f;
-
-struct Strides {
-  long long b, h, s, d;
-};
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
 
 // NC: accumulator columns per thread (hd <= 64·NC).
 template <typename T, int NC>
@@ -174,13 +158,9 @@ __global__ void __launch_bounds__(THREADS, 2)
           if (!keep) x[c] = NEG_INF;
         }
       }
-      const float m_new = fmaxf(m_run[i], warp_max(fmaxf(x[0], x[1])));
-      const float p0 = expf(x[0] - m_new), p1 = expf(x[1] - m_new);
-      const float corr = expf(m_run[i] - m_new);
-      l_run[i] = l_run[i] * corr + warp_sum(p0 + p1);
-      m_run[i] = m_new;
-      p_s[row * BK + lane] = p0;
-      p_s[row * BK + lane + 32] = p1;
+      const float corr = online_softmax_step(x, m_run[i], l_run[i]);
+      p_s[row * BK + lane] = x[0];
+      p_s[row * BK + lane + 32] = x[1];
       if (lane == 0) c_s[row] = corr;
     }
     __syncthreads();
@@ -246,36 +226,6 @@ __global__ void __launch_bounds__(THREADS, 2)
         part_ml[(base + qr) * 2 + 1] = l_run[i];
       }
     }
-  }
-}
-
-// o[row] = Σ_s acc_s·e^(m_s−m) / max(Σ_s l_s·e^(m_s−m), 1e-30), m = max_s m_s,
-// splits summed in order.  One block per (b·h, q) row.
-template <typename T>
-__global__ void combine_kernel(const float* __restrict__ part_o,
-                               const float* __restrict__ part_ml,
-                               T* __restrict__ o, int splits, int BH, int Hq,
-                               int Sq, int hd, Strides os) {
-  const int row = blockIdx.x;
-  const int bh = row / Sq, qr = row % Sq;
-  const int b = bh / Hq, h = bh % Hq;
-  float m = -INFINITY;
-  for (int z = 0; z < splits; ++z)
-    m = fmaxf(m, part_ml[(((size_t)z * BH + bh) * Sq + qr) * 2]);
-  float l = 0.f;
-  for (int z = 0; z < splits; ++z) {
-    const size_t at = (((size_t)z * BH + bh) * Sq + qr) * 2;
-    l += part_ml[at + 1] * expf(part_ml[at] - m);
-  }
-  const float inv_l = 1.f / fmaxf(l, 1e-30f);
-  T* orow = o + b * os.b + h * os.h + qr * os.s;
-  for (int d = threadIdx.x; d < hd; d += blockDim.x) {
-    float a = 0.f;
-    for (int z = 0; z < splits; ++z) {
-      const size_t at = ((size_t)z * BH + bh) * Sq + qr;
-      a += part_o[at * hd + d] * expf(part_ml[at * 2] - m);
-    }
-    orow[d * os.d] = codo::from_f32<T>(a * inv_l);
   }
 }
 

@@ -2,21 +2,31 @@
 
 Each subpackage keeps the reference's layout: a kernel module (the CUDA
 wrapper plus its plain PyTorch version), an ``ops`` wrapper, a ``ref``
-oracle, and the routing registration.  The CUDA sources live in
+oracle, and the routing registration (all but ``matmul``, which no
+pattern reaches, as in the reference).  The CUDA sources live in
 ``repro_torch/csrc`` and build at first use (:mod:`.common`).
 
 * ``flashattn``  — streaming online-softmax attention (GQA/causal/SWA)
+* ``matmul``     — blocked matmul, the accumulator written once (Fig. 5)
 * ``streamfuse`` — the fused ``pad → conv → relu`` streaming kernel
-  (conv), ``ew(a @ w1) @ w2`` matmul chains and the backward
-  ``ew(a @ w, *residuals)`` gradient epilogues (mmchain, mmgrad)
+  (conv), ``ew(a @ w1) @ w2`` matmul chains (mmchain), the
+  ``softmax(s) @ v`` attention tail (softmaxmm) and the backward
+  ``ew(a @ w, *residuals)`` gradient epilogues (mmgrad)
+* ``rglru``      — RG-LRU linear recurrence (chunked time scan)
+* ``ssd``        — Mamba-2 SSD inter-chunk state scan
 """
 
-from . import flashattn, streamfuse
+from . import flashattn, matmul, rglru, ssd, streamfuse
 
 
 def register_all() -> None:
     """Hook the kernels into the CODO routing registry, in the reference's
-    order: streamfuse first, then flashattn.  ``flashattn.mha`` anchors at
-    the score matmul and claims its whole chain by longest-match-first."""
+    order: streamfuse, then flashattn, then rglru and ssd.  Order matters
+    only for patterns sharing an anchor op: ``flashattn.mha`` anchors at
+    the score matmul, which precedes the softmax in topo order, so it
+    claims the whole attention chain before ``streamfuse.softmaxmm`` can
+    anchor at the tail."""
     streamfuse.register()
     flashattn.register()
+    rglru.register()
+    ssd.register()

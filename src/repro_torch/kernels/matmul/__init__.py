@@ -1,0 +1,5 @@
+from .matmul import LIBRARY, matmul, matmul_plain
+from .ops import mm
+from .ref import matmul_ref
+
+__all__ = ["LIBRARY", "matmul", "matmul_plain", "matmul_ref", "mm"]

@@ -1,0 +1,83 @@
+"""The SSD inter-chunk state scan: the Hopper kernel and its plain version.
+
+The counterpart of ``repro/kernels/ssd/ssd.py``.  :func:`ssd_chunk_scan`
+keeps the TPU function's contract — states (nc, BH, P, N), decay (nc, BH,
+1, 1), both of one element type (float32 or bfloat16); returns the state
+carried *into* each chunk, h_0 = 0 and h_{c+1} = h_c·decay_c + state_c,
+the state carried in float32 and each h_c written in the states' type
+before chunk c folds in.
+
+Tensors on the card launch ``csrc/ssd_scan.cu`` (one launch a call):
+one thread per (bh, p, n) element walks the chunks in order.  Tensors on
+the CPU run :func:`ssd_chunk_scan_plain`, the same loop in PyTorch ops.
+"""
+
+from __future__ import annotations
+
+from ..common import (INT, PTR, CudaLibrary, dtype_code, on_card, smem_ok,
+                      stream_of)
+
+# Threads a block of csrc/ssd_scan.cu: consecutive (p, n) elements of one bh.
+THREADS = 256
+
+LIBRARY = CudaLibrary("ssd_scan.cu", {
+    "codo_ssd_chunk_scan": [INT, PTR, PTR, PTR, INT, INT, INT, PTR],
+})
+
+
+def smem_bytes(nc: int) -> int:
+    """Dynamic shared memory of one block: the bh's nc decays."""
+    return 4 * nc
+
+
+def _check(states, decay):
+    import torch
+    if states.dim() != 4 or decay.dim() != 4:
+        raise ValueError(f"ssd_chunk_scan wants 4-D states and decay, got "
+                         f"{tuple(states.shape)} and {tuple(decay.shape)}")
+    nc, BH = states.shape[:2]
+    if tuple(decay.shape) != (nc, BH, 1, 1):
+        raise ValueError(f"decay must be (nc={nc}, BH={BH}, 1, 1), got "
+                         f"{tuple(decay.shape)}")
+    if states.dtype != decay.dtype or states.dtype not in (torch.float32,
+                                                           torch.bfloat16):
+        raise TypeError(f"states/decay must share float32 or bfloat16, got "
+                        f"{states.dtype}, {decay.dtype}")
+
+
+def ssd_chunk_scan(states, decay):
+    """states: (nc, BH, P, N); decay: (nc, BH, 1, 1).  Returns h_prev (nc,
+    BH, P, N): the kernel on the card, the plain version on the CPU."""
+    import torch
+    _check(states, decay)
+    if not on_card(states, decay):
+        return ssd_chunk_scan_plain(states, decay)
+    if not (states.is_contiguous() and decay.is_contiguous()):
+        raise ValueError("ssd_chunk_scan reads contiguous states and decay")
+    nc, BH, P, N = states.shape
+    if not smem_ok(smem_bytes(nc)):
+        raise ValueError(f"ssd_chunk_scan holds a block's {nc} decays in "
+                         f"shared memory: too many chunks")
+    out = torch.empty_like(states)
+    with torch.cuda.device(states.device):
+        LIBRARY.launch("codo_ssd_chunk_scan", dtype_code(states),
+                       states.data_ptr(), decay.data_ptr(), out.data_ptr(),
+                       nc, BH, P * N, stream_of(states))
+    return out
+
+
+def ssd_chunk_scan_plain(states, decay):
+    """The kernel's function in plain PyTorch ops: the float32 state
+    carried over the chunks in order, each h_c emitted before the fold."""
+    import torch
+    _check(states, decay)
+    h = torch.zeros(states.shape[1:], dtype=torch.float32,
+                    device=states.device)
+    prevs = []
+    for c in range(states.shape[0]):
+        prevs.append(h.to(states.dtype))
+        h = h * decay[c].float() + states[c].float()
+    return torch.stack(prevs, dim=0)
+
+
+__all__ = ["LIBRARY", "smem_bytes", "ssd_chunk_scan", "ssd_chunk_scan_plain"]

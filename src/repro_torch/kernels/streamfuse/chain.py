@@ -1,7 +1,7 @@
 """The streamfuse matmul kernels for Hopper and their plain versions.
 
-The counterpart of the ``fused_matmul_chain`` and ``fused_matmul_grad``
-halves of ``repro/kernels/streamfuse/chain.py``.
+The counterpart of ``repro/kernels/streamfuse/chain.py``:
+``fused_matmul_chain``, ``fused_matmul_grad`` and ``fused_softmax_matmul``.
 
 ``fused_matmul_chain`` — ``ew(a @ w1) @ w2``: a (M, K), w1 (K, N1), w2
 (N1, N2) of one element type (float32 or bfloat16), float32 accumulation,
@@ -23,8 +23,13 @@ extra (M, N), one element type, float32 accumulation, output in a's type.
 transposed and ``expand`` views go in as they are.  Tensors on the card
 launch ``csrc/chain_grad.cu``: see :func:`fused_matmul_grad`.
 
-Tensors on the CPU run the plain versions, :func:`matmul_chain_plain`
-and :func:`matmul_grad_plain`.
+``fused_softmax_matmul`` — ``softmax(s, -1) @ v``, the attention tail:
+s (M, K), v (K, N), online softmax over key tiles, float32 accumulation,
+output in s's type.  Tensors on the card launch ``csrc/softmax_mm.cu``:
+see :func:`fused_softmax_matmul`.
+
+Tensors on the CPU run the plain versions, :func:`matmul_chain_plain`,
+:func:`matmul_grad_plain` and :func:`softmax_matmul_plain`.
 """
 
 from __future__ import annotations
@@ -391,9 +396,118 @@ def matmul_grad_plain(a, w, *extras, ew: Sequence[GradStage]):
     return h.to(a.dtype)
 
 
+# --------------------------------------------------------------------------
+# softmax -> matmul (online-softmax attention tail)
+# --------------------------------------------------------------------------
+
+# Tile constants of csrc/softmax_mm.cu: 16 rows a block, 64-key tiles of
+# s, V streamed 8 keys at a time, up to 4 × 64 output columns a block.
+SM_BQ, SM_BK, SM_BKV, SM_MAX_NC = 16, 64, 8, 4
+_SM_TARGET_BLOCKS = 2 * _NUM_SMS          # two blocks per SM
+
+SOFTMAX_LIBRARY = CudaLibrary("softmax_mm.cu", {
+    "codo_softmax_matmul": [INT, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT,
+                            INT, INT, PTR],
+    "codo_softmax_matmul_combine": [INT, PTR, PTR, PTR, INT, INT, INT, PTR],
+})
+
+
+def softmax_mm_columns(N: int) -> int:
+    """Output columns a block owns: 64, 128 or 256 (wider N is tiled over
+    the grid, each column tile recomputing the same row statistics)."""
+    nc = 1
+    while nc < SM_MAX_NC and 64 * nc < N:
+        nc *= 2
+    return 64 * nc
+
+
+def softmax_mm_smem_bytes(N: int) -> int:
+    """Shared memory of one block: the probability tile, its row
+    corrections and denominators, and one V chunk."""
+    return 4 * (SM_BQ * SM_BK + 2 * SM_BQ + SM_BKV * softmax_mm_columns(N))
+
+
+def softmax_mm_splits(M: int, K: int, N: int) -> tuple[int, int]:
+    """(splits, key tiles per split) of the contraction: enough splits that
+    the grid reaches two blocks per SM, no more than there are tiles."""
+    tiles = -(-K // SM_BK)
+    blocks = -(-M // SM_BQ) * -(-N // softmax_mm_columns(N))
+    splits = min(tiles, max(1, -(-_SM_TARGET_BLOCKS // blocks)))
+    per = -(-tiles // splits)
+    return -(-tiles // per), per
+
+
+def softmax_mm_launches(M: int, K: int, N: int) -> int:
+    """Kernel launches of one :func:`fused_softmax_matmul` call: the split
+    pass alone, or with the combine when the keys split."""
+    return 1 if softmax_mm_splits(M, K, N)[0] == 1 else 2
+
+
+def _check_softmax_mm(s, v):
+    import torch
+    if s.dim() != 2 or v.dim() != 2 or s.shape[1] != v.shape[0]:
+        raise ValueError(f"fused_softmax_matmul wants s (M, K) and v (K, N), "
+                         f"got {tuple(s.shape)} and {tuple(v.shape)}")
+    if s.dtype != v.dtype or s.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"s/v must share float32 or bfloat16, got {s.dtype}, "
+                        f"{v.dtype}")
+
+
+def fused_softmax_matmul(s, v):
+    """``softmax(s, -1) @ v``: s (M, K), v (K, N), output in s's type.
+
+    On the card: blocks of 16 rows × up to 256 output columns × one split
+    of the key tiles, the online softmax (running max from −1e30, running
+    denominator, float32 accumulator) in registers; with one split the
+    block writes ``acc / max(l, 1e-30)`` (one launch), else each split
+    writes its unnormalized accumulator with its max and denominator and a
+    second kernel combines the splits in a fixed order.  Operands are read
+    through their strides.  On the CPU: :func:`softmax_matmul_plain`."""
+    import torch
+    _check_softmax_mm(s, v)
+    if not on_card(s, v):
+        return softmax_matmul_plain(s, v)
+    M, K = s.shape
+    N = v.shape[1]
+    splits, per = softmax_mm_splits(M, K, N)
+    out = torch.empty((M, N), dtype=s.dtype, device=s.device)
+    if splits > 1:
+        part_o = torch.empty((splits, M, N), dtype=torch.float32,
+                             device=s.device)
+        part_ml = torch.empty((splits, M, 2), dtype=torch.float32,
+                              device=s.device)
+        dst, ml = part_o, part_ml.data_ptr()
+    else:
+        dst, ml = out, None
+    strides = (ctypes.c_longlong * 4)(*s.stride(), *v.stride())
+    code, stream = dtype_code(s), stream_of(s)
+    with torch.cuda.device(s.device):
+        SOFTMAX_LIBRARY.launch("codo_softmax_matmul", code, s.data_ptr(),
+                               v.data_ptr(), strides, dst.data_ptr(), ml, M,
+                               K, N, softmax_mm_columns(N), splits, per,
+                               stream)
+        if splits > 1:
+            SOFTMAX_LIBRARY.launch("codo_softmax_matmul_combine", code,
+                                   part_o.data_ptr(), part_ml.data_ptr(),
+                                   out.data_ptr(), splits, M, N, stream)
+    return out
+
+
+def softmax_matmul_plain(s, v):
+    """The kernel's function in plain PyTorch ops: whole-row softmax in
+    float32 with the kernel's denominator guard."""
+    _check_softmax_mm(s, v)
+    sf = s.float()
+    p = (sf - sf.amax(dim=-1, keepdim=True)).exp()
+    o = (p @ v.float()) / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return o.to(s.dtype)
+
+
 __all__ = ["EW_CODES", "GRAD_CODES", "GRAD_KINDS", "GRAD_LIBRARY", "GradTail",
-           "LIBRARY", "apply_ew_plain", "apply_grad_ew_plain",
-           "chunk_columns", "ew_codes", "fused_matmul_chain",
-           "fused_matmul_grad", "grad_ew_codes", "grad_launches",
-           "grad_one_pass", "k_splits", "matmul_chain_plain",
-           "matmul_grad_plain"]
+           "LIBRARY", "SOFTMAX_LIBRARY", "apply_ew_plain",
+           "apply_grad_ew_plain", "chunk_columns", "ew_codes",
+           "fused_matmul_chain", "fused_matmul_grad", "fused_softmax_matmul",
+           "grad_ew_codes", "grad_launches", "grad_one_pass", "k_splits",
+           "matmul_chain_plain", "matmul_grad_plain", "softmax_matmul_plain",
+           "softmax_mm_columns", "softmax_mm_launches", "softmax_mm_smem_bytes",
+           "softmax_mm_splits"]

@@ -1,15 +1,15 @@
 """CODO kernel-pattern registration for the streamfuse kernels.
 
-The counterpart of the ``streamfuse.conv``, ``streamfuse.mmchain`` and
-``streamfuse.mmgrad`` parts of ``repro/kernels/streamfuse/ops.py``:
+The counterpart of ``repro/kernels/streamfuse/ops.py``:
 
-=======================  ===========================  =====================
-pattern name             op pattern                   kernel
-=======================  ===========================  =====================
-``streamfuse.conv``      ``pad → conv → ewise``       ``fused_pad_conv_relu``
-``streamfuse.mmchain``   ``matmul → *ewise → matmul`` ``fused_matmul_chain``
-``streamfuse.mmgrad``    ``matmul → *ewise`` (grad)   ``fused_matmul_grad``
-=======================  ===========================  =====================
+========================  ===========================  =======================
+pattern name              op pattern                   kernel
+========================  ===========================  =======================
+``streamfuse.conv``       ``pad → conv → ewise``       ``fused_pad_conv_relu``
+``streamfuse.mmchain``    ``matmul → *ewise → matmul`` ``fused_matmul_chain``
+``streamfuse.softmaxmm``  ``softmax → matmul``         ``fused_softmax_matmul``
+``streamfuse.mmgrad``     ``matmul → *ewise`` (grad)   ``fused_matmul_grad``
+========================  ===========================  =======================
 
 The feasibility guards are the reference's, pure graph analysis.  The
 factories turn the chain's elementwise tasks into data for the kernel
@@ -18,17 +18,19 @@ residual operand, turned into the kernel's op codes once a route); where
 the step runs follows from its operands' device
 (:mod:`repro_torch.kernels.common`).  There is no VMEM budget: the
 kernels tile what the TPU kernel held whole (mmchain sizes its N1 chunk
-to the shared memory, mmgrad's and conv's tiles are fixed and small), so
-the factories check only the tail's length.  The conv chain's ``pad2d``
-output is interior to the route and never materialized: the kernel reads
-the unpadded input.  ``streamfuse.softmaxmm`` is not ported yet.
+to the shared memory, mmgrad's and conv's tiles are fixed and small,
+softmaxmm tiles the output columns), so the factories check the tail's
+length, and softmaxmm that its tiling fits a block's shared memory.  The
+conv chain's ``pad2d`` output is interior to the route and never
+materialized: the kernel reads the unpadded input.
 """
 
 from __future__ import annotations
 
 from ...core.routing import KernelPattern, register_kernel_pattern
-from ..common import all_f32
-from .chain import MAX_EW, GradTail, fused_matmul_chain, fused_matmul_grad
+from ..common import all_f32, smem_ok
+from .chain import (MAX_EW, GradTail, fused_matmul_chain, fused_matmul_grad,
+                    fused_softmax_matmul, softmax_mm_smem_bytes)
 from .streamfuse import fused_pad_conv_relu
 
 # Elementwise spec kinds a kernel can replay on a tile: exactly one
@@ -179,12 +181,42 @@ def _mm_grad_factory(graph, group, tasks, tile=None):
     return run
 
 
+def _softmax_mm_feasible(graph, tasks) -> bool:
+    sm, mm = tasks
+    if sm.spec is None or mm.spec is None:
+        return False
+    if sm.spec.kind != "softmax" or mm.spec.kind != "matmul":
+        return False
+    s_shape = graph.buffers[sm.spec.ins[0]].shape
+    if len(s_shape) != 2 or int(sm.spec.attrs.get("axis", -1)) not in (
+            -1, len(s_shape) - 1):
+        return False
+    if mm.spec.ins[0] != sm.spec.outs[0]:   # probabilities stream in as LHS
+        return False
+    v_buf = mm.spec.ins[1]
+    if len(graph.buffers[v_buf].shape) != 2:
+        return False
+    return all_f32(graph, sm.spec.ins[0], v_buf, mm.spec.outs[0])
+
+
+def _softmax_mm_factory(graph, group, tasks, tile=None):
+    sm, mm = tasks
+    s_buf, v_buf, out_buf = sm.spec.ins[0], mm.spec.ins[1], mm.spec.outs[0]
+    if not smem_ok(softmax_mm_smem_bytes(graph.buffers[v_buf].shape[1])):
+        return None                     # no tiling fits a block's memory
+
+    def run(env):
+        return {out_buf: fused_softmax_matmul(env[s_buf], env[v_buf])}
+
+    return run
+
+
 _REGISTERED = False
 
 
 def register() -> None:
-    """Register the conv, mmchain and mmgrad kernel patterns with the
-    routing layer, conv first as the reference does (pattern ties go to
+    """Register the conv, mmchain, softmaxmm and mmgrad kernel patterns
+    with the routing layer in the reference's order (pattern ties go to
     the earlier registration), idempotently — repeated ``register_all()``
     calls do not churn the registry epoch."""
     global _REGISTERED
@@ -199,6 +231,10 @@ def register() -> None:
         name="streamfuse.mmchain", pattern=("matmul", "*ewise", "matmul"),
         factory=_mm_chain_factory, feasible=_mm_chain_feasible,
         description="ew(a@w1)@w2 with the intermediate kept on chip"))
+    register_kernel_pattern(KernelPattern(
+        name="streamfuse.softmaxmm", pattern=("softmax", "matmul"),
+        factory=_softmax_mm_factory, feasible=_softmax_mm_feasible,
+        description="online-softmax(s)@v streaming attention tail"))
     register_kernel_pattern(KernelPattern(
         name="streamfuse.mmgrad", pattern=("matmul", "*ewise"),
         factory=_mm_grad_factory, feasible=_mm_grad_feasible,

@@ -1,6 +1,5 @@
-"""Plain PyTorch oracles for the streamfuse kernels (the
-``pad_conv_relu_ref``, ``matmul_chain_ref`` and ``matmul_grad_ref``
-parts of ``repro/kernels/streamfuse/ref.py``)."""
+"""Plain PyTorch oracles for the streamfuse kernels (the counterpart of
+``repro/kernels/streamfuse/ref.py``)."""
 
 
 def pad_conv_relu_ref(x, w):
@@ -31,3 +30,9 @@ def matmul_grad_ref(a, w, extras=(), ew=None):
     if ew is not None:
         h = ew(h, *extras)
     return h.to(a.dtype)
+
+
+def softmax_matmul_ref(s, v):
+    """``softmax(s, -1) @ v`` in s's type."""
+    import torch
+    return torch.softmax(s, dim=-1) @ v

@@ -1,9 +1,9 @@
 """Paper-benchmark workloads as CODO dataflow graphs (§VIII).
 
 The PyTorch port's copy of ``repro/models/dataflow_models.py``: the
-framework-free builders (the Table II kernels, the CNNs, the GPT-2 block
-and the hand-built twins).  The attention/recurrence routing workloads and
-the architecture-config block graphs wait for their model modules.
+framework-free builders (the Table II kernels, the CNNs, the GPT-2 block,
+the attention/recurrence routing workloads and the hand-built twins).  The
+architecture-config block graphs wait for the LM stack.
 
 Every workload the paper evaluates is defined here — since the
 traced-function frontend (:mod:`repro_torch.core.frontend`) landed, the Table II
@@ -328,6 +328,35 @@ def gpt2_block_loss(S: int = 128, D: int = 1024) -> DataflowGraph:
 
 
 # --------------------------------------------------------------------------
+# Attention / recurrence families.  The workload bodies live next to their
+# reference models (models/transformer.py, rglru.py, ssm.py); the builders
+# below trace them at routing-bench sizes.
+# --------------------------------------------------------------------------
+
+
+def mha_batched(BH: int = 4, S: int = 64, hd: int = 32) -> DataflowGraph:
+    """One attention head over (BH, S, hd) operands — the batched
+    matmul->scale->softmax->matmul chain the flashattn pattern routes."""
+    from .transformer import mha_batched_fn
+    sh = (BH, S, hd)
+    return trace(mha_batched_fn, sh, sh, sh, name="mha_batched")
+
+
+def rglru_block(B: int = 2, S: int = 128, D: int = 64) -> DataflowGraph:
+    """Gated linear recurrence + residual (RG-LRU core)."""
+    from .rglru import rglru_block_fn
+    sh = (B, S, D)
+    return trace(rglru_block_fn, sh, sh, sh, name="rglru_block")
+
+
+def ssd_block(nc: int = 8, BH: int = 8, P: int = 32, N: int = 32) -> DataflowGraph:
+    """SSD inter-chunk state recurrence + residual combine."""
+    from .ssm import ssd_block_fn
+    return trace(ssd_block_fn, (nc, BH, P, N), (nc, BH, 1, 1),
+                 name="ssd_block")
+
+
+# --------------------------------------------------------------------------
 # Registry
 # --------------------------------------------------------------------------
 
@@ -354,6 +383,14 @@ DNN_BENCHES = {
     "resnet18": resnet18, "vgg16": vgg16, "mobilenet": mobilenet,
     "zfnet": zfnet, "yolo": yolo_tiny, "gpt2_block": gpt2_block,
 }
+
+# Attention / recurrence routing workloads: traced builders whose chains
+# the flashattn / rglru / ssd kernel patterns claim.
+RECURRENCE_BENCHES = {
+    "mha_batched": mha_batched, "rglru_block": rglru_block,
+    "ssd_block": ssd_block,
+}
+
 
 def random_inputs(graph: DataflowGraph, seed: int = 0) -> dict:
     """Fan-in-normalized random inputs/weights as float32 numpy arrays:
@@ -619,6 +656,42 @@ def yolo_tiny_handbuilt(H: int = 384, W: int = 1280) -> DataflowGraph:
     return b.g
 
 
+def mha_batched_handbuilt(BH: int = 4, S: int = 64, hd: int = 32) -> DataflowGraph:
+    b = GB("mha_batched")
+    q = b.input("q", (BH, S, hd))
+    k = b.input("k", (BH, S, hd))
+    v = b.input("v", (BH, S, hd))
+    kt = b.transpose(k)
+    s = b.scale(b.matmul(q, kt), 1.0 / math.sqrt(hd))
+    p = b.softmax(s)
+    o = b.matmul(p, v)
+    b.mark_output(o)
+    return b.g
+
+
+def rglru_block_handbuilt(B: int = 2, S: int = 128, D: int = 64) -> DataflowGraph:
+    b = GB("rglru_block")
+    a = b.input("a", (B, S, D))
+    gate = b.input("gate", (B, S, D))
+    x = b.input("x", (B, S, D))
+    bb = b.mul(gate, x)
+    h = b.rglru_scan(a, bb)
+    o = b.add(h, x)
+    b.mark_output(o)
+    return b.g
+
+
+def ssd_block_handbuilt(nc: int = 8, BH: int = 8, P: int = 32,
+                        N: int = 32) -> DataflowGraph:
+    b = GB("ssd_block")
+    states = b.input("states", (nc, BH, P, N))
+    decay = b.input("decay", (nc, BH, 1, 1))
+    prev = b.ssd_scan(states, decay)
+    o = b.add(prev, states)
+    b.mark_output(o)
+    return b.g
+
+
 # name -> (traced builder, hand-built twin); both zero-arg-callable at the
 # paper's default sizes.  tests/test_frontend.py asserts hash parity.
 HANDBUILT_BENCHES = {
@@ -640,4 +713,7 @@ HANDBUILT_BENCHES = {
     "mobilenet": (mobilenet, mobilenet_handbuilt),
     "zfnet": (zfnet, zfnet_handbuilt),
     "yolo": (yolo_tiny, yolo_tiny_handbuilt),
+    "mha_batched": (mha_batched, mha_batched_handbuilt),
+    "rglru_block": (rglru_block, rglru_block_handbuilt),
+    "ssd_block": (ssd_block, ssd_block_handbuilt),
 }

@@ -16,6 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import ops as ref_ops  # noqa: E402
@@ -54,8 +55,32 @@ from repro_torch.kernels.streamfuse.chain import (EW_CODES,  # noqa: E402
                                                   grad_one_pass, k_splits)
 from repro_torch.kernels.streamfuse.chain import \
     smem_bytes as smem_bytes_chain  # noqa: E402
+from repro.kernels.matmul.matmul import matmul as jax_matmul  # noqa: E402
+from repro.kernels.matmul.ref import matmul_ref as jax_matmul_ref  # noqa: E402
+from repro.kernels.rglru.ref import rglru_ref  # noqa: E402
+from repro.kernels.rglru.rglru import rglru_scan as jax_rglru  # noqa: E402
+from repro.kernels.ssd.ref import \
+    ssd_chunk_scan_ref as jax_ssd_ref  # noqa: E402
+from repro.kernels.ssd.ssd import ssd_chunk_scan as jax_ssd  # noqa: E402
+from repro.kernels.streamfuse.chain import \
+    fused_softmax_matmul as jax_softmax_mm  # noqa: E402
+from repro.kernels.streamfuse.ref import \
+    softmax_matmul_ref as jax_softmax_mm_ref  # noqa: E402
+from repro_torch.kernels import matmul as mm_pkg  # noqa: E402
+from repro_torch.kernels import rglru as rglru_pkg  # noqa: E402
+from repro_torch.kernels import ssd as ssd_pkg  # noqa: E402
+from repro_torch.kernels.streamfuse import (SOFTMAX_LIBRARY,  # noqa: E402
+                                            fused_softmax_matmul,
+                                            softmax_matmul_plain,
+                                            softmax_matmul_ref)
+from repro_torch.kernels.streamfuse.chain import (  # noqa: E402
+    softmax_mm_columns, softmax_mm_launches, softmax_mm_smem_bytes,
+    softmax_mm_splits)
 
 REPO = Path(__file__).resolve().parents[1]
+# The reference's associative-scan oracle, compiled once a shape (op by
+# op it takes seconds a call).
+jax_rglru_ref = jax.jit(rglru_ref)
 
 
 def _tol(bf16: bool):
@@ -438,6 +463,212 @@ def test_grad_rejects_bad_operands():
 # --------------------------------------------------------------------------
 # dispatch and the build
 # --------------------------------------------------------------------------
+# softmax -> matmul (the attention tail)
+# --------------------------------------------------------------------------
+
+# (M, K, N): blocks the TPU kernel tiles (128 rows, 128 keys) and a single
+# row block; the band is flash's.
+SOFTMAX_MM_SHAPES = [(128, 256, 64), (256, 128, 32), (64, 64, 96)]
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("M,K,N", SOFTMAX_MM_SHAPES)
+def test_softmax_mm_plain_matches_jax_kernel(M, K, N, bf16):
+    s, v = _rand((M, K), 0, 2.0), _rand((K, N), 1)
+    got = fused_softmax_matmul(_t(s, bf16), _t(v, bf16))
+    assert got.dtype == (torch.bfloat16 if bf16 else torch.float32)
+    torch.testing.assert_close(got, softmax_matmul_plain(_t(s, bf16),
+                                                         _t(v, bf16)),
+                               rtol=0, atol=0)
+    want = jax_softmax_mm(_j(s, bf16), _j(v, bf16), interpret=True)
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(bf16))
+    if not bf16:
+        np.testing.assert_allclose(_np(got), _np(jax_softmax_mm_ref(
+            _j(s, False), _j(v, False))), **_tol(False))
+        np.testing.assert_allclose(_np(softmax_matmul_ref(_t(s, False),
+                                                          _t(v, False))),
+                                   _np(want), **_tol(False))
+
+
+def test_softmax_mm_plain_takes_ragged_and_strided_operands():
+    """No dimension divides a block, and s arrives as a transposed view."""
+    s, v = _rand((77, 50), 2), _rand((77, 30), 3)
+    ts = torch.from_numpy(s).t()               # (50, 77), strided
+    got = fused_softmax_matmul(ts, torch.from_numpy(v))
+    want = jax_softmax_mm_ref(jnp.asarray(s.T), jnp.asarray(v))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **_tol(False))
+
+
+@pytest.mark.parametrize("M,K,N,splits", [(1024, 1024, 64, 4),
+                                          (2048, 2048, 256, 3),
+                                          (64, 64, 600, 1), (16, 50, 8, 1)])
+def test_softmax_mm_splits_cover_every_tile(M, K, N, splits):
+    """The route shapes split the keys to fill the card (64 and 128 row
+    blocks), every key tile in exactly one split, and wide N is tiled."""
+    got, per = softmax_mm_splits(M, K, N)
+    tiles = -(-K // 64)
+    assert got == splits and per * (got - 1) < tiles <= per * got
+    assert softmax_mm_launches(M, K, N) == (1 if got == 1 else 2)
+    assert softmax_mm_columns(N) == min(256, max(64, 1 << (N - 1).bit_length()))
+    assert common.smem_ok(softmax_mm_smem_bytes(N))
+
+
+def test_softmax_mm_rejects_bad_operands():
+    s = torch.zeros(8, 16)
+    with pytest.raises(ValueError, match="s \\(M, K\\)"):
+        fused_softmax_matmul(s, torch.zeros(8, 4))
+    with pytest.raises(TypeError):
+        fused_softmax_matmul(s, torch.zeros(16, 4).double())
+
+
+# --------------------------------------------------------------------------
+# the RG-LRU recurrence
+# --------------------------------------------------------------------------
+
+# The reference sweep (tests/test_kernels.py): (B, S, D, chunk), gates in
+# [0.5, 0.999), inputs 0.1 · N(0, 1); band 1e-4.
+RGLRU_SWEEP = [(2, 256, 64, 128), (1, 128, 128, 32), (3, 64, 32, 64)]
+RGLRU_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _rglru_operands(B, S, D, seed=0):
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.5, 0.999, (B, S, D)).astype(np.float32)
+    b = (rng.standard_normal((B, S, D)) * 0.1).astype(np.float32)
+    return a, b
+
+
+@pytest.mark.parametrize("B,S,D,chunk", RGLRU_SWEEP)
+def test_rglru_plain_matches_jax_kernel(B, S, D, chunk):
+    a, b = _rglru_operands(B, S, D)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    got = rglru_pkg.rglru(ta, tb, chunk=chunk)
+    torch.testing.assert_close(got, rglru_pkg.rglru_scan_plain(
+        ta, tb, chunk=chunk), rtol=0, atol=0)
+    want = np.asarray(jax_rglru(jnp.asarray(a), jnp.asarray(b), chunk=chunk,
+                                interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, **RGLRU_TOL)
+    oracle = np.asarray(jax_rglru_ref(jnp.asarray(a), jnp.asarray(b)))
+    np.testing.assert_allclose(got.numpy(), oracle, **RGLRU_TOL)
+    np.testing.assert_allclose(rglru_pkg.rglru_ref(ta, tb).numpy(), oracle,
+                               **RGLRU_TOL)
+    torch.testing.assert_close(rglru_pkg.rglru(ta, tb, use_kernel=False),
+                               rglru_pkg.rglru_ref(ta, tb), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("S,chunk", [(100, 16), (100, 7), (100, 128)])
+def test_rglru_plain_takes_a_ragged_sequence(S, chunk):
+    """S no chunk divides (the TPU kernel asserts S % chunk == 0): held
+    against the reference's associative-scan oracle, and the chunk moves
+    the result only within the band."""
+    a, b = _rglru_operands(2, S, 24, seed=S)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    got = rglru_pkg.rglru_scan(ta, tb, chunk=chunk)
+    oracle = np.asarray(jax_rglru_ref(jnp.asarray(a), jnp.asarray(b)))
+    np.testing.assert_allclose(got.numpy(), oracle, **RGLRU_TOL)
+    np.testing.assert_allclose(got.numpy(), rglru_pkg.rglru_scan(
+        ta, tb, chunk=S).numpy(), **RGLRU_TOL)
+
+
+def test_rglru_bf16_carries_the_state_in_f32():
+    a, b = _rglru_operands(2, 64, 16, seed=5)
+    got = rglru_pkg.rglru_scan(torch.from_numpy(a).bfloat16(),
+                               torch.from_numpy(b).bfloat16(), chunk=16)
+    assert got.dtype == torch.bfloat16
+    want = jax_rglru(jnp.asarray(a, jnp.bfloat16), jnp.asarray(b, jnp.bfloat16),
+                     chunk=16, interpret=True)
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(True))
+
+
+def test_rglru_rejects_bad_operands():
+    x = torch.zeros(2, 8, 4)
+    with pytest.raises(ValueError, match="\\(B, S, D\\)"):
+        rglru_pkg.rglru_scan(x, torch.zeros(2, 8, 5))
+    with pytest.raises(ValueError, match="chunk"):
+        rglru_pkg.rglru_scan(x, x, chunk=0)
+    with pytest.raises(TypeError):
+        rglru_pkg.rglru_scan(x, x.double())
+
+
+# --------------------------------------------------------------------------
+# the SSD chunk-state scan
+# --------------------------------------------------------------------------
+
+# The reference sweep: (nc, BH, P, N), states 0.1 · N(0, 1), decays in
+# [0.5, 0.99); band 1e-5.
+SSD_SWEEP = [(8, 4, 16, 32), (4, 8, 8, 16), (16, 2, 32, 8), (5, 3, 7, 9)]
+SSD_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("nc,BH,P,N", SSD_SWEEP)
+def test_ssd_plain_matches_jax_kernel(nc, BH, P, N):
+    rng = np.random.default_rng(nc * BH)
+    st = (rng.standard_normal((nc, BH, P, N)) * 0.1).astype(np.float32)
+    dec = rng.uniform(0.5, 0.99, (nc, BH, 1, 1)).astype(np.float32)
+    tst, tdec = torch.from_numpy(st), torch.from_numpy(dec)
+    got = ssd_pkg.ssd_states(tst, tdec)
+    torch.testing.assert_close(got, ssd_pkg.ssd_chunk_scan_plain(tst, tdec),
+                               rtol=0, atol=0)
+    want = np.asarray(jax_ssd(jnp.asarray(st), jnp.asarray(dec),
+                              interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, **SSD_TOL)
+    oracle = np.asarray(jax_ssd_ref(jnp.asarray(st), jnp.asarray(dec)))
+    np.testing.assert_allclose(got.numpy(), oracle, **SSD_TOL)
+    np.testing.assert_allclose(ssd_pkg.ssd_states(tst, tdec,
+                                                  use_kernel=False).numpy(),
+                               oracle, **SSD_TOL)
+    assert not got[0].any()                  # h_0 = 0, emitted first
+
+
+def test_ssd_rejects_bad_operands():
+    st = torch.zeros(4, 2, 3, 5)
+    with pytest.raises(ValueError, match="decay must be"):
+        ssd_pkg.ssd_chunk_scan(st, torch.zeros(4, 2, 3, 1))
+    with pytest.raises(ValueError, match="4-D"):
+        ssd_pkg.ssd_chunk_scan(st[0], torch.zeros(2, 1, 1))
+    with pytest.raises(TypeError):
+        ssd_pkg.ssd_chunk_scan(st, torch.zeros(4, 2, 1, 1).double())
+
+
+# --------------------------------------------------------------------------
+# the blocked matmul
+# --------------------------------------------------------------------------
+
+# Shapes of the reference sweep (tests/test_kernels.py); its bands: 1e-3
+# in float32, rtol 5e-2 / atol 5e-1 in bfloat16 (unit normals, K up to
+# 384: bfloat16 rounding of the output alone is ~4e-3 relative).
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("M,N,K", [(128, 128, 128), (256, 128, 384)])
+def test_matmul_plain_matches_jax_kernel(M, N, K, bf16):
+    a, b = _rand((M, K), 0), _rand((K, N), 1)
+    got = mm_pkg.mm(_t(a, bf16), _t(b, bf16))
+    assert got.dtype == (torch.bfloat16 if bf16 else torch.float32)
+    torch.testing.assert_close(got, mm_pkg.matmul_plain(_t(a, bf16),
+                                                        _t(b, bf16)),
+                               rtol=0, atol=0)
+    tol = dict(rtol=5e-2, atol=5e-1) if bf16 else dict(rtol=1e-3, atol=1e-3)
+    want = jax_matmul(_j(a, bf16), _j(b, bf16), interpret=True)
+    np.testing.assert_allclose(_np(got), _np(want), **tol)
+    np.testing.assert_allclose(_np(got), _np(jax_matmul_ref(
+        _j(a, bf16), _j(b, bf16))), **tol)
+    np.testing.assert_allclose(_np(mm_pkg.mm(_t(a, bf16), _t(b, bf16),
+                                             use_kernel=False)),
+                               _np(want), **tol)
+
+
+def test_matmul_takes_a_ragged_edge_and_rejects_bad_operands():
+    a, b = _rand((70, 33), 4), _rand((33, 130), 5)
+    got = mm_pkg.matmul(torch.from_numpy(a), torch.from_numpy(b))
+    np.testing.assert_allclose(got.numpy(), a @ b, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="\\(K, N\\)"):
+        mm_pkg.matmul(torch.zeros(4, 3), torch.zeros(4, 3))
+    with pytest.raises(TypeError):
+        mm_pkg.matmul(torch.zeros(4, 3), torch.zeros(3, 2).double())
+    with pytest.raises(ValueError, match="positive"):
+        mm_pkg.mm(torch.zeros(4, 3), torch.zeros(3, 2), block_k=0)
+
+
+# --------------------------------------------------------------------------
 
 
 def test_cpu_tensors_run_the_plain_version_and_launch_nothing():
@@ -463,6 +694,19 @@ def test_cpu_tensors_run_the_grad_plain_version_and_launch_nothing():
     assert GRAD_LIB.launches == before and GRAD_LIB._lib is None
 
 
+def test_cpu_tensors_run_the_new_plain_versions_and_launch_nothing():
+    libs = (SOFTMAX_LIBRARY, rglru_pkg.LIBRARY, ssd_pkg.LIBRARY,
+            mm_pkg.LIBRARY)
+    before = [lib.launches for lib in libs]
+    x = torch.from_numpy(_rand((2, 8, 8), 0))
+    fused_softmax_matmul(x[0], x[1])
+    rglru_pkg.rglru_scan(x, x, chunk=4)
+    ssd_pkg.ssd_chunk_scan(x[:, :, None], x[:, :, :1, None])
+    mm_pkg.matmul(x[0], x[1])
+    assert [lib.launches for lib in libs] == before
+    assert all(lib._lib is None for lib in libs)
+
+
 def test_launch_counts_reset_together():
     lib = common.CudaLibrary("chain.cu", {})
     lib.launches, lib.entry_launches["codo_matmul_chain"] = 2, 1
@@ -477,13 +721,16 @@ def test_mixed_devices_raise():
 
 
 def test_library_paths_hash_the_sources():
-    libs = (FLASH_LIB, CHAIN_LIB, GRAD_LIB, CONV_LIB)
+    libs = (FLASH_LIB, CHAIN_LIB, GRAD_LIB, CONV_LIB, SOFTMAX_LIBRARY,
+            rglru_pkg.LIBRARY, ssd_pkg.LIBRARY, mm_pkg.LIBRARY)
     for lib in libs:
         path = lib.path
         assert path.parent == common.BUILD_DIR and path.suffix == ".so"
         assert path.name.startswith(lib.source.stem + "-")
         assert path == lib.path                    # stable
-    assert len({lib.path for lib in libs}) == 4
+    assert len({lib.path for lib in libs}) == 8
+    assert {lib.source.name for lib in libs} == {
+        p.name for p in common.CSRC.glob("*.cu")}
     assert "sm_90a" in " ".join(common.NVCC_FLAGS)
 
 
@@ -493,6 +740,11 @@ def test_library_paths_hash_the_sources():
     ("chain_grad.cu", "repro/kernels/streamfuse/chain.py: fused_matmul_grad"),
     ("pad_conv_relu.cu",
      "repro/kernels/streamfuse/streamfuse.py: fused_pad_conv_relu"),
+    ("softmax_mm.cu",
+     "repro/kernels/streamfuse/chain.py: fused_softmax_matmul"),
+    ("rglru_scan.cu", "repro/kernels/rglru/rglru.py: rglru_scan"),
+    ("ssd_scan.cu", "repro/kernels/ssd/ssd.py: ssd_chunk_scan"),
+    ("matmul.cu", "repro/kernels/matmul/matmul.py: matmul"),
 ])
 def test_kernel_sources_name_what_they_replace(source, replaces):
     text = (common.CSRC / source).read_text()

@@ -26,8 +26,9 @@ PORTED = ["adamw_step", "add", "affine", "bcast", "clip_scale", "concat",
           "const", "conv2d", "div", "divc", "dup", "fill_interior", "fused",
           "gelu", "gelu_grad", "identity", "lr_sched", "matmul", "maxpool2d",
           "mean", "mean_all", "mul", "mv", "pad2d", "rdivc", "relu",
-          "relu_grad", "reshape", "scale", "slice", "softmax", "softmax_grad",
-          "split", "sumsq", "transpose", "vadd", "zeros"]
+          "relu_grad", "reshape", "rglru_scan", "scale", "slice", "softmax",
+          "softmax_grad", "split", "ssd_scan", "sumsq", "transpose", "vadd",
+          "zeros"]
 # The update graph's optimizer attributes (the reference's defaults).
 ADAM = {"b1": 0.9, "b2": 0.95, "eps": 1e-8, "wd": 0.1}
 SCHED = {"lr": 3e-4, "warmup_steps": 100, "total_steps": 10000,
@@ -200,9 +201,9 @@ def test_registry_holds_exactly_the_ported_kinds():
     assert ops.registered_ops() == PORTED
 
 
-@pytest.mark.parametrize("kind", ["ssd_scan", "outer", "mean_grad",
+@pytest.mark.parametrize("kind", ["ssd_scan_grad", "outer", "mean_grad",
                                   "conv2d_input_grad", "maxpool2d_grad",
-                                  "rglru_scan"])
+                                  "rglru_scan_grad"])
 def test_unported_kind_raises_naming_it(kind):
     with pytest.raises(ops.UnknownOpError, match=kind):
         ops.materialize(ops.OpSpec(kind, ("x",), ("y",)))
