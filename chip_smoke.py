@@ -14,7 +14,9 @@ problem:
    sources, one ``nvcc`` each, all started together) and prints the time
    and each kernel's registers and spills;
 3. holds each kernel against its plain PyTorch version on the card, at
-   the kernel sweep's shapes and at the paths' own, printing the max
+   the kernel sweep's shapes and at the paths' own (flash also at hd 256
+   and 1024, mmchain also at 1 to 16 rows: each of the two called twice,
+   bit for bit the same), printing the max
    error beside its stated tolerance, and times kernel, plain version,
    bound and a library yardstick, and takes each kernel's profiled device
    time over the same calls; shows that the generic ``conv2d`` body is
@@ -77,8 +79,12 @@ REQUESTS = 4
 TRAIN_STEPS = 4
 SEED = 0
 # Published peaks of one H100 SXM (data sheet): float32 outside the tensor
-# cores, and device memory bandwidth.  Both kernels run float32 FMAs.
+# cores, and device memory bandwidth: each kernel's bound.  Flash and the
+# large-M mmchain form run a float32 product as three TF32 products on the
+# tensor cores (495 TFLOP/s of TF32, so 165 of float32-accurate work):
+# their bound is at that rate, the float32 CUDA-core one kept beside it.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32X3_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12
 # Tolerances, kernel against plain version on the card.  The kernels and
 # cuBLAS sum float32 products in different orders; the sweep shapes keep
@@ -214,10 +220,37 @@ def in_turns(plain, kernel, iters: int) -> tuple[float, float]:
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(flops: float, nbytes: float,
+             peak: float = PEAK_F32_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def tf32x3_bound(flops: float, nbytes: float) -> dict:
+    """The bound of a kernel that runs each float32 product as three TF32
+    products on the tensor cores (bound_ms, bound_by: 165 TFLOP/s), with
+    the float32 CUDA-core bound beside it (bound_f32_ms, bound_f32_by)."""
+    ms, by = bound_ms(flops, nbytes, PEAK_TF32X3_FLOPS)
+    f32, f32_by = bound_ms(flops, nbytes)
+    return {"bound_ms": ms, "bound_by": by, "bound_f32_ms": f32,
+            "bound_f32_by": f32_by}
+
+
+def bound_text(m: dict) -> str:
+    """A measurement's bound as printed: the 3×TF32 one with the float32
+    one beside it, or the float32 one alone."""
+    text = f"bound {m['bound_ms']:.4f} ms ({m['bound_by']}"
+    if "bound_f32_ms" in m:
+        text += f", 3xTF32; float32 {m['bound_f32_ms']:.4f}"
+    return text + ")"
+
+
+def f32_bound(m: dict) -> dict:
+    """The float32 CUDA-core bound of a measurement whose bound_ms is the
+    3×TF32 one, as extra keys of its kernels-line entry; else nothing."""
+    return ({k: m[k] for k in ("bound_f32_ms", "bound_f32_by")}
+            if "bound_f32_ms" in m else {})
 
 
 def max_err(got, want) -> float:
@@ -239,6 +272,16 @@ def check(record: list, name: str, got, want, tol: float) -> float:
     if not ok:
         fail(f"{name}: kernel disagrees with its plain version")
     return err
+
+
+def same(record: list, name: str, got, again) -> None:
+    """Two calls on the same operands: bit-identical outputs (the kernels
+    sum in a fixed order, with no atomics)."""
+    import torch
+    ok = bool(torch.equal(got, again))
+    record.append({"case": f"{name} twice", "bit_identical": ok, "ok": ok})
+    if not ok:
+        fail(f"{name}: two calls on the same operands differ")
 
 
 def check_flash(record: list) -> None:
@@ -264,6 +307,46 @@ def check_flash(record: list) -> None:
                for _ in range(3))
     check(record, "flash ragged 1x3x100x40 c=1", flash_attention(q, k, v),
           flash_attention_plain(q, k, v), TOL["f32"])
+    # The 256-column tiles (GQA, causal, window) and the cluster form
+    # (hd > 256: 4 blocks share a q tile) at a ragged S, each called twice:
+    # the two calls must agree bit for bit.
+    for B, Hq, Hkv, S, hd, causal, window in [
+            (1, 4, 2, 300, 256, True, 0), (1, 4, 1, 300, 256, True, 100),
+            (2, 2, 2, 200, 256, False, 0), (1, 1, 1, 333, 1024, False, 0),
+            (1, 2, 1, 333, 1024, True, 64)]:
+        for dtype, tol in [(torch.float32, TOL["f32"] if hd <= 256
+                            else TOL["f32_wide"]),
+                           (torch.bfloat16, TOL["bf16"])]:
+            q = torch.randn(B, Hq, S, hd, generator=g, device="cuda")
+            k = torch.randn(B, Hkv, S, hd, generator=g, device="cuda")
+            v = torch.randn(B, Hkv, S, hd, generator=g, device="cuda")
+            q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+            kw = dict(causal=causal, window=window)
+            name = (f"flash {B}x{Hq}/{Hkv}x{S}x{hd} c={int(causal)} "
+                    f"w={window} {str(dtype)[6:]}")
+            got = flash_attention(q, k, v, **kw)
+            check(record, name, got, flash_attention_plain(q, k, v, **kw), tol)
+            same(record, name, got, flash_attention(q, k, v, **kw))
+    # k as a kᵀ view (the routed chains hand it over so) with Sk a multiple
+    # of 8 and of 4: the K tiles are copied in 16-byte vectors along the
+    # keys into rows stored d by d, in both element types; each called
+    # twice.
+    for B, Hq, Hkv, S, hd, causal in [(1, 2, 1, 264, 256, True),
+                                      (1, 1, 1, 264, 1024, False)]:
+        for dtype, tol in [(torch.float32, TOL["f32"] if hd <= 256
+                            else TOL["f32_wide"]),
+                           (torch.bfloat16, TOL["bf16"])]:
+            q = torch.randn(B, Hq, S, hd, generator=g, device="cuda")
+            kt = torch.randn(B, Hkv, hd, S, generator=g, device="cuda")
+            v = torch.randn(B, Hkv, S, hd, generator=g, device="cuda")
+            q, v = q.to(dtype), v.to(dtype)
+            k = kt.to(dtype).transpose(-1, -2)
+            name = (f"flash kT view {B}x{Hq}/{Hkv}x{S}x{hd} c={int(causal)} "
+                    f"{str(dtype)[6:]}")
+            got = flash_attention(q, k, v, causal=causal)
+            check(record, name, got,
+                  flash_attention_plain(q, k, v, causal=causal), tol)
+            same(record, name, got, flash_attention(q, k, v, causal=causal))
 
 
 def flash_route_operands(S: int, g):
@@ -287,6 +370,7 @@ def chain_route_operands(S: int, g):
 
 
 GELU = (("gelu", {}),)
+AFFINE_RDIVC = (("affine", {"a": 1.0, "b": 4.0}), ("rdivc", {"c": 2.0}))
 C = 1.0 / math.sqrt(D_MODEL // 16)     # gpt2_block's score scale
 
 
@@ -300,12 +384,14 @@ def check_chain(record: list) -> None:
         for tail_name, ew in [("gelu", GELU),
                               ("relu+scale", (("relu", {}),
                                               ("scale", {"s": 0.5})))]:
-            check(record, f"mmchain {S}x{D_MODEL}x{4 * D_MODEL}x{D_MODEL} "
-                  f"{tail_name}", fused_matmul_chain(a, w1, w2, ew=ew),
-                  matmul_chain_plain(a, w1, w2, ew=ew), TOL["f32_wide"])
+            name = f"mmchain {S}x{D_MODEL}x{4 * D_MODEL}x{D_MODEL} {tail_name}"
+            got = fused_matmul_chain(a, w1, w2, ew=ew)
+            check(record, name, got, matmul_chain_plain(a, w1, w2, ew=ew),
+                  TOL["f32_wide"])
+            same(record, name, got, fused_matmul_chain(a, w1, w2, ew=ew))
     a, w1, w2 = (torch.randn(*s, generator=g, device="cuda") * 0.3
                  for s in [(100, 96), (96, 200), (200, 72)])
-    ew = (("affine", {"a": 1.0, "b": 4.0}), ("rdivc", {"c": 2.0}))
+    ew = AFFINE_RDIVC
     check(record, "mmchain ragged 100x96x200x72 affine+rdivc",
           fused_matmul_chain(a, w1, w2, ew=ew),
           matmul_chain_plain(a, w1, w2, ew=ew), TOL["f32"])
@@ -314,6 +400,21 @@ def check_chain(record: list) -> None:
     check(record, "mmchain 128x256x512x128 gelu bf16",
           fused_matmul_chain(a, w1, w2, ew=GELU),
           matmul_chain_plain(a, w1, w2, ew=GELU), TOL["bf16"])
+    # The small-M form (a K-split GEMV) at ragged K / N1 / N2, weights over
+    # the root of their depth, each called twice: bit for bit the same.
+    for M, K, N1, N2, dtype, tol, tail in [
+            (1, 999, 200, 72, torch.float32, TOL["f32"], AFFINE_RDIVC),
+            (3, 999, 200, 72, torch.float32, TOL["f32"], AFFINE_RDIVC),
+            (16, 1001, 130, 70, torch.float32, TOL["f32"], AFFINE_RDIVC),
+            (1, 1024, 512, 256, torch.bfloat16, TOL["bf16"], GELU)]:
+        a = torch.randn(M, K, generator=g, device="cuda")
+        w1 = torch.randn(K, N1, generator=g, device="cuda") / math.sqrt(K)
+        w2 = torch.randn(N1, N2, generator=g, device="cuda") / math.sqrt(N1)
+        a, w1, w2 = a.to(dtype), w1.to(dtype), w2.to(dtype)
+        name = f"mmchain rows {M}x{K}x{N1}x{N2} {str(dtype)[6:]}"
+        got = fused_matmul_chain(a, w1, w2, ew=tail)
+        check(record, name, got, matmul_chain_plain(a, w1, w2, ew=tail), tol)
+        same(record, name, got, fused_matmul_chain(a, w1, w2, ew=tail))
 
 
 GELU_GRAD = (("gelu_grad", {}, 0),)
@@ -535,25 +636,62 @@ def measure_head(record: dict) -> dict:
     import torch
     from repro_torch.kernels.streamfuse import (fused_matmul_chain,
                                                 matmul_chain_plain)
+    from repro_torch.kernels.streamfuse import chain
     g = torch.Generator(device="cuda").manual_seed(SEED + 7)
     M, K, N1, N2 = VGG_HEAD
     a = torch.randn(M, K, generator=g, device="cuda")
     w1 = torch.randn(K, N1, generator=g, device="cuda") / math.sqrt(K)
     w2 = torch.randn(N1, N2, generator=g, device="cuda") / math.sqrt(N1)
-    err = max_err(fused_matmul_chain(a, w1, w2, ew=RELU),
-                  matmul_chain_plain(a, w1, w2, ew=RELU))
+    tail = chain.ChainTail(RELU)        # built once, as the route does
+
+    def kernel():
+        return fused_matmul_chain(a, w1, w2, ew=tail)
+
+    err = max_err(kernel(), matmul_chain_plain(a, w1, w2, ew=RELU))
     ms, plain = in_turns(lambda: matmul_chain_plain(a, w1, w2, ew=RELU),
-                         lambda: fused_matmul_chain(a, w1, w2, ew=RELU), 10)
+                         kernel, 10)
     library = time_ms(lambda: torch.relu(a @ w1) @ w2, 10)
-    b, by = bound_ms(2.0 * M * N1 * (K + N2),
-                     4.0 * (M * K + K * N1 + N1 * N2 + M * N2))
+    # The call is host-bound, so its time is the wrapper's host work.  Each
+    # host-side saving against the same calls without it, in turns: the
+    # tail's codes built each call, the shape plan derived each call; and
+    # what the public torch.cuda.current_stream costs against torch's
+    # private raw read of the stream.
+    host_ab = {}
+
+    def plan_each_call():
+        chain._chain_plan.cache_clear()
+        return kernel()
+
+    def raw_stream(t):
+        return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+    for name, other, patch in [
+            ("tail_each_call", lambda: fused_matmul_chain(a, w1, w2, ew=RELU),
+             None),
+            ("plan_each_call", plan_each_call, None),
+            ("raw_stream_read", kernel, ("stream_of", raw_stream))]:
+        def patched(patch=patch, other=other):
+            if patch is None:
+                return other()
+            kept = getattr(chain, patch[0])
+            setattr(chain, patch[0], patch[1])
+            try:
+                return other()
+            finally:
+                setattr(chain, patch[0], kept)
+        shipped, without = in_turns(patched, kernel, 50)
+        host_ab[name] = {"shipped_ms": shipped, "other_ms": without}
+        print(f"  vgg16 head host A/B, {name}: shipped {shipped:.4f} ms, "
+              f"other {without:.4f} ms a call")
+    # The small-M form runs plain float32 FMAs: the float32 bound.
+    work = (2.0 * M * N1 * (K + N2), 4.0 * (M * K + K * N1 + N1 * N2 + M * N2))
+    b, by = bound_ms(*work)
     out = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
                bound_by=by, library_ms=library,
-               device_ms=device_ms(lambda: fused_matmul_chain(
-                   a, w1, w2, ew=RELU), 10))
+               device_ms=device_ms(kernel, 10), host_ab=host_ab)
     print(f"  vgg16 head mmchain {M}x{K}x{N1}x{N2}: kernel {ms:.4f} ms "
           f"(device {out['device_ms']:.4f})  plain {plain:.4f}  library "
-          f"{library:.4f}  bound {b:.4f} ({by})")
+          f"{library:.4f}  {bound_text(out)}")
     return out
 
 
@@ -591,6 +729,7 @@ def cnn_path(model: str, N: int, routes) -> dict:
     from repro_torch.kernels.streamfuse import CONV_LIBRARY as CONVLIB
     from repro_torch.kernels.streamfuse import GRAD_LIBRARY as GRAD
     from repro_torch.kernels.streamfuse import LIBRARY as CHAIN
+    from repro_torch.kernels.streamfuse.chain import chain_launches
     from repro_torch.kernels.streamfuse.streamfuse import conv_launches
     from repro_torch.models import dataflow_models as dm
 
@@ -646,9 +785,10 @@ def cnn_path(model: str, N: int, routes) -> dict:
         fail(f"{model} N={N}: conv launches {launches}, expected "
              f"{REQUESTS} x {len(routes)} kernel calls and {REQUESTS} x "
              f"{per_request} launches in all")
-    if model == "vgg16" and launches["mmchain"] != REQUESTS * 2:
-        fail(f"vgg16: the head's chain kernel ran {launches['mmchain']} "
-             f"launches in {REQUESTS} requests, expected {2 * REQUESTS}")
+    head = chain_launches(*VGG_HEAD) if model == "vgg16" else 0
+    if launches["mmchain"] != REQUESTS * head:
+        fail(f"{model}: the head's chain kernel ran {launches['mmchain']} "
+             f"launches in {REQUESTS} requests, expected {REQUESTS * head}")
     if launches["flash"] or launches["mmgrad"]:
         fail(f"{model}: a kernel off the path launched: {launches}")
     program.verify(xs[1], rtol=VERIFY_BAND, atol=VERIFY_BAND)
@@ -690,7 +830,7 @@ def measure_kernels(S: int, record: dict) -> dict:
                                                 fused_matmul_grad,
                                                 matmul_chain_plain,
                                                 matmul_grad_plain)
-    from repro_torch.kernels.streamfuse.chain import GradTail
+    from repro_torch.kernels.streamfuse.chain import ChainTail, GradTail
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     iters = 20 if S <= 128 else 5
     out = {}
@@ -704,9 +844,10 @@ def measure_kernels(S: int, record: dict) -> dict:
                          lambda: flash_attention(q, k, v, **kw), iters)
     library = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, scale=C), iters)
-    b, by = bound_ms(4.0 * S * S * D_MODEL, 4.0 * 4 * S * D_MODEL)
-    out["flash"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
-                        bound_by=by, library_ms=library,
+    out["flash"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                        library_ms=library,
+                        **tf32x3_bound(4.0 * S * S * D_MODEL,
+                                       4.0 * 4 * S * D_MODEL),
                         device_ms=device_ms(
                             lambda: flash_attention(q, k, v, **kw), iters))
 
@@ -715,8 +856,9 @@ def measure_kernels(S: int, record: dict) -> dict:
                 f"{4 * D_MODEL}x{D_MODEL} gelu",
                 fused_matmul_chain(a, w1, w2, ew=GELU),
                 matmul_chain_plain(a, w1, w2, ew=GELU), TOL["f32_wide"])
+    gelu = ChainTail(GELU)              # built once, as the route does
     ms, plain = in_turns(lambda: matmul_chain_plain(a, w1, w2, ew=GELU),
-                         lambda: fused_matmul_chain(a, w1, w2, ew=GELU), iters)
+                         lambda: fused_matmul_chain(a, w1, w2, ew=gelu), iters)
 
     def library_chain():
         h = torch.nn.functional.gelu(a @ w1, approximate="tanh")
@@ -724,13 +866,12 @@ def measure_kernels(S: int, record: dict) -> dict:
 
     library = time_ms(library_chain, iters)
     n1 = 4 * D_MODEL
-    b, by = bound_ms(2.0 * S * n1 * (D_MODEL + D_MODEL),
-                     4.0 * (S * D_MODEL + D_MODEL * n1 + n1 * D_MODEL
-                            + S * D_MODEL))
-    out["mmchain"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
-                          bound_by=by, library_ms=library,
+    work = (2.0 * S * n1 * (D_MODEL + D_MODEL),
+            4.0 * (S * D_MODEL + D_MODEL * n1 + n1 * D_MODEL + S * D_MODEL))
+    out["mmchain"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                          library_ms=library, **tf32x3_bound(*work),
                           device_ms=device_ms(lambda: fused_matmul_chain(
-                              a, w1, w2, ew=GELU), iters))
+                              a, w1, w2, ew=gelu), iters))
 
     for chain, (a, w, e, ew) in grad_route_operands(S, g).items():
         M, K, N = a.shape[0], a.shape[1], w.shape[1]
@@ -767,8 +908,7 @@ def measure_kernels(S: int, record: dict) -> dict:
     for name, m in out.items():
         print(f"  S={S} {name:<11s} kernel {m['ms']:.4f} ms (device "
               f"{m['device_ms']:.4f})  plain {m['plain_ms']:.4f} ms  library "
-              f"{m['library_ms']:.4f} ms  bound {m['bound_ms']:.4f} ms "
-              f"({m['bound_by']})")
+              f"{m['library_ms']:.4f} ms  {bound_text(m)}")
     return out
 
 
@@ -781,7 +921,9 @@ def main_path(S: int, record: dict) -> dict:
 
     import codo_torch
     from repro_torch.kernels.flashattn import LIBRARY as FLASH
+    from repro_torch.kernels.flashattn.flashattn import flash_launches
     from repro_torch.kernels.streamfuse import LIBRARY as CHAIN
+    from repro_torch.kernels.streamfuse.chain import chain_launches
     from repro_torch.models.dataflow_models import gpt2_block_fn
 
     t0 = time.perf_counter()
@@ -818,9 +960,11 @@ def main_path(S: int, record: dict) -> dict:
             fail(f"S={S}: output not finite or not ({S}, {D_MODEL})")
     if len({float(y.double().sum()) for y in outs}) != REQUESTS:
         fail(f"S={S}: distinct requests gave identical outputs")
-    if launches["flash"] < REQUESTS or launches["mmchain"] < REQUESTS:
-        fail(f"S={S}: a kernel of the path did not run each request: "
-             f"{launches}")
+    want = {"flash": REQUESTS * flash_launches(S, S, 1, D_MODEL),
+            "mmchain": REQUESTS * chain_launches(S, D_MODEL, 4 * D_MODEL,
+                                                 D_MODEL)}
+    if launches != want:
+        fail(f"S={S}: launches {launches}, expected {want}")
     program.verify(xs[1], rtol=VERIFY_BAND, atol=VERIFY_BAND)
     env = program.make_env(xs[1])
     err = max_err(program.lower()(env)[program.output_names[0]],
@@ -1209,6 +1353,9 @@ def measure_slice(record: dict) -> dict:
                4.0 * BH * S * S * hd, 4.0 * 4 * BH * S * hd,
                max_err(flash_attention(q, k, v, **kw),
                        flash_attention_plain(q, k, v, **kw)))
+    m = out["flash_mha"]
+    m.update(tf32x3_bound(m["flops"], m["bytes"]))
+    print(f"  {'flash_mha':<28s} {bound_text(m)}")
     for M, K, N in TAIL_SHAPES:
         sv = torch.randn(M, K, generator=g, device="cuda")
         vv = torch.randn(K, N, generator=g, device="cuda")
@@ -1243,6 +1390,7 @@ def slice_workloads() -> list:
     the slice."""
     import numpy as np
 
+    from repro_torch.kernels.flashattn.flashattn import flash_launches
     from repro_torch.kernels.rglru.rglru import chunk_length
     from repro_torch.kernels.rglru.rglru import launches as rglru_launches
     from repro_torch.kernels.streamfuse.chain import softmax_mm_launches
@@ -1266,12 +1414,14 @@ def slice_workloads() -> list:
 
     nc, BH = SSD_SHAPE[:2]
     B, S, D = RGLRU_SHAPE
+    BH_MHA, S_MHA, HD_MHA = MHA_SHAPE
     out = [("rglru_block", rglru_block_fn, [RGLRU_SHAPE] * 3, RGLRU, "rglru",
             rglru_launches(S, chunk_length(B, S, D)), rglru_inputs),
            ("ssd_block", ssd_block_fn, [SSD_SHAPE, (nc, BH, 1, 1)], SSD,
             "ssd", 1, ssd_inputs),
            ("mha_batched", mha_batched_fn, [MHA_SHAPE] * 3, FLASH, "flash",
-            2, normals(*[MHA_SHAPE] * 3))]
+            flash_launches(S_MHA, S_MHA, BH_MHA, HD_MHA),
+            normals(*[MHA_SHAPE] * 3))]
     for M, K, N in TAIL_SHAPES:
         out.append((f"attention_tail {M}x{K}x{N}", attention_tail_fn,
                     [(M, K), (K, N)], SOFTMAXMM, "softmaxmm",
@@ -1493,7 +1643,8 @@ def main() -> int:
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-                "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
+                "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+                **f32_bound(m)})
     conv_src = ("src/repro_torch/csrc/pad_conv_relu.cu",
                 "src/repro/kernels/streamfuse/streamfuse.py:58")
     cnn_entries = [(f"fused_pad_conv_relu[{m} N={N}]", *conv_src,
@@ -1532,7 +1683,8 @@ def main() -> int:
             "replaces": replaces, "launches": launches,
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-            "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
+            "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+            **f32_bound(m)})
     record["kernels"] = entries
     record["card"] = card
     record["seconds"] = time.perf_counter() - t_start

@@ -1,8 +1,11 @@
 // The online softmax shared by the port's attention kernels (flashattn.cu,
-// softmax_mm.cu): a warp folds one key tile of a row into its running max
-// and denominator, and a second kernel combines key splits in a fixed
-// order.  The same arithmetic in the same order in both, so a routed
-// attention tail and the full attention chain round alike.
+// softmax_mm.cu): one key tile of a row folded into the row's running max
+// and denominator — by a warp (online_softmax_step, softmax_mm.cu) or by
+// the quads of lanes that hold the row in mma accumulators (quad_max and
+// quad_sum, flashattn.cu) — and a second kernel that combines key splits
+// in a fixed order.  Both take the max, exponentiate and correct in the
+// same order, so a routed attention tail and the full attention chain
+// round alike.
 #pragma once
 
 #include <math.h>
@@ -45,6 +48,18 @@ __device__ __forceinline__ float online_softmax_step(float (&x)[2], float& m,
   l = l * corr + warp_sum(x[0] + x[1]);
   m = m_new;
   return corr;
+}
+
+// Max and sum over the quad of lanes (4·g .. 4·g + 3) that holds one row
+// of an mma.sync m16n8 accumulator.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // o[row] = Σ_s acc_s·e^(m_s−m) / max(Σ_s l_s·e^(m_s−m), 1e-30), m = max_s m_s,

@@ -36,8 +36,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Shared memory one Hopper block may use (dynamic, after opting in with
-# cudaFuncSetAttribute): 227 KB of the SM's 256 KB.
+# cudaFuncSetAttribute): 227 KB of the SM's 256 KB; 228 KB for all the
+# blocks of one SM (each also reserves 1 KB); streaming multiprocessors of
+# an H100.
 SMEM_PER_BLOCK = 232448
+SMEM_PER_SM = 233472
+NUM_SMS = 132
 
 # ctypes shorthands for C entry-point signatures.
 PTR, INT, INT64, FLOAT = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -70,12 +74,14 @@ def all_f32(graph, *bufs) -> bool:
 
 
 def dtype_code(t) -> int:
-    """The C entry points' element-type switch: 0 float32, 1 bfloat16."""
+    """The C entry points' element-type switch for a tensor or a dtype: 0
+    float32, 1 bfloat16."""
     import torch
+    dtype = getattr(t, "dtype", t)
     codes = {torch.float32: 0, torch.bfloat16: 1}
-    if t.dtype not in codes:
-        raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}")
-    return codes[t.dtype]
+    if dtype not in codes:
+        raise TypeError(f"kernels take float32 or bfloat16, got {dtype}")
+    return codes[dtype]
 
 
 def stream_of(t) -> int:

@@ -9,54 +9,111 @@ routed chain passes its own constant instead of pre-scaling q.  Operands
 may be strided views; nothing is copied.
 
 Tensors on the card launch ``csrc/flashattn.cu``: the attention kernel
-over (query tiles, heads, key splits), then a kernel that combines the
-splits in a fixed order (two launches per call).  Tensors on the CPU run
+over (query tiles of 64 rows × cluster ranks, heads, key splits) on TF32
+tensor cores (3×TF32 for float32), whose blocks split hd above 256 across
+a cluster of ceil(hd / 256); with one key split it writes the output (one
+launch), else a second kernel combines the splits in a fixed order (two
+launches, :func:`flash_launches`).  Tensors on the CPU run
 :func:`flash_attention_plain`, the same arithmetic in plain PyTorch ops.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
-from ..common import (FLOAT, INT, PTR, CudaLibrary, dtype_code, on_card,
-                      smem_ok, stream_of)
+from ..common import (FLOAT, INT, NUM_SMS, PTR, SMEM_PER_SM, CudaLibrary,
+                      dtype_code, on_card, smem_ok, stream_of)
 
 NEG_INF = -1e30
 
-# Tile constants of csrc/flashattn.cu.
-_BQ, _BK, _DK, _KPAD, _BKV = 16, 64, 64, 68, 8
-_MAX_HD = 1024                    # 16 accumulator columns a thread
-_TARGET_BLOCKS = 2 * 132          # two blocks per SM of an H100
+# Tile constants of csrc/flashattn.cu: 64 query rows and 64-key tiles a
+# block; the head-dim columns a block holds, the least of these that
+# covers hd, and above 256 a cluster of ceil(hd / 256) blocks.
+_MQ, _MK = 64, 64
+_HEAD_COLUMNS = (32, 64, 128, 256)
+_MAX_HD = 1024
+_XCH = 4 * 8 * 32 * 4             # floats of the score tile a cluster sums
 
 LIBRARY = CudaLibrary("flashattn.cu", {
-    "codo_flash_attention": [INT, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT,
-                             INT, INT, PTR, FLOAT, INT, INT, INT, INT, PTR],
+    "codo_flash_attention": [INT, PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT,
+                             INT, INT, INT, INT, INT, PTR, FLOAT, INT, INT,
+                             INT, INT, PTR],
     "codo_flash_combine": [INT, PTR, PTR, PTR, INT, INT, INT, INT, INT, PTR,
                            PTR],
 })
 
 
-def smem_bytes(hd: int) -> int:
-    """Dynamic shared memory of one block: the q tile (BQ × hd padded to
-    64), the K or V chunk, the probability tile and the row corrections."""
-    hdp = -(-hd // _DK) * _DK
-    return 4 * (_BQ * hdp + max(_BK * _KPAD, _BKV * hdp) + _BQ * _BK + _BQ)
+def head_columns(hd: int) -> int:
+    """Head-dim columns one block holds (32, 64, 128 or 256)."""
+    return next((n for n in _HEAD_COLUMNS if hd <= n), _HEAD_COLUMNS[-1])
 
 
+def cluster_size(hd: int) -> int:
+    """Blocks sharing one q tile: 1 up to hd = 256, else ceil(hd / 256),
+    each with 256 head-dim columns."""
+    return -(-hd // _HEAD_COLUMNS[-1])
+
+
+def tile_strides(hd: int, itemsize: int = 4) -> tuple[int, int]:
+    """Shared-memory row strides (elements) of csrc/flashattn.cu's tiles:
+    the q, K and V tiles row by row, and a K tile stored by d; each row 16
+    bytes longer than its data, so every row starts 16-byte aligned for
+    cp.async."""
+    pad = 16 // itemsize
+    return head_columns(hd) + pad, _MK + pad
+
+
+def smem_bytes(hd: int, itemsize: int = 4) -> int:
+    """Dynamic shared memory of one block: the q tile and two K/V tile
+    buffers (a buffer also holds a K tile stored by d), and at 256 columns
+    the score tile the cluster exchanges."""
+    n = head_columns(hd)
+    ld, kt_ld = tile_strides(hd, itemsize)
+    buf = max(_MQ * ld, n * kt_ld)
+    xch = 4 * _XCH if n == 256 else 0
+    return itemsize * (_MQ * ld + 2 * buf) + xch
+
+
+@functools.lru_cache(maxsize=None)
 def tiling_ok(hd: int) -> bool:
     """Whether the kernel's tiling exists for head dim ``hd``."""
-    return hd <= _MAX_HD and smem_ok(smem_bytes(hd))
+    return 0 < hd <= _MAX_HD and smem_ok(smem_bytes(hd))
 
 
-def key_splits(Sq: int, Sk: int, BH: int) -> tuple[int, int]:
-    """(splits, tiles per split) of the key axis: enough splits that the
-    grid reaches two blocks per SM, no more than there are key tiles."""
-    tiles = -(-Sk // _BK)
-    blocks = -(-Sq // _BQ) * BH
-    splits = min(tiles, max(1, -(-_TARGET_BLOCKS // blocks)))
-    per = -(-tiles // splits)
-    return -(-tiles // per), per
+@functools.lru_cache(maxsize=1024)
+def key_splits(Sq: int, Sk: int, BH: int, hd: int) -> tuple[int, int]:
+    """(splits, tiles per split) of the key axis.  One split when the grid
+    fills the card's resident blocks; else the split count, at most the
+    key tiles, that takes the fewest rounds of resident blocks times the
+    tiles a block walks plus one for its set-up (the fewest splits among
+    equals).  A cluster of c blocks needs c SMs of one GPC, so clusters
+    fill about 7/8 of the card."""
+    tiles = -(-Sk // _MK)
+    c = cluster_size(hd)
+    groups = -(-Sq // _MQ) * BH                 # blocks, or clusters of c
+    per_sm = max(1, min(4, SMEM_PER_SM // (smem_bytes(hd) + 1024)))
+    slots = per_sm * NUM_SMS // c
+    if c > 1:
+        slots = slots * 7 // 8
+    if groups >= slots:
+        return 1, tiles
+    best = None
+    for want in range(1, tiles + 1):
+        per = -(-tiles // want)
+        splits = -(-tiles // per)
+        cost = -(-groups * splits // slots) * (per + 1)
+        if best is None or cost < best[0]:
+            best = (cost, splits, per)
+    return best[1], best[2]
+
+
+def flash_launches(Sq: int, Sk: int, BH: int, hd: int) -> int:
+    """Kernel launches of one :func:`flash_attention` call: the attention
+    kernel alone with one key split (it writes the output), else with the
+    combine."""
+    return 1 if key_splits(Sq, Sk, BH, hd)[0] == 1 else 2
 
 
 def _check(q, k, v):
@@ -89,24 +146,27 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                      scale=scale)
     if not tiling_ok(hd):
         raise ValueError(f"flash_attention takes hd <= {_MAX_HD}, got {hd}")
-    splits, per = key_splits(Sq, Sk, B * Hq)
-    part_o = torch.empty((splits, B * Hq, Sq, hd), dtype=torch.float32,
-                         device=q.device)
-    part_ml = torch.empty((splits, B * Hq, Sq, 2), dtype=torch.float32,
-                          device=q.device)
+    splits, per = key_splits(Sq, Sk, B * Hq, hd)
     o = torch.empty((B, Hq, Sq, hd), dtype=q.dtype, device=q.device)
+    code, stream = dtype_code(q), stream_of(q)
+    if splits > 1:
+        part_o = torch.empty((splits, B * Hq, Sq, hd), dtype=torch.float32,
+                             device=q.device)
+        part_ml = torch.empty((splits, B * Hq, Sq, 2), dtype=torch.float32,
+                              device=q.device)
+        parts = part_o.data_ptr(), part_ml.data_ptr()
+    else:
+        parts = None, None
     strides = (ctypes.c_longlong * 12)(*q.stride(), *k.stride(), *v.stride())
     o_strides = (ctypes.c_longlong * 4)(*o.stride())
-    code, stream = dtype_code(q), stream_of(q)
     with torch.cuda.device(q.device):
         LIBRARY.launch("codo_flash_attention", code, q.data_ptr(),
-                       k.data_ptr(), v.data_ptr(), part_o.data_ptr(),
-                       part_ml.data_ptr(), B, Hq, Hkv, Sq, Sk, hd, strides,
-                       scale, int(bool(causal)), int(window), splits, per,
-                       stream)
-        LIBRARY.launch("codo_flash_combine", code, part_o.data_ptr(),
-                       part_ml.data_ptr(), o.data_ptr(), splits, B * Hq, Hq,
-                       Sq, hd, o_strides, stream)
+                       k.data_ptr(), v.data_ptr(), *parts, o.data_ptr(),
+                       o_strides, B, Hq, Hkv, Sq, Sk, hd, strides, scale,
+                       int(bool(causal)), int(window), splits, per, stream)
+        if splits > 1:
+            LIBRARY.launch("codo_flash_combine", code, *parts, o.data_ptr(),
+                           splits, B * Hq, Hq, Sq, hd, o_strides, stream)
     return o
 
 

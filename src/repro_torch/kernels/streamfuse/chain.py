@@ -5,13 +5,22 @@ The counterpart of ``repro/kernels/streamfuse/chain.py``:
 
 ``fused_matmul_chain`` — ``ew(a @ w1) @ w2``: a (M, K), w1 (K, N1), w2
 (N1, N2) of one element type (float32 or bfloat16), float32 accumulation,
-output in a's type, the intermediate never written to device memory.
-``ew`` is data, not a closure: a sequence of ``(kind, attrs)`` pairs over
-the elementwise kinds in :data:`EW_CODES`, applied in order — which is how
-it reaches the CUDA kernel (op codes plus scalar attributes).  Tensors on
-the card launch ``csrc/chain.cu``: the fused kernel over an (M/64,
-N1-chunks) grid writing float32 partials, then a reduction over the
-chunks in fixed order (two launches per call, deterministic).
+output in a's type.  ``ew`` is data, not a closure: a sequence of
+``(kind, attrs)`` pairs over the elementwise kinds in :data:`EW_CODES`,
+applied in order — which is how it reaches the CUDA kernel (op codes plus
+scalar attributes, a :class:`ChainTail` built once a route).  Tensors on
+the card launch ``csrc/chain.cu`` in one of two forms, picked by
+:func:`chain_form` from the shapes, two launches either way
+(:func:`chain_launches`):
+
+* up to 16 rows, a K-split GEMV: the first launch writes float32 split
+  partials of ``a @ w1`` (splits × M × N1 floats, under 1 MB at VGG-16's
+  head) to device memory — the one place the intermediate leaves the
+  chip's shared memory — and the second sums them in a fixed order,
+  applies the tail and multiplies by w2;
+* otherwise clusters of up to 8 blocks sharing a chunk of h through
+  distributed shared memory (h stays on chip), each chunk writing a
+  float32 partial of the output, then their fixed-order sum.
 
 ``fused_matmul_grad`` — ``ew(a @ w, *extras)``, the backward pass's
 cotangent matmul with its gradient epilogue: a (M, K), w (K, N), each
@@ -38,10 +47,9 @@ import ctypes
 import functools
 from typing import Sequence
 
-from ..common import (INT, INT64, PTR, SMEM_PER_BLOCK, CudaLibrary,
+from ..common import (INT, INT64, NUM_SMS, PTR, SMEM_PER_BLOCK, CudaLibrary,
                       dtype_code, on_card, stream_of)
 
-_NUM_SMS = 132                    # streaming multiprocessors of an H100
 
 # op code of each elementwise kind csrc/chain.cu replays, and the attrs
 # that fill its two float slots.
@@ -51,15 +59,115 @@ EW_CODES = {"identity": (0, ()), "relu": (1, ()), "gelu": (2, ()),
 _ATTR_DEFAULTS = {"a": 1.0, "b": 0.0}
 MAX_EW = 8
 
-# Tile constants of csrc/chain.cu.
-_BM, _BN, _BKK = 64, 128, 8
-_TARGET_BLOCKS = 4 * _NUM_SMS    # four 4-warp blocks per SM
+# Tile constants of csrc/chain.cu.  Small-M form: a split GEMV, 8 warps a
+# block, 8 lanes on each 128-byte row segment (32 float32 or 64 bfloat16
+# columns a block) and 32 rows in flight; each split a whole number of
+# 32-row steps, at least 64 rows and at most what 64 KB of a's slab holds
+# (16384 floats over the rows the kernel is compiled for).  Large-M form:
+# 64 × 64 tiles of h a block, clusters of up to 8 blocks sharing a chunk
+# of 64·c columns of h.
+SMALL_M = 16                      # rows the small-M form takes at most
+_GV_WARPS, _GV_RG, _MIN_KPER, _SLAB = 8, 32, 64, 16384
+_GV_TARGET = 2 * NUM_SMS         # small-M blocks: two a SM
+_BM, _BN, _BK, _MAX_CLUSTER = 64, 64, 32, 8
 
+# The entry points take the shape as an int array and the tail as an
+# EwChain (a launch's host time grows with its argument count, and the VGG
+# head's call is host-bound).
 LIBRARY = CudaLibrary("chain.cu", {
-    "codo_matmul_chain": [INT, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT,
-                          INT, PTR, PTR, PTR, PTR],
+    "codo_matmul_chain": [INT, PTR, PTR, PTR, PTR, PTR, PTR, PTR],
     "codo_matmul_chain_reduce": [INT, PTR, PTR, INT, INT64, PTR],
+    "codo_matmul_chain_rows": [INT, PTR, PTR, PTR, PTR, PTR],
+    "codo_matmul_chain_rows_out": [INT, PTR, PTR, PTR, PTR, INT, PTR, PTR],
 })
+
+
+class EwChain(ctypes.Structure):
+    """csrc/chain.cu's EwChain: n op codes with two float attributes each."""
+    _fields_ = [("n", ctypes.c_int), ("op", ctypes.c_int * MAX_EW),
+                ("a", ctypes.c_float * MAX_EW), ("b", ctypes.c_float * MAX_EW)]
+
+
+class ChainTail:
+    """An ``ew`` tail as the chain kernel takes it: the stages and their
+    :class:`EwChain`.  The mmchain factory builds one a route, so a call
+    does not re-derive the codes."""
+
+    def __init__(self, ew: Sequence[tuple[str, dict]]):
+        ops, ea, eb = ew_codes(ew)
+        self.ew = tuple(ew)
+        self.struct = EwChain(len(ops), (ctypes.c_int * MAX_EW)(*ops),
+                              (ctypes.c_float * MAX_EW)(*ea),
+                              (ctypes.c_float * MAX_EW)(*eb))
+
+
+def _rows_mr(M: int) -> int:
+    """Rows the small-M kernels are compiled for: the least power of 2
+    that holds M."""
+    return 1 << max(0, M - 1).bit_length()
+
+
+def row_columns(itemsize: int) -> int:
+    """Output columns of one small-M block: 8 lanes of 16 bytes."""
+    return 8 * (16 // itemsize)
+
+
+def row_splits(M: int, K: int, N1: int,
+               itemsize: int = 4) -> tuple[int, int]:
+    """(splits, rows of each) of the small-M form's contraction: enough
+    splits that the first launch reaches two blocks a SM, each a whole
+    number of 32-row steps, at least 64 rows and within the slab."""
+    tiles = -(-N1 // row_columns(itemsize))
+    depth = -(-K // max(1, -(-_GV_TARGET // tiles)))
+    kper = min(max(_GV_RG * -(-depth // _GV_RG), _MIN_KPER),
+               _SLAB // _rows_mr(M))
+    return -(-K // kper), kper
+
+
+def rows_smem_bytes(M: int, K: int, N1: int,
+                    itemsize: int = 4) -> tuple[int, int]:
+    """Shared memory of the small-M form's two kernels: the a slab (or h)
+    as float32 and the warps' sums for the fixed-order reduction."""
+    mr, red = _rows_mr(M), _GV_WARPS * _rows_mr(M) * row_columns(itemsize)
+    kper = row_splits(M, K, N1, itemsize)[1]
+    return 4 * (mr * kper + red), 4 * (mr * N1 + red)
+
+
+def cluster_smem_bytes() -> int:
+    """Shared memory of one large-M block: its 64 × 64 slice of h and two
+    buffers each of the a and weight tiles (float32 sizes)."""
+    return 4 * (_BM * (_BN + 4) + 2 * _BM * (_BK + 4) + 2 * _BK * (_BN + 8))
+
+
+def chain_form(M: int, K: int, N1: int, itemsize: int = 4) -> str:
+    """``"rows"`` (the small-M split GEMV) for M up to 16 when h's rows fit
+    a block's shared memory, else ``"cluster"`` (the large-M form): a pure
+    function of the shapes."""
+    if M <= SMALL_M and max(rows_smem_bytes(M, K, N1, itemsize)) <= \
+            SMEM_PER_BLOCK:
+        return "rows"
+    return "cluster"
+
+
+def cluster_shape(N1: int, N2: int) -> tuple[int, int]:
+    """(c, ncr): c blocks a cluster, 64 columns of h each (a chunk of 64·c
+    columns), and the output columns each block computes, a multiple of
+    64."""
+    c = min(_MAX_CLUSTER, -(-N1 // _BN))
+    cols = -(-N2 // c)
+    return c, _BN * -(-cols // _BN)
+
+
+def cluster_chunks(N1: int, N2: int) -> int:
+    """Chunks of h (float32 partials the second launch sums)."""
+    return -(-N1 // (_BN * cluster_shape(N1, N2)[0]))
+
+
+def chain_launches(M: int, K: int, N1: int, N2: int) -> int:
+    """Kernel launches of one :func:`fused_matmul_chain` call: two in
+    either form (the split GEMV, then its sum times w2; or the cluster
+    kernel, then its chunks' sum)."""
+    return 2
 
 
 def ew_codes(ew: Sequence[tuple[str, dict]]) -> tuple[list[int], list[float],
@@ -104,68 +212,88 @@ def apply_ew_plain(h, ew: Sequence[tuple[str, dict]]):
     return h
 
 
-def chunk_columns(M: int, N1: int) -> int:
-    """Columns of h one block owns (a multiple of 128): enough N1 chunks
-    that the grid reaches four blocks per SM, no more than needed, and a
-    slice small enough that two blocks share an SM's shared memory."""
-    n_m = -(-M // _BM)
-    n_max = -(-N1 // _BN)
-    chunks = min(n_max, max(1, -(-_TARGET_BLOCKS // n_m)))
-    cols = -(-N1 // chunks)
-    bn1 = _BN * -(-cols // _BN)
-    while bn1 > _BN and smem_bytes(bn1) > SMEM_PER_BLOCK // 2:
-        bn1 -= _BN
-    return bn1
-
-
-def smem_bytes(bn1: int) -> int:
-    """The h slice plus two buffers each of the a and weight tiles."""
-    return 4 * (_BM * bn1 + 2 * _BKK * _BM + 2 * _BKK * _BN)
-
-
 def _check(a, w1, w2):
+    _check_shapes(a.shape, w1.shape, w2.shape, a.dtype, w1.dtype, w2.dtype)
+
+
+def _check_shapes(a_shape, w1_shape, w2_shape, a_dtype, w1_dtype, w2_dtype):
     import torch
-    if a.dim() != 2 or w1.dim() != 2 or w2.dim() != 2:
+    if len(a_shape) != 2 or len(w1_shape) != 2 or len(w2_shape) != 2:
         raise ValueError("fused_matmul_chain wants 2-D a, w1, w2")
-    if a.shape[1] != w1.shape[0] or w1.shape[1] != w2.shape[0]:
-        raise ValueError(f"shapes do not chain: {tuple(a.shape)} @ "
-                         f"{tuple(w1.shape)} @ {tuple(w2.shape)}")
-    if not (a.dtype == w1.dtype == w2.dtype) or a.dtype not in (
+    if a_shape[1] != w1_shape[0] or w1_shape[1] != w2_shape[0]:
+        raise ValueError(f"shapes do not chain: {tuple(a_shape)} @ "
+                         f"{tuple(w1_shape)} @ {tuple(w2_shape)}")
+    if not (a_dtype == w1_dtype == w2_dtype) or a_dtype not in (
             torch.float32, torch.bfloat16):
         raise TypeError(f"a/w1/w2 must share float32 or bfloat16, got "
-                        f"{a.dtype}, {w1.dtype}, {w2.dtype}")
+                        f"{a_dtype}, {w1_dtype}, {w2_dtype}")
 
 
-def fused_matmul_chain(a, w1, w2, *, ew: Sequence[tuple[str, dict]] = ()):
-    """``ew(a @ w1) @ w2`` as one fused kernel plus a deterministic
-    reduction (tensors on the card), or its plain version (on the CPU)."""
+def fused_matmul_chain(a, w1, w2, *,
+                       ew: "Sequence[tuple[str, dict]] | ChainTail" = ()):
+    """``ew(a @ w1) @ w2`` (tensors on the card), or its plain version (on
+    the CPU).  ``ew`` is the stages, or a :class:`ChainTail` built from
+    them once.
+
+    On the card, two launches in the form :func:`chain_form` picks: for M
+    up to 16 a K-split GEMV writing float32 partials of ``a @ w1``, then
+    their fixed-order sum with the tail and the product with w2; else the
+    cluster kernel (mma.sync, 3×TF32 in float32) writing a float32 partial
+    a chunk of h, then their fixed-order sum.  Deterministic; no
+    atomics."""
     import torch
-    _check(a, w1, w2)
     if not on_card(a, w1, w2):
-        return matmul_chain_plain(a, w1, w2, ew=ew)
-    ops, ea, eb = ew_codes(ew)
+        return matmul_chain_plain(
+            a, w1, w2, ew=ew.ew if isinstance(ew, ChainTail) else ew)
+    tail = ew if isinstance(ew, ChainTail) else ChainTail(ew)
+    rows, scratch, shape, parts, code = _chain_plan(
+        a.shape, w1.shape, w2.shape, a.dtype, w1.dtype, w2.dtype)
     if not (a.is_contiguous() and w1.is_contiguous() and w2.is_contiguous()):
         raise ValueError("fused_matmul_chain reads row-major a/w1/w2; got "
                          f"strides {a.stride()}, {w1.stride()}, {w2.stride()}")
-    M, K = a.shape
-    N1, N2 = w2.shape
-    bn1 = chunk_columns(M, N1)
-    chunks = -(-N1 // bn1)
-    partial = torch.empty((chunks, M, N2), dtype=torch.float32,
-                          device=a.device)
+    M, N2 = a.shape[0], w2.shape[1]
     out = torch.empty((M, N2), dtype=a.dtype, device=a.device)
-    n = max(len(ops), 1)
-    c_ops = (ctypes.c_int * n)(*ops)
-    c_a = (ctypes.c_float * n)(*ea)
-    c_b = (ctypes.c_float * n)(*eb)
-    code, stream = dtype_code(a), stream_of(a)
+    part = torch.empty(scratch, dtype=torch.float32,
+                       device=a.device).data_ptr()
+    ew_arg, stream = ctypes.byref(tail.struct), stream_of(a)
     with torch.cuda.device(a.device):
-        LIBRARY.launch("codo_matmul_chain", code, a.data_ptr(), w1.data_ptr(),
-                       w2.data_ptr(), partial.data_ptr(), M, K, N1, N2, bn1,
-                       len(ops), c_ops, c_a, c_b, stream)
-        LIBRARY.launch("codo_matmul_chain_reduce", code, partial.data_ptr(),
-                       out.data_ptr(), chunks, M * N2, stream)
+        if rows:
+            LIBRARY.launch("codo_matmul_chain_rows", code, a.data_ptr(),
+                           w1.data_ptr(), part, shape, stream)
+            LIBRARY.launch("codo_matmul_chain_rows_out", code, part,
+                           w2.data_ptr(), out.data_ptr(), shape, N2, ew_arg,
+                           stream)
+        else:
+            LIBRARY.launch("codo_matmul_chain", code, a.data_ptr(),
+                           w1.data_ptr(), w2.data_ptr(), part, shape, ew_arg,
+                           stream)
+            LIBRARY.launch("codo_matmul_chain_reduce", code, part,
+                           out.data_ptr(), parts, M * N2, stream)
     return out
+
+
+@functools.lru_cache(maxsize=1024)
+def _chain_plan(a_shape, w1_shape, w2_shape, a_dtype, w1_dtype,
+                w2_dtype) -> tuple:
+    """Everything a call on the card derives from its operands' shapes and
+    types, once for each: (small-M form?, float32 scratch elements, the
+    shape array the entry points read, partials summed, the element-type
+    code).  The shape array is {M, K, N1, kper, splits} for the split
+    GEMV, {M, K, N1, N2, c, ncr} for the cluster kernel (with its chunks).
+    Raises on operands the kernel does not take."""
+    _check_shapes(a_shape, w1_shape, w2_shape, a_dtype, w1_dtype, w2_dtype)
+    (M, K), (N1, N2) = a_shape, w2_shape
+    itemsize = 4 if dtype_code(a_dtype) == 0 else 2
+    if chain_form(M, K, N1, itemsize) == "rows":
+        splits, kper = row_splits(M, K, N1, itemsize)
+        rows, scratch, parts = True, splits * M * N1, splits
+        shape = (M, K, N1, kper, splits)
+    else:
+        rows, parts = False, cluster_chunks(N1, N2)
+        scratch = parts * M * N2
+        shape = (M, K, N1, N2, *cluster_shape(N1, N2))
+    return (rows, scratch, (ctypes.c_int * len(shape))(*shape), parts,
+            dtype_code(a_dtype))
 
 
 def matmul_chain_plain(a, w1, w2, *, ew: Sequence[tuple[str, dict]] = ()):
@@ -192,8 +320,9 @@ GradStage = tuple[str, dict, "int | None"]
 # block, and the least contraction depth a K split gets.  At 168 registers
 # a thread, three 4-warp blocks are resident on an SM.
 GRAD_BM, GRAD_BN = 64, 128
+_GRAD_BKK = 8                     # contraction depth of one stage
 _MIN_K_SPLIT = 64
-_GRAD_SLOTS = 3 * _NUM_SMS
+_GRAD_SLOTS = 3 * NUM_SMS
 # The split choice's cost model (float32, H100): split partial sums cost
 # a write and a read each at 3.35 TB/s, and one wave of resident blocks
 # advances one k in about 0.254 us — the FFN chain at S=1024 in
@@ -251,7 +380,7 @@ def k_splits(M: int, N: int, K: int) -> tuple[int, int]:
     best = None
     for want in range(1, max(1, K // _MIN_K_SPLIT) + 1):
         depth = -(-K // want)
-        per = _BKK * -(-depth // _BKK)
+        per = _GRAD_BKK * -(-depth // _GRAD_BKK)
         splits = -(-K // per)
         waves = -(-tiles * splits // _GRAD_SLOTS)
         cost = waves * per * _WAVE_K_US
@@ -403,7 +532,7 @@ def matmul_grad_plain(a, w, *extras, ew: Sequence[GradStage]):
 # Tile constants of csrc/softmax_mm.cu: 16 rows a block, 64-key tiles of
 # s, V streamed 8 keys at a time, up to 4 × 64 output columns a block.
 SM_BQ, SM_BK, SM_BKV, SM_MAX_NC = 16, 64, 8, 4
-_SM_TARGET_BLOCKS = 2 * _NUM_SMS          # two blocks per SM
+_SM_TARGET_BLOCKS = 2 * NUM_SMS          # two blocks per SM
 
 SOFTMAX_LIBRARY = CudaLibrary("softmax_mm.cu", {
     "codo_softmax_matmul": [INT, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT,
@@ -503,11 +632,14 @@ def softmax_matmul_plain(s, v):
     return o.to(s.dtype)
 
 
-__all__ = ["EW_CODES", "GRAD_CODES", "GRAD_KINDS", "GRAD_LIBRARY", "GradTail",
-           "LIBRARY", "SOFTMAX_LIBRARY", "apply_ew_plain",
-           "apply_grad_ew_plain", "chunk_columns", "ew_codes",
-           "fused_matmul_chain", "fused_matmul_grad", "fused_softmax_matmul",
-           "grad_ew_codes", "grad_launches", "grad_one_pass", "k_splits",
-           "matmul_chain_plain", "matmul_grad_plain", "softmax_matmul_plain",
-           "softmax_mm_columns", "softmax_mm_launches", "softmax_mm_smem_bytes",
+__all__ = ["ChainTail", "EW_CODES", "GRAD_CODES", "GRAD_KINDS", "GRAD_LIBRARY",
+           "GradTail", "LIBRARY", "SOFTMAX_LIBRARY", "apply_ew_plain",
+           "apply_grad_ew_plain", "chain_form", "chain_launches",
+           "cluster_chunks", "cluster_shape", "cluster_smem_bytes",
+           "ew_codes", "fused_matmul_chain", "fused_matmul_grad",
+           "fused_softmax_matmul", "grad_ew_codes", "grad_launches",
+           "grad_one_pass", "k_splits", "matmul_chain_plain",
+           "matmul_grad_plain", "row_columns", "row_splits",
+           "rows_smem_bytes", "softmax_matmul_plain", "softmax_mm_columns",
+           "softmax_mm_launches", "softmax_mm_smem_bytes",
            "softmax_mm_splits"]

@@ -29,8 +29,9 @@ from __future__ import annotations
 
 from ...core.routing import KernelPattern, register_kernel_pattern
 from ..common import all_f32, smem_ok
-from .chain import (MAX_EW, GradTail, fused_matmul_chain, fused_matmul_grad,
-                    fused_softmax_matmul, softmax_mm_smem_bytes)
+from .chain import (MAX_EW, ChainTail, GradTail, fused_matmul_chain,
+                    fused_matmul_grad, fused_softmax_matmul,
+                    softmax_mm_smem_bytes)
 from .streamfuse import fused_pad_conv_relu
 
 # Elementwise spec kinds a kernel can replay on a tile: exactly one
@@ -107,10 +108,11 @@ def _mm_chain_factory(graph, group, tasks, tile=None):
     ew = tuple((t.spec.kind, dict(t.spec.attrs)) for t in tasks[1:-1])
     if len(ew) > MAX_EW:
         return None                     # longer tail than the kernel replays
+    tail = ChainTail(ew)
 
     def run(env):
         return {out_buf: fused_matmul_chain(env[a_buf], env[w1_buf],
-                                            env[w2_buf], ew=ew)}
+                                            env[w2_buf], ew=tail)}
 
     return run
 

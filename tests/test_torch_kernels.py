@@ -34,8 +34,9 @@ from repro_torch.kernels import common  # noqa: E402
 from repro_torch.kernels.flashattn import (LIBRARY as FLASH_LIB,  # noqa: E402
                                            attention_ref, flash_attention,
                                            flash_attention_plain, flash_attn)
-from repro_torch.kernels.flashattn.flashattn import (key_splits,  # noqa: E402
-                                                     smem_bytes, tiling_ok)
+from repro_torch.kernels.flashattn.flashattn import (  # noqa: E402
+    cluster_size, flash_launches, head_columns, key_splits, smem_bytes,
+    tile_strides, tiling_ok)
 from repro_torch.kernels.streamfuse import (LIBRARY as CHAIN_LIB,  # noqa: E402
                                             CONV_LIBRARY as CONV_LIB,
                                             GRAD_LIBRARY as GRAD_LIB,
@@ -45,16 +46,12 @@ from repro_torch.kernels.streamfuse import (LIBRARY as CHAIN_LIB,  # noqa: E402
                                             matmul_chain_ref,
                                             matmul_grad_plain,
                                             matmul_grad_ref)
-from repro_torch.kernels.streamfuse.chain import (EW_CODES,  # noqa: E402
-                                                  GRAD_CODES, GradTail,
-                                                  apply_ew_plain,
-                                                  apply_grad_ew_plain,
-                                                  chunk_columns, ew_codes,
-                                                  grad_ew_codes,
-                                                  grad_launches,
-                                                  grad_one_pass, k_splits)
-from repro_torch.kernels.streamfuse.chain import \
-    smem_bytes as smem_bytes_chain  # noqa: E402
+from repro_torch.kernels.streamfuse.chain import (  # noqa: E402
+    EW_CODES, GRAD_CODES, ChainTail, GradTail, apply_ew_plain,
+    apply_grad_ew_plain,
+    chain_form, chain_launches, cluster_chunks, cluster_shape,
+    cluster_smem_bytes, ew_codes, grad_ew_codes, grad_launches,
+    grad_one_pass, k_splits, row_columns, row_splits, rows_smem_bytes)
 from repro.kernels.matmul.matmul import matmul as jax_matmul  # noqa: E402
 from repro.kernels.matmul.ref import matmul_ref as jax_matmul_ref  # noqa: E402
 from repro.kernels.rglru.ref import rglru_ref  # noqa: E402
@@ -195,18 +192,48 @@ def test_flash_rejects_bad_operands():
 
 def test_flash_tiling_exists_at_gpt2_medium_width():
     assert tiling_ok(1024) and smem_bytes(1024) <= common.SMEM_PER_BLOCK
-    assert 2 * smem_bytes(1024) <= 228 * 1024      # two blocks fit an SM
+    assert (cluster_size(1024), head_columns(1024)) == (4, 256)
     assert not tiling_ok(1025) and not tiling_ok(8192)
 
 
-@pytest.mark.parametrize("S,BH", [(128, 1), (1024, 1), (256, 8), (77, 3),
-                                  (4096, 32)])
-def test_flash_key_splits_cover_every_tile(S, BH):
-    splits, per = key_splits(S, S, BH)
+@pytest.mark.parametrize("hd", [16, 32, 40, 64, 100, 128, 200, 256, 257, 512,
+                                700, 1024])
+def test_flash_shared_memory_fits_every_head_dim(hd):
+    """Each block holds head_columns(hd) ≤ 256 columns; a cluster of at
+    most 4 covers hd; float32 and bfloat16 tiles fit a block's shared
+    memory."""
+    c, n = cluster_size(hd), head_columns(hd)
+    assert n in (32, 64, 128, 256) and 1 <= c <= 4
+    assert c * n >= hd and (c == 1 or n == 256)
+    assert c == 1 or (c - 1) * 256 < hd        # no idle rank
+    for itemsize in (4, 2):
+        assert common.smem_ok(smem_bytes(hd, itemsize))
+        # Every tile row, a K tile stored by d too, starts 16-byte aligned.
+        assert all(ld * itemsize % 16 == 0
+                   for ld in tile_strides(hd, itemsize))
+
+
+@pytest.mark.parametrize("S,BH,hd", [(128, 1, 1024), (1024, 1, 1024),
+                                     (256, 8, 64), (77, 3, 40),
+                                     (4096, 32, 128), (2048, 16, 256)])
+def test_flash_key_splits_cover_every_tile(S, BH, hd):
+    splits, per = key_splits(S, S, BH, hd)
     tiles = -(-S // 64)
     assert 1 <= splits <= tiles and (splits - 1) * per < tiles <= splits * per
-    blocks = -(-S // 16) * BH * splits
-    assert blocks >= min(264, -(-S // 16) * BH * tiles) // 2
+    blocks = -(-S // 64) * cluster_size(hd) * BH
+    assert blocks * splits >= min(132, blocks * tiles) // 2
+    if blocks >= 132:                           # the grid fills the card
+        assert splits == 1
+    assert flash_launches(S, S, BH, hd) == (1 if splits == 1 else 2)
+
+
+def test_flash_launches_at_the_paths_shapes():
+    """mha_batched (16 heads, S = 2048, hd = 256) fills the card in one
+    split, one launch; gpt2_block's single head at hd = 1024 splits its
+    keys and combines them, two."""
+    assert flash_launches(2048, 2048, 16, 256) == 1
+    assert flash_launches(128, 128, 1, 1024) == 2
+    assert flash_launches(1024, 1024, 1, 1024) == 2
 
 
 # --------------------------------------------------------------------------
@@ -234,10 +261,14 @@ def _ref_tail(ew):
 
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("tail", sorted(TAILS))
-@pytest.mark.parametrize("M,K,N1,N2", [(32, 64, 128, 48), (16, 32, 256, 64)])
+@pytest.mark.parametrize("M,K,N1,N2", [(32, 64, 128, 48), (16, 32, 256, 64),
+                                      (1, 1000, 128, 48), (2, 1024, 256, 64)])
 def test_chain_plain_matches_jax_kernel(M, K, N1, N2, tail, bf16):
     ew = TAILS[tail]
-    a, w1, w2 = (_rand(s, i, 0.3) for i, s in
+    # Operands shrink with the depth past 64, so that h stays O(1) and
+    # the rdivc tail stays away from its pole at every K.
+    scale = 0.3 * min(1.0, 8.0 / math.sqrt(K))
+    a, w1, w2 = (_rand(s, i, scale) for i, s in
                  enumerate([(M, K), (K, N1), (N1, N2)]))
     got = fused_matmul_chain(_t(a, bf16), _t(w1, bf16), _t(w2, bf16), ew=ew)
     assert got.shape == (M, N2)
@@ -270,13 +301,93 @@ def test_ew_codes_cover_every_ew_kind():
 @pytest.mark.parametrize("M,N1", [(16, 256), (128, 4096), (1024, 4096),
                                   (100, 1000), (8192, 4096)])
 def test_chain_chunking_fills_the_card_and_fits(M, N1):
-    bn1 = chunk_columns(M, N1)
-    chunks = -(-N1 // bn1)
-    assert bn1 % 128 == 0 and bn1 > 0
-    assert common.smem_ok(smem_bytes_chain(bn1))
+    """Either form's tiling covers the shape and fits a block: the small
+    form's splits cover K, the cluster form's chunks cover N1 and its
+    ranks' columns cover N2, c ≤ 8 blocks of 64 columns of h a chunk."""
+    K, N2 = 1024, 1024
+    if chain_form(M, K, N1) == "rows":
+        splits, kper = row_splits(M, K, N1)
+        assert kper % 32 == 0 and (splits - 1) * kper < K <= splits * kper
+        assert max(rows_smem_bytes(M, K, N1)) <= common.SMEM_PER_BLOCK
+        return
+    c, ncr = cluster_shape(N1, N2)
+    chunks = cluster_chunks(N1, N2)
+    bn1 = 64 * c
+    assert 1 <= c <= 8 and bn1 % c == 0 and ncr % 64 == 0
     assert chunks * bn1 >= N1 > (chunks - 1) * bn1
-    if -(-M // 64) * -(-N1 // 128) >= 132:    # enough work for every SM
-        assert -(-M // 64) * chunks >= 132
+    assert c * ncr >= N2 > (c - 1) * ncr - 64
+    assert common.smem_ok(cluster_smem_bytes())
+    if -(-M // 64) * -(-N1 // 64) >= 132:     # enough work for every SM
+        assert -(-M // 64) * chunks * c >= 132
+
+
+@pytest.mark.parametrize("M,K,N1,N2,form", [
+    (1, 25088, 512, 512, "rows"),             # VGG-16's head
+    (16, 1000, 200, 72, "rows"),
+    (1, 1024, 65536, 64, "cluster"),          # h's row past shared memory
+    (17, 1024, 512, 512, "cluster"),
+    (128, 1024, 4096, 1024, "cluster"),       # gpt2_block's FFN
+    (1024, 1024, 4096, 1024, "cluster"),
+])
+def test_chain_form_follows_the_shape(M, K, N1, N2, form):
+    assert chain_form(M, K, N1) == form
+    assert chain_launches(M, K, N1, N2) == 2
+
+
+@pytest.mark.parametrize("M,K,N1,itemsize", [(1, 25088, 512, 4),
+                                             (1, 25088, 512, 2),
+                                             (3, 1000, 200, 4), (16, 96, 72, 4),
+                                             (16, 4096, 1024, 2)])
+def test_chain_row_splits_cover_k_and_fill_the_card(M, K, N1, itemsize):
+    splits, kper = row_splits(M, K, N1, itemsize)
+    assert kper % 32 == 0 and 64 <= kper and M * kper <= 16384
+    assert (splits - 1) * kper < K <= splits * kper
+    tiles = -(-N1 // row_columns(itemsize))
+    assert tiles * splits >= min(132, tiles * -(-K // 64))
+    if (K, N1) == (25088, 512):               # the head: >= 132 blocks,
+        assert tiles * splits >= 132          # partials under 1 MB
+        assert 4 * splits * N1 < 1 << 20
+    assert max(rows_smem_bytes(M, K, N1, itemsize)) <= common.SMEM_PER_BLOCK
+
+
+def test_chain_cluster_partials_shrink_at_gpt2_widths():
+    """The float32 partials the second launch sums: PR 11's kernel wrote
+    one a 128 columns of h at S=128 (32 chunks) and a 512-column chunk at
+    S=1024 (8); a cluster chunk is 512 columns at both."""
+    assert cluster_shape(4096, 1024) == (8, 128)
+    assert cluster_chunks(4096, 1024) * 4 <= 32
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits, nearest, ties away), as the
+    kernels round the high part."""
+    u = np.asarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_read(x):
+    """x as the tensor cores read a TF32 operand: its top 19 bits."""
+    u = np.asarray(x, np.float32).view(np.uint32)
+    return (u & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+@pytest.mark.parametrize("M,K,N", [(4, 1024, 256), (1, 25088, 64)])
+def test_three_tf32_products_keep_float32_accuracy(M, K, N):
+    """The premise of the kernels' 3×TF32 split: at the chain's depths
+    (gpt2_block's K = 1024, VGG-16's head K = 25088) hi·hi + hi·lo + lo·hi,
+    lo = x − hi read as TF32, in float32 stays within the card's float32
+    band (1e-4·(1 + scale)), and one TF32 product does not."""
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((M, K)).astype(np.float32)
+    w = (rng.standard_normal((K, N)) / np.sqrt(K)).astype(np.float32)
+    exact = a.astype(np.float64) @ w.astype(np.float64)
+    a_hi, w_hi = _tf32(a), _tf32(w)
+    a_lo, w_lo = _tf32_read(a - a_hi), _tf32_read(w - w_hi)
+    three = (a_lo @ w_hi + a_hi @ w_lo) + a_hi @ w_hi
+    one = a_hi @ w_hi
+    band = 1e-4 * (1 + np.abs(exact).max())
+    assert np.abs(three - exact).max() <= band / 10
+    assert np.abs(one - exact).max() > band
 
 
 def test_chain_rejects_bad_operands():
@@ -445,6 +556,26 @@ def test_prepared_tail_gives_the_same_result_and_keeps_its_arrays():
     assert list(first[-2]) == [16, 16] and list(first[-1]) == [1, 1]
     with pytest.raises(ValueError, match="built for 2 extras"):
         fused_matmul_grad(a, w, y, ew=tail)
+
+
+def test_prepared_chain_tail_gives_the_same_result_and_holds_its_codes():
+    """The mmchain factory hands the wrapper a ChainTail built once a
+    route: the op codes and attributes as the kernel takes them, and the
+    same answer as the stages themselves."""
+    ew = (("affine", {"a": -1.0, "b": 4.0}), ("rdivc", {"c": 2.0}),
+          ("gelu", {}))
+    tail = ChainTail(ew)
+    assert tail.ew == ew and tail.struct.n == 3
+    ops, ea, eb = ew_codes(ew)
+    assert list(tail.struct.op)[:3] == ops == [4, 6, 2]
+    assert list(tail.struct.a)[:3] == ea and list(tail.struct.b)[:3] == eb
+    a, w1, w2 = (torch.from_numpy(_rand(s, i))
+                 for i, s in enumerate([(5, 12), (12, 9), (9, 7)]))
+    torch.testing.assert_close(fused_matmul_chain(a, w1, w2, ew=tail),
+                               matmul_chain_plain(a, w1, w2, ew=ew),
+                               rtol=0, atol=0)
+    with pytest.raises(ValueError, match="at most"):
+        ChainTail((("relu", {}),) * 9)
 
 
 def test_grad_rejects_bad_operands():
