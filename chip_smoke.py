@@ -12,15 +12,19 @@ problem:
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every kernel of the port from ``src/repro_torch/csrc`` (eight
    sources, one ``nvcc`` each, all started together) and prints the time
-   and each kernel's registers and spills;
+   and each kernel's name, registers and spills;
 3. holds each kernel against its plain PyTorch version on the card, at
    the kernel sweep's shapes and at the paths' own (flash also at hd 256
-   and 1024, mmchain also at 1 to 16 rows: each of the two called twice,
-   bit for bit the same), printing the max
-   error beside its stated tolerance, and times kernel, plain version,
-   bound and a library yardstick, and takes each kernel's profiled device
-   time over the same calls; shows that the generic ``conv2d`` body is
-   full float32 on the card with cuDNN's TF32 flag at its default;
+   and 1024, mmchain also at 1 to 16 rows; flash, mmchain, mmgrad and
+   softmaxmm called twice, bit for bit the same; mmgrad and softmaxmm
+   with either accumulation and in bfloat16 at a route shape), printing
+   the max error beside its stated tolerance, and times kernel, plain
+   version, bound and a library yardstick, and takes each kernel's
+   profiled device time over the same calls; splits the tensor-core
+   kernels' 3×TF32 error against float64 into the split's, the order's
+   and the accumulation's shares, cuBLAS float32 beside them (the
+   precision phase); shows that the generic ``conv2d`` body is full
+   float32 on the card with cuDNN's TF32 flag at its default;
 4. drives the serving path — ``codo_torch.compile(gpt2_block_fn, (S,
    1024))`` with the default cost gate, distinct seeded weights bound
    through ``params_from_numpy`` — at S=128 and S=1024: four requests
@@ -67,6 +71,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -487,11 +492,123 @@ def check_grad(record: list) -> None:
         check(record, f"mmgrad 128x256x512 wT {name} bf16",
               fused_matmul_grad(a, w, e, ew=ew),
               matmul_grad_plain(a, w, e, ew=ew), TOL["bf16"])
+    # bfloat16 with an N-contiguous w (its tile kept by k).
+    a, w = (rn(128, 256) * 0.3).bfloat16(), (rn(256, 512) * 0.3).bfloat16()
+    e = rn(128, 512).bfloat16()
+    check(record, "mmgrad 128x256x512 gelu_grad bf16",
+          fused_matmul_grad(a, w, e, ew=GELU_GRAD),
+          matmul_grad_plain(a, w, e, ew=GELU_GRAD), TOL["bf16"])
+    # The route's shapes, each called twice (bit for bit the same); and
+    # the FFN chain in bfloat16.
     for S in SEQS:
         for chain, (a, w, e, ew) in grad_route_operands(S, g).items():
-            check(record, f"mmgrad route {chain} {S}x{D_MODEL}x"
-                  f"{w.shape[1]}", fused_matmul_grad(a, w, e, ew=ew),
-                  matmul_grad_plain(a, w, e, ew=ew), TOL["f32_wide"])
+            name = f"mmgrad route {chain} {S}x{D_MODEL}x{w.shape[1]}"
+            got = fused_matmul_grad(a, w, e, ew=ew)
+            want = matmul_grad_plain(a, w, e, ew=ew)
+            check(record, name, got, want, TOL["f32_wide"])
+            same(record, name, got, fused_matmul_grad(a, w, e, ew=ew))
+    a, w, e, ew = grad_route_operands(SEQS[0], g)["ffn"]
+    a, w, e = a.bfloat16(), w.bfloat16(), e.bfloat16()
+    name = f"mmgrad route ffn {SEQS[0]}x{D_MODEL}x{w.shape[1]} bf16"
+    got = fused_matmul_grad(a, w, e, ew=ew)
+    check(record, name, got, matmul_grad_plain(a, w, e, ew=ew), TOL["bf16"])
+    same(record, name, got, fused_matmul_grad(a, w, e, ew=ew))
+
+
+def _tf32_parts(x):
+    """hi = x rounded to TF32 as the kernels round it (mma_tf32.cuh
+    to_tf32: add 0x1000, keep the top 19 bits), and lo = x - hi as the
+    tensor cores read it (truncated to its top 19 bits)."""
+    import torch
+    keep = -8192                       # 0xffffe000 as an int32
+    hi = ((x.view(torch.int32) + 0x1000) & keep).view(x.dtype)
+    lo = ((x - hi).view(torch.int32) & keep).view(x.dtype)
+    return hi, lo
+
+
+def _rn_in_kernel_order(a_hi, a_lo, w_hi, w_lo):
+    """The three TF32 products summed in float32 with round-to-nearest in
+    the kernels' k order: 8-deep steps, three products a step, the small
+    terms first, each step's 8-term dot exact and rounded once into the
+    accumulator (one mma)."""
+    import torch
+    acc = torch.zeros(a_hi.shape[0], w_hi.shape[1], dtype=torch.float32,
+                      device=a_hi.device)
+    for k in range(0, a_hi.shape[1], 8):
+        for x, y in ((a_lo, w_hi), (a_hi, w_lo), (a_hi, w_hi)):
+            p = x[:, k:k + 8].double() @ y[k:k + 8].double()
+            acc = (acc.double() + p).float()
+    return acc
+
+
+def check_precision(record: dict) -> None:
+    """Where the 3×TF32 tensor-core error comes from, on the card: for
+    gpt2_block's FFN first product (a (1024, 1024) @ W_fc (1024, 4096),
+    seeded as chain_route_operands) and the mmgrad FFN product ((1024,
+    1024) @ W_fc2ᵀ), each against the exact float64 product, (2) the
+    split's share: hi·hi + hi·lo + lo·hi in float64; (3) the order's: the
+    same terms summed in float32 with round-to-nearest in the kernels' k
+    order, against (2); (4) the accumulation's: the kernel's own output
+    against (3); and (5) cuBLAS float32 (allow_tf32 False) against the
+    exact product, the scale.
+
+    (4) for the mmgrad product is fused_matmul_grad with no tail (the
+    mma_gemm.cuh tile).  For the FFN first product it is chain.cu's own a
+    @ w1, read through fused_matmul_chain with no tail and w2 = I (4096 ×
+    4096): the product with I adds the exact zeros and one h·1 a column,
+    so it only rounds h to hi + lo as the split reads it, at most 2⁻²¹ of
+    |h| (``identity_pass``, beside it).  The mma_gemm tile on the same
+    operands stands beside it (``accumulation_mma_gemm``)."""
+    import torch
+    from repro_torch.kernels.streamfuse import (fused_matmul_chain,
+                                                fused_matmul_grad)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    a1, w1, _ = chain_route_operands(D_MODEL, g)
+    a2, w2, _, _ = grad_route_operands(D_MODEL, g)["ffn"]
+    eye = torch.eye(w1.shape[1], device="cuda")
+    out = {"cublas_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+
+    def err(x, y):
+        return float((x.double() - y.double()).abs().max())
+
+    for name, a, w in [("mmchain_ffn_fc", a1, w1), ("mmgrad_ffn", a2, w2)]:
+        exact = a.double() @ w.double()
+        (a_hi, a_lo), (w_hi, w_lo) = _tf32_parts(a), _tf32_parts(w)
+        split = ((a_lo.double() @ w_hi.double())
+                 + (a_hi.double() @ w_lo.double())
+                 + (a_hi.double() @ w_hi.double()))
+        order = _rn_in_kernel_order(a_hi, a_lo, w_hi, w_lo)
+        tile = fused_matmul_grad(a, w, ew=())
+        kernel = (fused_matmul_chain(a, w, eye, ew=())
+                  if name == "mmchain_ffn_fc" else tile)
+        m = {"shape": [a.shape[0], a.shape[1], w.shape[1]],
+             "kernel": "chain.cu" if kernel is not tile else "mma_gemm.cuh",
+             "scale": float(exact.abs().max()),
+             "split": err(split, exact), "order": err(order, split),
+             "accumulation": err(kernel, order),
+             "cublas_f32": err(a @ w, exact),
+             "kernel_vs_exact": err(kernel, exact)}
+        if kernel is not tile:
+            m["identity_pass"] = m["scale"] * 2.0 ** -21
+            m["accumulation_mma_gemm"] = err(tile, order)
+        out[name] = m
+        print(f"  precision {name} {'x'.join(map(str, m['shape']))} (output "
+              f"scale {m['scale']:.3f}, kernel {m['kernel']}), max abs "
+              f"error:")
+        print(f"    split (hi·hi + hi·lo + lo·hi, float64) vs exact: "
+              f"{m['split']:.3e}")
+        print(f"    order (float32 round-to-nearest, kernel order) vs split: "
+              f"{m['order']:.3e}")
+        print(f"    accumulation (the kernel's tensor cores) vs order: "
+              f"{m['accumulation']:.3e}")
+        print(f"    cuBLAS float32 vs exact: {m['cublas_f32']:.3e}")
+        print(f"    kernel vs exact: {m['kernel_vs_exact']:.3e}")
+        if kernel is not tile:
+            print(f"    (the product with I rounds at most "
+                  f"{m['identity_pass']:.3e}; mma_gemm.cuh's tile on these "
+                  f"operands: accumulation {m['accumulation_mma_gemm']:.3e})")
+    record["precision"] = out
 
 
 def conv_operands(N, C, H, W, CO, K, g, dtype=None):
@@ -896,10 +1013,10 @@ def measure_kernels(S: int, record: dict) -> dict:
                     a @ w, e, -1, torch.float32) * C
         library = time_ms(library_grad, iters)
         flops, nbytes = 2.0 * M * N * K, 4.0 * (M * K + K * N + 2 * M * N)
-        b, by = bound_ms(flops, nbytes)
         out[f"mmgrad_{chain}"] = dict(
             flops=flops, bytes=nbytes,
-            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+            max_abs_err=err, ms=ms, plain_ms=plain,
+            **tf32x3_bound(flops, nbytes),
             library_ms=library, device_ms=device_ms(
                 lambda: fused_matmul_grad(a, w, e, ew=tail), iters),
             ms_prepared_again=ms_again, ms_codes_each_call=ms_stages)
@@ -1276,11 +1393,26 @@ def check_slice(record: list) -> None:
                         ("wide 64x64x600", rn(64, 64), rn(64, 600))]:
         check(record, f"softmaxmm {name}", fused_softmax_matmul(sv, v),
               softmax_matmul_plain(sv, v), TOL["f32"])
+    # 64-column tiles walking several key tiles a split (the 64-column
+    # form that folds each key tile in), in both types.
+    for dtype, tol in [(torch.float32, TOL["f32_wide"]),
+                       (torch.bfloat16, TOL["bf16"])]:
+        sv, v = rn(4096, 1024).to(dtype), rn(1024, 64).to(dtype)
+        check(record, f"softmaxmm 4096x1024x64 {str(dtype)[6:]}",
+              fused_softmax_matmul(sv, v), softmax_matmul_plain(sv, v), tol)
+    # The route's shapes, each called twice (bit for bit the same), and
+    # each in bfloat16.
     for M, K, N in TAIL_SHAPES:
         sv, v = rn(M, K), rn(K, N)
-        check(record, f"softmaxmm route {M}x{K}x{N}",
-              fused_softmax_matmul(sv, v), softmax_matmul_plain(sv, v),
-              TOL["f32_wide"])
+        name = f"softmaxmm route {M}x{K}x{N}"
+        got, want = fused_softmax_matmul(sv, v), softmax_matmul_plain(sv, v)
+        check(record, name, got, want, TOL["f32_wide"])
+        same(record, name, got, fused_softmax_matmul(sv, v))
+        sv, v = sv.bfloat16(), v.bfloat16()
+        got = fused_softmax_matmul(sv, v)
+        check(record, f"{name} bf16", got, softmax_matmul_plain(sv, v),
+              TOL["bf16"])
+        same(record, f"{name} bf16", got, fused_softmax_matmul(sv, v))
     for M, N, K in [(128, 128, 128), (256, 128, 384), (128, 384, 256),
                     (512, 128, 128), (100, 130, 77)]:
         for dtype in (torch.float32, torch.bfloat16):
@@ -1359,13 +1491,20 @@ def measure_slice(record: dict) -> dict:
     for M, K, N in TAIL_SHAPES:
         sv = torch.randn(M, K, generator=g, device="cuda")
         vv = torch.randn(K, N, generator=g, device="cuda")
-        record_one(f"softmaxmm_{M}x{K}x{N}",
-                   lambda: fused_softmax_matmul(sv, vv),
+        name = f"softmaxmm_{M}x{K}x{N}"
+        record_one(name, lambda: fused_softmax_matmul(sv, vv),
                    lambda: softmax_matmul_plain(sv, vv),
                    lambda: torch.softmax(sv, -1) @ vv,
                    2.0 * M * K * N + 4.0 * M * K, 4.0 * (M * K + K * N + M * N),
                    max_err(fused_softmax_matmul(sv, vv),
                            softmax_matmul_plain(sv, vv)))
+        m = out[name]
+        m.update(tf32x3_bound(m["flops"], m["bytes"]))
+        exact = torch.softmax(sv.double(), -1) @ vv.double()
+        m["f64_err"] = float(
+            (fused_softmax_matmul(sv, vv).double() - exact).abs().max())
+        print(f"  {name:<28s} {bound_text(m)}; against float64 "
+              f"{m['f64_err']:.3e}")
     M, K, N = MM_SHAPE
     am = torch.randn(M, K, generator=g, device="cuda") / math.sqrt(K)
     bm = torch.randn(K, N, generator=g, device="cuda")
@@ -1564,9 +1703,15 @@ def main() -> int:
     record["ptxas"] = {}
     for lib in libs.values():
         lines = [line.strip() for line in lib.build_log.splitlines()
-                 if "registers" in line or "spill" in line]
+                 if "registers" in line or "spill" in line
+                 or "Compiling entry" in line]
         record["ptxas"][lib.source.name] = lines
         for line in lines:
+            # A kernel's mangled name from its name and first template
+            # arguments on: enough to tell the instantiations apart.
+            entry = re.search(r"[a-z_]+_kernel\w{0,28}", line)
+            if "Compiling entry" in line and entry:
+                line = f"entry {entry.group(0)}"
             print(f"  {lib.source.name}: {line}")
     record["build_s"] = build_s
 
@@ -1574,6 +1719,7 @@ def main() -> int:
     check_flash(record["checks"])
     check_chain(record["checks"])
     check_grad(record["checks"])
+    check_precision(record)
     check_conv(record["checks"])
     check_conv_precision(record)
     check_slice(record["checks"])
@@ -1633,8 +1779,7 @@ def main() -> int:
                 m = {k: sum(p[k] for p in parts) for k in
                      ("ms", "plain_ms", "library_ms", "flops", "bytes")}
                 m["max_abs_err"] = max(p["max_abs_err"] for p in parts)
-                m["bound_ms"], m["bound_by"] = bound_ms(m["flops"],
-                                                        m["bytes"])
+                m.update(tf32x3_bound(m["flops"], m["bytes"]))
                 launches = trains[S]["launches"]["mmgrad"]
             else:
                 m, launches = measured[S][key], runs[S]["launches"][key]

@@ -1,5 +1,5 @@
 // Fused backward matmul with its gradient epilogue, ew(a @ w, *extras), for
-// Hopper (sm_90a), float32 accumulation.
+// Hopper (sm_90a), float32 accumulation on the tensor cores.
 //
 // Replaces: repro/kernels/streamfuse/chain.py: fused_matmul_grad (the
 // pl.pallas_call kernel _grad_chain_kernel), routed as streamfuse.mmgrad.
@@ -13,42 +13,48 @@
 //
 // What bounds it on this card: on gpt2_block's backward the FFN chain is
 // (S, 1024) @ (1024, 4096) + gelu_grad and the attention chain (S, 1024) @
-// (1024, S) + softmax_grad + scale.  2·M·N·K flops on float32 CUDA cores
-// (no TF32: 67 TFLOP/s) against one read of w (16 MiB for the FFN): the
-// FFN chain is compute-bound (16 µs of flops at S = 128, 128 µs at
-// S = 1024), the attention chain too at S = 1024.  The TPU kernel holds w
-// whole and walks M in row blocks: 1–8 blocks at the route's M, and 16 MiB
-// is far beyond a block's 227 KB.
+// (1024, S) + softmax_grad + scale.  2·M·N·K flops against one read of w
+// (16 MiB for the FFN): at 165 TFLOP/s of float32-accurate work on the
+// TF32 tensor cores (three products a multiply) the FFN chain is
+// compute-bound (6.5 µs of flops at S = 128 against 6.4 µs of bytes, 52 µs
+// at S = 1024), the attention chain too at S = 1024.  The TPU kernel holds
+// w whole and walks M in row blocks: 1–8 blocks at the route's M, and
+// 16 MiB is far beyond a block's 227 KB.
 //
-// What the design does about it: the grid tiles the output into 64 × 128
-// tiles and, where that gives fewer than two blocks per SM (few rows),
-// splits K as well.  A block runs a register-tiled SIMT GEMM (8 × 8
-// outputs a thread, float4 shared-memory reads from padded, conflict-free
-// tiles), fetching the next stage's tiles into registers while the current
-// one computes; which threads fetch which elements follows each operand's
-// unit-stride dimension, so a transposed w is read coalesced.  With one
-// split and no softmax_grad, the whole tail runs in registers on the output
-// tile, reading the matching elements of each extra, and the output is
-// written once (one launch).  softmax_grad needs the dot of its whole row
-// (N up to S), and a split K needs its partial sums: then the first launch
-// writes float32 values (the tail applied up to the first softmax_grad),
-// and a second, one block a row, sums the splits in a fixed order, takes
-// each softmax_grad's row dot as a fixed-order block reduction and applies
-// the rest of the tail.  Results repeat bit for bit (no atomics).  Simple
-// CUDA-core FMAs; wgmma and TMA are later work.
+// What the design does about it: the grid tiles the output into 128 × 128
+// tiles and, where that leaves the card short of a wave (few rows), splits
+// K as well.  A block runs the tensor-core tile of mma_gemm.cuh — 8 warps
+// of 64 × 32 on mma.sync m16n8k8 TF32 with the 3×TF32 split, a
+// three-stage cp.async ring of 32-deep stages, w's tile kept by n when w
+// is a transposed view (every routed call) so that it is copied in
+// 16-byte vectors along k.  The accumulator then goes through shared
+// memory, and the epilogue walks the tile row by row, consecutive threads
+// on consecutive columns: with one split and no softmax_grad the whole
+// tail runs there, reading each extra through its strides, and the output
+// is written once (one launch).  softmax_grad needs the dot of its whole
+// row (N up to S), and a split K needs its partial sums: then the first
+// launch writes float32 values (the tail applied up to the first
+// softmax_grad), and a second, one block a row (or a row's 1024 columns
+// where no softmax_grad follows), sums the splits in a fixed order, takes
+// each softmax_grad's row dot as a fixed-order block reduction and
+// applies the rest of the tail.  Results repeat bit for bit (no
+// atomics).
 //
 // The tail arrives as op codes, two float attributes and an extra index per
-// stage (kernels/streamfuse/chain.py GRAD_CODES), never as a closure.
+// stage (kernels/streamfuse/chain.py GRAD_CODES), never as a closure; each
+// stage carries its extra's pointer and strides, and the kernels index the
+// stages by compile-time numbers only (a run-time index would put the
+// struct on the stack).
 
 #include <math.h>
 #include <stdint.h>
 
 #include "common.cuh"
-#include "gemm_tile.cuh"
+#include "mma_gemm.cuh"
 
 namespace {
 
-using namespace codo_gemm;
+using namespace codo_gemm_mma;
 
 constexpr int MAX_EW = 8;
 constexpr int ROW_THREADS = 256;
@@ -66,26 +72,25 @@ enum EwOp {
   kSoftmaxGrad = 9,  // e * (x - Σ_row x·e)
 };
 
-// The tail: per stage an op code, two attributes and the index of the
-// extra it reads (-1 for none); per extra a pointer and its two strides.
+// The tail: per stage an op code, two attributes, and the extra it reads
+// (pointer and element strides; nullptr for none).
 struct Tail {
   int n;
   int op[MAX_EW];
   float a[MAX_EW];
   float b[MAX_EW];
-  int ex[MAX_EW];
   const void* ptr[MAX_EW];
   long long sm[MAX_EW];
   long long sn[MAX_EW];
 };
 
+// Stage s's extra at (m, n); s a compile-time number where it is called
+// in an unrolled loop.
 template <typename T>
-__device__ __forceinline__ float extra_at(const Tail& t, int stage, int m,
-                                          int n) {
-  const int e = t.ex[stage];
-  if (e < 0) return 0.f;
-  const T* p = static_cast<const T*>(t.ptr[e]);
-  return codo::to_f32(p[(long long)m * t.sm[e] + (long long)n * t.sn[e]]);
+__device__ __forceinline__ float extra_at(const Tail& t, int s, int m, int n) {
+  const T* p = static_cast<const T*>(t.ptr[s]);
+  if (p == nullptr) return 0.f;
+  return codo::to_f32(p[(long long)m * t.sm[s] + (long long)n * t.sn[s]]);
 }
 
 // d/dx of the tanh gelu, in the order of the op registry's gelu_grad body:
@@ -128,43 +133,59 @@ __device__ __forceinline__ float apply_stage(float x, int op, float a, float b,
   }
 }
 
+// Stages [first, last) at element (m, n), each indexed by a compile-time
+// number.
+template <typename T>
+__device__ __forceinline__ float apply_stages(float v, const Tail& tail,
+                                              int first, int last, int m,
+                                              int n) {
+#pragma unroll
+  for (int s = 0; s < MAX_EW; ++s)
+    if (s >= first && s < last)
+      v = apply_stage(v, tail.op[s], tail.a[s], tail.b[s],
+                      extra_at<T>(tail, s, m, n));
+  return v;
+}
 
-// The tiled product of split blockIdx.z (contraction k in [z·per,
-// (z+1)·per)), then the first n_apply stages of the tail in registers.
-// write_out: write the output in T to dst (M, N); else write float32 values to
-// dst[z] of a (splits, M, N) buffer.
-template <typename T, bool A_K_FAST, bool W_N_FAST>
-__global__ void __launch_bounds__(THREADS)
-    grad_gemm_kernel(const T* __restrict__ a, long long sam, long long sak,
-                     const T* __restrict__ w, long long swk, long long swn,
-                     void* __restrict__ dst, int write_out, int M, int N, int K,
-                     int per, int n_apply, Tail tail) {
-  const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
+// The tile product of split blockIdx.z (contraction k in [z·per,
+// (z+1)·per)), then the first n_apply stages of the tail on the staged
+// tile.  write_out: write the output in T to dst (M, N); else write
+// float32 values to dst[z] of a (splits, M, N) buffer.
+template <typename T, bool W_BY_N>
+__global__ void __launch_bounds__(THREADS, 2)
+    grad_mma_kernel(const T* __restrict__ a, long long sam, long long sak,
+                    const T* __restrict__ w, long long swk, long long swn,
+                    void* __restrict__ dst, int write_out, int M, int N,
+                    int K, int per, int n_apply, Tail tail) {
+  extern __shared__ float4 smem4[];
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
   const int kb = blockIdx.z * per;
-  float acc[8][8] = {};
-  tile_product<T, A_K_FAST, W_N_FAST>(acc, a, sam, sak, w, swk, swn, M, N,
-                                      kb, min(K, kb + per), m0, n0);
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  tile_product<T, W_BY_N>(acc, a, sam, sak, w, swk, swn, M, N, kb,
+                          min(K, kb + per), m0, n0,
+                          reinterpret_cast<T*>(smem4));
+  float* c_s = reinterpret_cast<float*>(smem4);
+  stash_tile(acc, c_s);
 
   float* part = static_cast<float*>(dst) + (size_t)blockIdx.z * M * N;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int gm = m0 + tile_index(tr, i, BM / 2);
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int gn = n0 + tile_index(tc, j, BN / 2);
-      if (gn >= N) continue;
-      float v = acc[i][j];
-      for (int s = 0; s < n_apply; ++s)
-        v = apply_stage(v, tail.op[s], tail.a[s], tail.b[s],
-                        extra_at<T>(tail, s, gm, gn));
-      const size_t at = (size_t)gm * N + gn;
-      if (write_out)
-        static_cast<T*>(dst)[at] = codo::from_f32<T>(v);
-      else
-        part[at] = v;
-    }
+  const int rows = min(BM, M - m0), cols = min(BN, N - n0);
+  for (int i = threadIdx.x; i < BM * BN; i += THREADS) {
+    const int r = i / BN, c = i % BN;
+    if (r >= rows || c >= cols) continue;
+    const int gm = m0 + r, gn = n0 + c;
+    const float v = apply_stages<T>(c_s[r * C_LD + c], tail, 0, n_apply, gm,
+                                    gn);
+    const size_t at = (size_t)gm * N + gn;
+    if (write_out)
+      static_cast<T*>(dst)[at] = codo::from_f32<T>(v);
+    else
+      part[at] = v;
   }
 }
 
@@ -182,52 +203,68 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return s;
 }
 
-// One block a row: the split sums in order (stored back into split 0's
-// row), then from stage `start` on, segment by segment, each softmax_grad's
-// row dot and the elementwise stages up to the next one.  A thread always
-// owns the same columns, so rewriting the row in place is race-free.
+// Whether stage s (a run-time number) is a softmax_grad, by compile-time
+// indices.
+__device__ __forceinline__ bool is_softmax_grad(const Tail& tail, int s) {
+  bool r = false;
+#pragma unroll
+  for (int i = 0; i < MAX_EW; ++i)
+    if (i == s) r = tail.op[i] == kSoftmaxGrad;
+  return r;
+}
+
+template <typename T>
+__device__ __forceinline__ float extra_of(const Tail& tail, int s, int m,
+                                          int n) {
+  float r = 0.f;
+#pragma unroll
+  for (int i = 0; i < MAX_EW; ++i)
+    if (i == s) r = extra_at<T>(tail, i, m, n);
+  return r;
+}
+
+// Block (m, y) takes columns [y·cols, (y + 1)·cols) of row m (the whole
+// row, cols = N, when a softmax_grad follows): the split sums in order
+// (stored back into split 0's row), then from stage `start` on, segment by
+// segment, each softmax_grad's row dot and the elementwise stages up to
+// the next one.  A thread always owns the same columns, so rewriting the
+// row in place is race-free.
 template <typename T>
 __global__ void __launch_bounds__(ROW_THREADS)
     grad_rows_kernel(float* __restrict__ part, int splits, T* __restrict__ out,
-                     int M, int N, int start, Tail tail) {
+                     int M, int N, int cols, int start, Tail tail) {
   __shared__ float red[ROW_THREADS / 32];
   const int m = blockIdx.x;
+  const int n0 = blockIdx.y * cols, n1 = min(N, n0 + cols);
   const size_t mn = (size_t)M * N;
   float* row = part + (size_t)m * N;
   bool summed = false;  // row already holds the split sum
   int s = start;
   for (;;) {
-    const bool sg = s < tail.n && tail.op[s] == kSoftmaxGrad;
+    const bool sg = s < tail.n && is_softmax_grad(tail, s);
     float dot = 0.f;
     if (sg) {
       float acc = 0.f;
-      for (int n = threadIdx.x; n < N; n += ROW_THREADS) {
+      for (int n = n0 + threadIdx.x; n < n1; n += ROW_THREADS) {
         float v = row[n];
         if (!summed) {
           for (int z = 1; z < splits; ++z) v += row[z * mn + n];
           row[n] = v;
         }
-        acc += v * extra_at<T>(tail, s, m, n);
+        acc += v * extra_of<T>(tail, s, m, n);
       }
       summed = true;
       dot = block_sum(acc, red);
     }
     int e = s + (sg ? 1 : 0);
-    while (e < tail.n && tail.op[e] != kSoftmaxGrad) ++e;
+    while (e < tail.n && !is_softmax_grad(tail, e)) ++e;
     const bool last = e == tail.n;
-    for (int n = threadIdx.x; n < N; n += ROW_THREADS) {
+    for (int n = n0 + threadIdx.x; n < n1; n += ROW_THREADS) {
       float v = row[n];
       if (!summed)
         for (int z = 1; z < splits; ++z) v += row[z * mn + n];
-      int i = s;
-      if (sg) {
-        const float y = extra_at<T>(tail, i, m, n);
-        v = __fmul_rn(y, __fsub_rn(v, dot));
-        ++i;
-      }
-      for (; i < e; ++i)
-        v = apply_stage(v, tail.op[i], tail.a[i], tail.b[i],
-                        extra_at<T>(tail, i, m, n));
+      if (sg) v = __fmul_rn(extra_of<T>(tail, s, m, n), __fsub_rn(v, dot));
+      v = apply_stages<T>(v, tail, s + (sg ? 1 : 0), e, m, n);
       if (last)
         out[(size_t)m * N + n] = codo::from_f32<T>(v);
       else
@@ -239,35 +276,36 @@ __global__ void __launch_bounds__(ROW_THREADS)
   }
 }
 
-template <typename T, bool A_K_FAST, bool W_N_FAST>
+template <typename T, bool W_BY_N>
 int launch_gemm(const void* a, long long sam, long long sak, const void* w,
                 long long swk, long long swn, void* dst, int write_out, int M,
                 int N, int K, int per, int splits, int n_apply,
                 const Tail& tail, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<T, W_BY_N>();
+  cudaError_t err =
+      codo::set_smem<grad_mma_kernel<T, W_BY_N>>(smem);
+  if (err != cudaSuccess) return (int)err;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
-  grad_gemm_kernel<T, A_K_FAST, W_N_FAST><<<grid, THREADS, 0, stream>>>(
+  grad_mma_kernel<T, W_BY_N><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(a), sam, sak, static_cast<const T*>(w), swk, swn,
       dst, write_out, M, N, K, per, n_apply, tail);
   return (int)cudaGetLastError();
 }
 
+// w's tile by n unless w is N-contiguous (then by k, copied in vectors
+// along n).
 template <typename T>
 int launch_gemm_any(const void* a, long long sam, long long sak,
                     const void* w, long long swk, long long swn, void* dst,
                     int write_out, int M, int N, int K, int per, int splits,
                     int n_apply, const Tail& tail, cudaStream_t stream) {
-  auto* fn = &launch_gemm<T, false, false>;
-  if (sak == 1 && swn == 1)
-    fn = &launch_gemm<T, true, true>;
-  else if (sak == 1)
-    fn = &launch_gemm<T, true, false>;
-  else if (swn == 1)
-    fn = &launch_gemm<T, false, true>;
+  auto* fn = swn == 1 ? &launch_gemm<T, false> : &launch_gemm<T, true>;
   return fn(a, sam, sak, w, swk, swn, dst, write_out, M, N, K, per, splits,
             n_apply, tail, stream);
 }
 
-// The tail from the wrapper's arrays; false if it is not one the kernels
+// The tail from the wrapper's arrays (each stage's extra index resolved to
+// the extra's pointer and strides); false if it is not one the kernels
 // take.
 bool make_tail(Tail& t, int n_ew, const int* ops, const float* ea,
                const float* eb, const int* ex, int n_extras,
@@ -283,39 +321,40 @@ bool make_tail(Tail& t, int n_ew, const int* ops, const float* ea,
     t.op[i] = ops[i];
     t.a[i] = ea[i];
     t.b[i] = eb[i];
-    t.ex[i] = ex[i];
-  }
-  for (int e = 0; e < n_extras; ++e) {
-    t.ptr[e] = ptrs[e];
-    t.sm[e] = sm[e];
-    t.sn[e] = sn[e];
+    if (ex[i] >= 0) {
+      t.ptr[i] = ptrs[ex[i]];
+      t.sm[i] = sm[ex[i]];
+      t.sn[i] = sn[ex[i]];
+    }
   }
   return true;
 }
 
 }  // namespace
 
-// Launch grad_gemm_kernel over an (N/128, M/64, splits) grid; each split
-// covers `per` (a multiple of 8) of K.  write_out != 0: dst is the (M, N)
+// Launch grad_mma_kernel over an (N/128, M/128, splits) grid; each split
+// covers `per` (a multiple of 32) of K.  write_out != 0: dst is the (M, N)
 // output in the operands' type (then splits must be 1); else a float32
 // (splits, M, N) buffer for codo_matmul_grad_rows.  The first n_apply tail
-// stages run in registers (never a softmax_grad).  Returns
+// stages run in the epilogue (never a softmax_grad).  Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for arguments the kernel
 // does not take.
 extern "C" int codo_matmul_grad(int dtype, const void* a, long long sam,
                                 long long sak, const void* w, long long swk,
                                 long long swn, void* dst, int write_out, int M,
                                 int N, int K, int per, int splits, int n_apply,
-                                int n_ew, const int* ew_ops, const float* ew_a,
-                                const float* ew_b, const int* ew_extra,
-                                int n_extras, const void* const* extras,
+                                int n_ew, const int* ew_ops,
+                                const float* ew_a, const float* ew_b,
+                                const int* ew_extra, int n_extras,
+                                const void* const* extras,
                                 const long long* extra_sm,
                                 const long long* extra_sn, void* stream) {
   Tail tail;
   if (!make_tail(tail, n_ew, ew_ops, ew_a, ew_b, ew_extra, n_extras, extras,
                  extra_sm, extra_sn) ||
-      per <= 0 || per % BKK != 0 || splits <= 0 || (write_out && splits != 1) ||
-      n_apply < 0 || n_apply > n_ew)
+      M <= 0 || N <= 0 || K <= 0 || per <= 0 || per % BK != 0 ||
+      splits <= 0 || splits > 65535 || (M + BM - 1) / BM > 65535 ||
+      (write_out && splits != 1) || n_apply < 0 || n_apply > n_ew)
     return (int)cudaErrorInvalidValue;
   for (int i = 0; i < n_apply; ++i)
     if (tail.op[i] == kSoftmaxGrad) return (int)cudaErrorInvalidValue;
@@ -326,9 +365,10 @@ extern "C" int codo_matmul_grad(int dtype, const void* a, long long sam,
             n_apply, tail, s);
 }
 
-// Launch grad_rows_kernel, one block a row: part is the float32 (splits, M,
-// N) buffer codo_matmul_grad wrote (its split 0 is rewritten), out the (M,
-// N) output; tail stages from `start` on are applied.
+// Launch grad_rows_kernel, one block a row, or a row's 1024-column chunk
+// where no softmax_grad follows `start`: part is the float32 (splits, M, N)
+// buffer codo_matmul_grad wrote (its split 0 is rewritten), out the (M, N)
+// output; tail stages from `start` on are applied.
 extern "C" int codo_matmul_grad_rows(int dtype, void* part, int splits,
                                      void* out, int M, int N, int start,
                                      int n_ew, const int* ew_ops,
@@ -344,11 +384,15 @@ extern "C" int codo_matmul_grad_rows(int dtype, void* part, int splits,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(part);
+  bool whole = false;
+  for (int i = start; i < n_ew; ++i) whole |= tail.op[i] == kSoftmaxGrad;
+  const int cols = whole ? N : 4 * ROW_THREADS;
+  const dim3 grid(M, (N + cols - 1) / cols);
   if (dtype == codo::kBF16)
-    grad_rows_kernel<__nv_bfloat16><<<M, ROW_THREADS, 0, s>>>(
-        p, splits, static_cast<__nv_bfloat16*>(out), M, N, start, tail);
+    grad_rows_kernel<__nv_bfloat16><<<grid, ROW_THREADS, 0, s>>>(
+        p, splits, static_cast<__nv_bfloat16*>(out), M, N, cols, start, tail);
   else
-    grad_rows_kernel<float><<<M, ROW_THREADS, 0, s>>>(
-        p, splits, static_cast<float*>(out), M, N, start, tail);
+    grad_rows_kernel<float><<<grid, ROW_THREADS, 0, s>>>(
+        p, splits, static_cast<float*>(out), M, N, cols, start, tail);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 // Tensor-core pieces shared by the port's redesigned kernels (chain.cu,
-// flashattn.cu): the m16n8k8 TF32 mma.sync, the 3×TF32 split that keeps a
-// float32 product float32-accurate on it, and cp.async copies.
+// flashattn.cu, softmax_mm.cu, and chain_grad.cu through mma_gemm.cuh):
+// the m16n8k8 TF32 mma.sync, the 3×TF32 split that keeps a float32 product
+// float32-accurate on it, and cp.async copies.
 //
 // 3×TF32: x = hi + lo with hi = tf32(x) and lo = x − hi, which the tensor
 // cores read truncated to TF32; a·b is taken as lo_a·hi_b + hi_a·lo_b +
@@ -122,6 +123,13 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// Wait until at most N committed groups are still in flight (a ring of
+// N + 2 stages waits for the oldest).
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 

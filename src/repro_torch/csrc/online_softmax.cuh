@@ -1,11 +1,9 @@
 // The online softmax shared by the port's attention kernels (flashattn.cu,
-// softmax_mm.cu): one key tile of a row folded into the row's running max
-// and denominator — by a warp (online_softmax_step, softmax_mm.cu) or by
-// the quads of lanes that hold the row in mma accumulators (quad_max and
-// quad_sum, flashattn.cu) — and a second kernel that combines key splits
-// in a fixed order.  Both take the max, exponentiate and correct in the
-// same order, so a routed attention tail and the full attention chain
-// round alike.
+// softmax_mm.cu): a key tile of a row folded into the row's running max
+// and denominator by the quad of lanes that holds the row in mma.sync
+// fragments (quad_max, quad_sum), and a second kernel that combines key
+// splits in a fixed order.  Both kernels take the max, exponentiate and
+// correct in the same order.
 #pragma once
 
 #include <math.h>
@@ -21,37 +19,8 @@ struct Strides {
   long long b, h, s, d;
 };
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// One key tile of one row, held by a warp two scores a lane (x): folds
-// the tile into the running max m and denominator l, turns x into the
-// tile's probabilities exp(x - m_new), and returns exp(m - m_new), the
-// correction of the row's accumulator.
-__device__ __forceinline__ float online_softmax_step(float (&x)[2], float& m,
-                                                     float& l) {
-  const float m_new = fmaxf(m, warp_max(fmaxf(x[0], x[1])));
-  x[0] = expf(x[0] - m_new);
-  x[1] = expf(x[1] - m_new);
-  const float corr = expf(m - m_new);
-  l = l * corr + warp_sum(x[0] + x[1]);
-  m = m_new;
-  return corr;
-}
-
 // Max and sum over the quad of lanes (4·g .. 4·g + 3) that holds one row
-// of an mma.sync m16n8 accumulator.
+// of an mma.sync m16n8 accumulator or m16k8 A fragment.
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));

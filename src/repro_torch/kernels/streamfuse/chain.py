@@ -316,19 +316,52 @@ _SOFTMAX_GRAD = GRAD_CODES["softmax_grad"][0]
 # One stage of a gradient tail: (kind, attrs, index of its extra or None).
 GradStage = tuple[str, dict, "int | None"]
 
-# Tile constants of csrc/chain_grad.cu: a (GRAD_BM x GRAD_BN) output tile a
-# block, and the least contraction depth a K split gets.  At 168 registers
-# a thread, three 4-warp blocks are resident on an SM.
-GRAD_BM, GRAD_BN = 64, 128
-_GRAD_BKK = 8                     # contraction depth of one stage
+# Tile constants of csrc/chain_grad.cu (csrc/mma_gemm.cuh): a (GRAD_BM x
+# GRAD_BN) output tile a block of 8 warps on the tensor cores, two blocks
+# resident on a SM, the contraction in 32-deep stages, and the least depth
+# a K split gets.
+GRAD_BM, GRAD_BN = 128, 128
+_GRAD_STAGE = 32
 _MIN_K_SPLIT = 64
-_GRAD_SLOTS = 3 * NUM_SMS
-# The split choice's cost model (float32, H100): split partial sums cost
-# a write and a read each at 3.35 TB/s, and one wave of resident blocks
-# advances one k in about 0.254 us — the FFN chain at S=1024 in
-# chip_smoke.py takes 0.38 ms for 4 waves of 344 k plus 30 us of sums.
-_WAVE_K_US = 0.254
+# The split choice's cost model (float32, NVIDIA H100 80GB HBM3, fitted to
+# chip_smoke.py's route shapes): a block costs _GRAD_BLOCK_US besides its
+# k steps; one block alone on a SM advances one k in _GRAD_K_US[0] µs, two
+# co-resident blocks one k each in _GRAD_K_US[1]; split partial sums cost
+# a write and a read each at 3.35 TB/s.
+_GRAD_BLOCK_US = 8.0
+_GRAD_K_US = (0.10, 0.18)
 _BYTES_PER_US = 3.35e6
+
+
+def tile_splits(M: int, N: int, K: int, *, tile: tuple[int, int],
+                stage: int, cost) -> tuple[int, int]:
+    """(splits, depth of each) of a tiled product's contraction, each
+    depth a whole number of ``stage``-deep stages and at least 64 when
+    split.  Few output tiles leave most of the card idle, and a tile count
+    just past a whole number of waves leaves the last wave short: the
+    choice minimises ``cost(blocks, depth)`` (µs) plus the traffic of the
+    split partial sums."""
+    tiles = -(-M // tile[0]) * -(-N // tile[1])
+    best = None
+    for want in range(1, max(1, K // _MIN_K_SPLIT) + 1):
+        depth = -(-K // want)
+        per = stage * -(-depth // stage)
+        splits = -(-K // per)
+        total = cost(tiles * splits, per)
+        if splits > 1:
+            total += 8.0 * splits * M * N / _BYTES_PER_US
+        if best is None or total < best[0]:
+            best = (total, splits, per)
+    return best[1], best[2]
+
+
+def _grad_cost(blocks: int, per: int) -> float:
+    """µs of the grad kernel's product: the busiest SM's blocks, two at a
+    time, each costing a fixed part and its k steps."""
+    pairs, single = divmod(-(-blocks // NUM_SMS), 2)
+    return ((pairs + single) * _GRAD_BLOCK_US
+            + per * (pairs * _GRAD_K_US[1] + single * _GRAD_K_US[0]))
+
 
 GRAD_LIBRARY = CudaLibrary("chain_grad.cu", {
     "codo_matmul_grad": [INT, PTR, INT64, INT64, PTR, INT64, INT64, PTR,
@@ -370,25 +403,11 @@ def grad_ew_codes(ew, n_extras: int):
 
 @functools.lru_cache(maxsize=256)
 def k_splits(M: int, N: int, K: int) -> tuple[int, int]:
-    """(splits, depth of each) of the contraction, each depth a whole
-    number of 8-deep stages and at least 64 when split.  Few output tiles
-    leave most of the card idle (the FFN chain at S=128 has 64 tiles for
-    396 block slots), and a tile count just past a whole number of waves
-    leaves the last wave short: the choice minimises waves times depth
-    plus the traffic of the split partial sums."""
-    tiles = -(-M // GRAD_BM) * -(-N // GRAD_BN)
-    best = None
-    for want in range(1, max(1, K // _MIN_K_SPLIT) + 1):
-        depth = -(-K // want)
-        per = _GRAD_BKK * -(-depth // _GRAD_BKK)
-        splits = -(-K // per)
-        waves = -(-tiles * splits // _GRAD_SLOTS)
-        cost = waves * per * _WAVE_K_US
-        if splits > 1:
-            cost += 8.0 * splits * M * N / _BYTES_PER_US
-        if best is None or cost < best[0]:
-            best = (cost, splits, per)
-    return best[1], best[2]
+    """(splits, depth of each) of :func:`fused_matmul_grad`'s contraction
+    (:func:`tile_splits` for its tile): the FFN chain at S=128 has 32
+    output tiles for the card's 132 SMs."""
+    return tile_splits(M, N, K, tile=(GRAD_BM, GRAD_BN), stage=_GRAD_STAGE,
+                       cost=_grad_cost)
 
 
 def grad_one_pass(M: int, N: int, K: int, ew) -> bool:
@@ -462,13 +481,15 @@ def fused_matmul_grad(a, w, *extras, ew: "Sequence[GradStage] | GradTail"):
     (on the CPU).  ``ew`` is the stages, or a :class:`GradTail` built from
     them once.
 
-    On the card: the tiled product over an (N/128, M/64, splits) grid,
-    the tail's leading elementwise stages applied in registers on the
-    output tile.  A ``softmax_grad`` needs its row's whole dot, and a split
-    contraction its partial sums: then the first launch writes float32
-    values and a second, one block a row, sums the splits in order, takes
-    each ``softmax_grad``'s row dot as a fixed-order block reduction and
-    applies the rest of the tail.  Deterministic; no atomics."""
+    On the card: the tensor-core tile product (mma.sync, 3×TF32 in
+    float32) over an (N/128, M/128, splits) grid, the tail's leading
+    elementwise stages applied in the epilogue.  A ``softmax_grad`` needs
+    its row's whole dot, and a split contraction its partial sums: then
+    the first launch writes float32 values and a second, one block a row
+    (or a row's 1024 columns where no ``softmax_grad`` follows), sums the
+    splits in order, takes each ``softmax_grad``'s row dot as a
+    fixed-order block reduction and applies the rest of the tail.
+    Deterministic; no atomics."""
     import torch
     _check_grad(a, w, extras)
     tail = ew if isinstance(ew, GradTail) else GradTail(ew, len(extras))
@@ -529,10 +550,11 @@ def matmul_grad_plain(a, w, *extras, ew: Sequence[GradStage]):
 # softmax -> matmul (online-softmax attention tail)
 # --------------------------------------------------------------------------
 
-# Tile constants of csrc/softmax_mm.cu: 16 rows a block, 64-key tiles of
-# s, V streamed 8 keys at a time, up to 4 × 64 output columns a block.
-SM_BQ, SM_BK, SM_BKV, SM_MAX_NC = 16, 64, 8, 4
-_SM_TARGET_BLOCKS = 2 * NUM_SMS          # two blocks per SM
+# Tile constants of csrc/softmax_mm.cu: 64 rows a block (4 warps of 16),
+# 64-key tiles of s and V, 64 or 128 output columns a block; three blocks
+# a SM at 64 columns, two at 128 (registers: the accumulator and, where a
+# block walks several key tiles, a tile's fresh fragment).
+SM_BQ, SM_BK = 64, 64
 
 SOFTMAX_LIBRARY = CudaLibrary("softmax_mm.cu", {
     "codo_softmax_matmul": [INT, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT,
@@ -542,26 +564,28 @@ SOFTMAX_LIBRARY = CudaLibrary("softmax_mm.cu", {
 
 
 def softmax_mm_columns(N: int) -> int:
-    """Output columns a block owns: 64, 128 or 256 (wider N is tiled over
-    the grid, each column tile recomputing the same row statistics)."""
-    nc = 1
-    while nc < SM_MAX_NC and 64 * nc < N:
-        nc *= 2
-    return 64 * nc
+    """Output columns a block owns: 64, or 128 above 64 (wider N is tiled
+    over the grid, each column tile recomputing the same row
+    statistics)."""
+    return 64 if N <= 64 else 128
 
 
 def softmax_mm_smem_bytes(N: int) -> int:
-    """Shared memory of one block: the probability tile, its row
-    corrections and denominators, and one V chunk."""
-    return 4 * (SM_BQ * SM_BK + 2 * SM_BQ + SM_BKV * softmax_mm_columns(N))
+    """Shared memory of one block: two buffers, each a 64 × 64 tile of s
+    and a 64-key tile of V, rows padded by 16 and 32 bytes (float32
+    sizes)."""
+    bn = softmax_mm_columns(N)
+    return 2 * (SM_BQ * (4 * SM_BK + 16) + SM_BK * (4 * bn + 32))
 
 
 def softmax_mm_splits(M: int, K: int, N: int) -> tuple[int, int]:
-    """(splits, key tiles per split) of the contraction: enough splits that
-    the grid reaches two blocks per SM, no more than there are tiles."""
+    """(splits, key tiles per split) of the contraction: as many splits as
+    keep the grid within one wave of resident blocks, no more than there
+    are tiles."""
     tiles = -(-K // SM_BK)
     blocks = -(-M // SM_BQ) * -(-N // softmax_mm_columns(N))
-    splits = min(tiles, max(1, -(-_SM_TARGET_BLOCKS // blocks)))
+    slots = NUM_SMS * (3 if softmax_mm_columns(N) == 64 else 2)
+    splits = min(tiles, max(1, slots // blocks))
     per = -(-tiles // splits)
     return -(-tiles // per), per
 
@@ -585,9 +609,12 @@ def _check_softmax_mm(s, v):
 def fused_softmax_matmul(s, v):
     """``softmax(s, -1) @ v``: s (M, K), v (K, N), output in s's type.
 
-    On the card: blocks of 16 rows × up to 256 output columns × one split
+    On the card: blocks of 64 rows × 64 or 128 output columns × one split
     of the key tiles, the online softmax (running max from −1e30, running
-    denominator, float32 accumulator) in registers; with one split the
+    denominator, float32 accumulator) on registers and P·V on the tensor
+    cores (mma.sync, 3×TF32 in float32), each key tile's P·V folded into
+    the accumulator by round-to-nearest FMAs where a block walks several
+    key tiles.  With one split the
     block writes ``acc / max(l, 1e-30)`` (one launch), else each split
     writes its unnormalized accumulator with its max and denominator and a
     second kernel combines the splits in a fixed order.  Operands are read
@@ -642,4 +669,4 @@ __all__ = ["ChainTail", "EW_CODES", "GRAD_CODES", "GRAD_KINDS", "GRAD_LIBRARY",
            "matmul_grad_plain", "row_columns", "row_splits",
            "rows_smem_bytes", "softmax_matmul_plain", "softmax_mm_columns",
            "softmax_mm_launches", "softmax_mm_smem_bytes",
-           "softmax_mm_splits"]
+           "softmax_mm_splits", "tile_splits"]

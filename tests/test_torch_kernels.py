@@ -390,6 +390,116 @@ def test_three_tf32_products_keep_float32_accuracy(M, K, N):
     assert np.abs(one - exact).max() > band
 
 
+def _gelu_grad(h, x):
+    """h · gelu'(x), the tanh gelu's derivative as the op registry writes
+    it."""
+    c = np.sqrt(2.0 / np.pi)
+    t = np.tanh(c * (x + 0.044715 * x ** 3))
+    return h * (0.5 * (1 + t) + 0.5 * x * (1 - t * t) * c
+                * (1 + 3 * 0.044715 * x * x))
+
+
+def _mm(x, y):
+    """x @ y in x's type without BLAS (whose thread pool makes small
+    products slow on a busy host)."""
+    return np.einsum("mk,kn->mn", x, y)
+
+
+def _three_tf32(a, w):
+    """a @ w as the kernels' three TF32 products, summed in float32."""
+    a_hi, w_hi = _tf32(a), _tf32(w)
+    a_lo, w_lo = _tf32_read(a - a_hi), _tf32_read(w - w_hi)
+    return (_mm(a_lo, w_hi) + _mm(a_hi, w_lo)) + _mm(a_hi, w_hi)
+
+
+@pytest.mark.parametrize("case", ["softmax_pv", "mmgrad_gelu_grad"])
+def test_three_tf32_products_at_the_redesigned_kernels(case):
+    """The 3×TF32 premise at the shapes of this port's two newest tensor-
+    core kernels: rows of a softmax over K = 2048 keys against V (2048,
+    256) (fused_softmax_matmul at a RecurrentGemma-9B head), and the
+    mmgrad FFN product at K = 1024 followed by gelu_grad.  Three products
+    stay within a tenth of the card's route band (1e-4·(1 + scale)) and
+    gain at least ten times over one TF32 product."""
+    rng = np.random.default_rng(1)
+    if case == "softmax_pv":
+        s = rng.standard_normal((4, 2048))
+        p = np.exp(s - s.max(-1, keepdims=True))
+        a = (p / p.sum(-1, keepdims=True)).astype(np.float32)
+        w = rng.standard_normal((2048, 256)).astype(np.float32)
+        tail = (lambda h: h)
+    else:
+        a = rng.standard_normal((4, 1024)).astype(np.float32)
+        w = (rng.standard_normal((1024, 1024)) / 32).astype(np.float32)
+        x = rng.standard_normal((4, 1024))
+        tail = (lambda h: _gelu_grad(h, x))
+    exact = tail(_mm(a.astype(np.float64), w.astype(np.float64)))
+    three = tail(_three_tf32(a, w).astype(np.float64))
+    one = tail(_mm(_tf32(a), _tf32(w)).astype(np.float64))
+    band = 1e-4 * (1 + np.abs(exact).max())
+    err3, err1 = np.abs(three - exact).max(), np.abs(one - exact).max()
+    assert err3 <= band / 10
+    assert err1 >= 10 * err3
+
+
+def _round_toward_zero(x64):
+    """float64 values to float32 rounded toward zero: the tensor cores'
+    float32 accumulation as this emulation models it."""
+    f = x64.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(x64)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+def _accumulate(a, w, rnd, block=0):
+    """The three TF32 products summed in the kernels' k order (8-deep
+    steps, the small terms first, each step's 8-term dot exact and rounded
+    once into the accumulator by ``rnd``, one mma).  block > 0: each
+    block-deep stretch into a fresh accumulator, added into a float32 one
+    with round-to-nearest (the promotion)."""
+    a_hi, w_hi = _tf32(a), _tf32(w)
+    a_lo, w_lo = _tf32_read(a - a_hi), _tf32_read(w - w_hi)
+    run = np.zeros((a.shape[0], w.shape[1]), np.float32)
+    cur = run.copy()
+    for k in range(0, a.shape[1], 8):
+        for x, y in ((a_lo, w_hi), (a_hi, w_lo), (a_hi, w_hi)):
+            cur = rnd(cur.astype(np.float64) + _mm(
+                x[:, k:k + 8].astype(np.float64),
+                y[k:k + 8].astype(np.float64)))
+        if block and (k + 8) % block == 0:
+            run, cur = run + cur, np.zeros_like(cur)
+    return run if block else cur
+
+
+@pytest.mark.parametrize("case,block", [("mmgrad", 8), ("softmax_pv", 64)])
+def test_promotion_bounds_a_truncating_accumulator(case, block):
+    """Part of the 3×TF32 error is the tensor cores' own float32
+    accumulation, which rounds each mma's sum toward zero in this model
+    (it reproduces the card's reading: ~10× the round-to-nearest error at
+    K = 1024, chip_smoke.py's precision phase).  Promoting each block-deep
+    stretch into a float32 accumulator by round-to-nearest adds — every
+    8-deep step at mmgrad's FFN product (the trial in PERF.md §6, which
+    mmgrad does not keep), every 64-key tile in softmaxmm, which does —
+    takes the error back to the round-to-nearest level."""
+    rng = np.random.default_rng(2)
+    if case == "mmgrad":
+        a = rng.standard_normal((4, 1024)).astype(np.float32)
+        w = (rng.standard_normal((1024, 256)) / 32).astype(np.float32)
+    else:                       # unnormalized probabilities, as accumulated
+        s = 2 * rng.standard_normal((4, 2048))
+        a = np.exp(s - s.max(-1, keepdims=True)).astype(np.float32)
+        w = rng.standard_normal((2048, 256)).astype(np.float32)
+    exact = _mm(a.astype(np.float64), w.astype(np.float64))
+
+    def err(x):
+        return np.abs(x - exact).max()
+
+    nearest = err(_accumulate(a, w, lambda x: x.astype(np.float32)))
+    truncated = err(_accumulate(a, w, _round_toward_zero))
+    promoted = err(_accumulate(a, w, _round_toward_zero, block))
+    assert truncated >= 5 * nearest
+    assert promoted <= 2 * nearest
+
+
 def test_chain_rejects_bad_operands():
     with pytest.raises(ValueError, match="chain"):
         fused_matmul_chain(torch.zeros(4, 3), torch.zeros(4, 5),
@@ -508,14 +618,16 @@ def test_grad_codes_cover_every_tail_kind():
 
 
 @pytest.mark.parametrize("M,N,K,want", [
-    (128, 4096, 1024, 6), (1024, 4096, 1024, 3), (128, 128, 1024, 16),
-    (1024, 1024, 1024, 3), (37, 130, 50, 1), (8, 8, 4096, 64), (4, 4, 3, 1)])
+    (128, 4096, 1024, 4), (1024, 4096, 1024, 1), (128, 128, 1024, 16),
+    (1024, 1024, 1024, 4), (37, 130, 50, 1), (8, 8, 4096, 64), (4, 4, 3, 1)])
 def test_grad_splits_cover_k_and_fill_the_card(M, N, K, want):
-    """The route's shapes split K: too few output tiles for the card's
-    396 block slots (S=128), or a last wave left short (S=1024)."""
+    """The route's shapes split K where the 128 x 128 tiles are too few
+    for the card's 132 SMs (the FFN chain at S=128 has 32, the attention
+    chain at S=1024 64), and the FFN chain at S=1024 (256 tiles, two a
+    SM) does not split."""
     splits, per = k_splits(M, N, K)
     assert splits == want
-    assert per % 8 == 0 and (splits - 1) * per < K <= splits * per
+    assert per % 32 == 0 and (splits - 1) * per < K <= splits * per
     assert splits == 1 or per >= 64
 
 
@@ -527,7 +639,7 @@ def test_grad_launch_count_per_call():
     assert grad_launches(37, 130, 50, gelu) == 1
     assert grad_launches(37, 130, 50, soft) == 2
     assert grad_launches(128, 4096, 1024, gelu) == 2     # split K
-    assert grad_launches(1024, 4096, 1024, gelu) == 2
+    assert grad_launches(1024, 4096, 1024, gelu) == 1
     assert grad_launches(128, 128, 1024, soft) == 2
     assert grad_one_pass(37, 130, 50, gelu)
     assert not grad_one_pass(128, 4096, 1024, gelu)
@@ -630,17 +742,18 @@ def test_softmax_mm_plain_takes_ragged_and_strided_operands():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **_tol(False))
 
 
-@pytest.mark.parametrize("M,K,N,splits", [(1024, 1024, 64, 4),
-                                          (2048, 2048, 256, 3),
+@pytest.mark.parametrize("M,K,N,splits", [(1024, 1024, 64, 16),
+                                          (2048, 2048, 256, 4),
                                           (64, 64, 600, 1), (16, 50, 8, 1)])
 def test_softmax_mm_splits_cover_every_tile(M, K, N, splits):
-    """The route shapes split the keys to fill the card (64 and 128 row
-    blocks), every key tile in exactly one split, and wide N is tiled."""
+    """The route shapes split the keys to fill one wave of the card (16
+    and 64 blocks of 64 rows), every key tile in exactly one split, and
+    wide N is tiled."""
     got, per = softmax_mm_splits(M, K, N)
     tiles = -(-K // 64)
     assert got == splits and per * (got - 1) < tiles <= per * got
     assert softmax_mm_launches(M, K, N) == (1 if got == 1 else 2)
-    assert softmax_mm_columns(N) == min(256, max(64, 1 << (N - 1).bit_length()))
+    assert softmax_mm_columns(N) == (64 if N <= 64 else 128)
     assert common.smem_ok(softmax_mm_smem_bytes(N))
 
 
