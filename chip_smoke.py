@@ -12,19 +12,23 @@ problem:
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every kernel of the port from ``src/repro_torch/csrc`` (eight
    sources, one ``nvcc`` each, all started together) and prints the time
-   and each kernel's name, registers and spills;
+   and each kernel's name, registers and spills, and the tensor-core
+   (HMMA) instructions in the SASS of the six tensor-core libraries;
 3. holds each kernel against its plain PyTorch version on the card, at
    the kernel sweep's shapes and at the paths' own (flash also at hd 256
-   and 1024, mmchain also at 1 to 16 rows; flash, mmchain, mmgrad and
-   softmaxmm called twice, bit for bit the same; mmgrad and softmaxmm
-   with either accumulation and in bfloat16 at a route shape), printing
-   the max error beside its stated tolerance, and times kernel, plain
-   version, bound and a library yardstick, and takes each kernel's
-   profiled device time over the same calls; splits the tensor-core
-   kernels' 3×TF32 error against float64 into the split's, the order's
-   and the accumulation's shares, cuBLAS float32 beside them (the
-   precision phase); shows that the generic ``conv2d`` body is full
-   float32 on the card with cuDNN's TF32 flag at its default;
+   and 1024, mmchain also at 1 to 16 rows; flash, mmchain, mmgrad,
+   softmaxmm, the conv and matmul at their route shapes called twice, bit
+   for bit the same, and in bfloat16), printing the max error beside its
+   stated tolerance, and times kernel, plain version, bound and a library
+   yardstick, and takes each kernel's profiled device time over the same
+   calls; splits the tensor-core kernels' 3×TF32 error against float64
+   into the split's, the order's and the accumulation's shares, cuBLAS
+   or cuDNN float32 beside them (the precision phase: the chain's FFN
+   product, mmgrad's, flash's with q = 0, and the conv's at the deepest
+   route of each of its two tiles, the wide one also as one split of the
+   whole window); shows that
+   the generic ``conv2d`` body is full float32 on the card with cuDNN's
+   TF32 flag at its default;
 4. drives the serving path — ``codo_torch.compile(gpt2_block_fn, (S,
    1024))`` with the default cost gate, distinct seeded weights bound
    through ``params_from_numpy`` — at S=128 and S=1024: four requests
@@ -84,10 +88,11 @@ REQUESTS = 4
 TRAIN_STEPS = 4
 SEED = 0
 # Published peaks of one H100 SXM (data sheet): float32 outside the tensor
-# cores, and device memory bandwidth: each kernel's bound.  Flash and the
-# large-M mmchain form run a float32 product as three TF32 products on the
-# tensor cores (495 TFLOP/s of TF32, so 165 of float32-accurate work):
-# their bound is at that rate, the float32 CUDA-core one kept beside it.
+# cores, and device memory bandwidth: each kernel's bound.  Flash, the
+# large-M mmchain form, mmgrad, softmaxmm, the conv and matmul run a
+# float32 product as three TF32 products on the tensor cores (495 TFLOP/s
+# of TF32, so 165 of float32-accurate work): their bound is at that rate,
+# the float32 CUDA-core one kept beside it.
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32X3_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12
@@ -190,6 +195,38 @@ def all_libraries() -> dict:
             "conv": streamfuse.CONV_LIBRARY,
             "softmaxmm": streamfuse.SOFTMAX_LIBRARY, "rglru": rglru.LIBRARY,
             "ssd": ssd.LIBRARY, "matmul": matmul.LIBRARY}
+
+
+# The libraries whose kernels run mma.sync on the tensor cores.
+TENSOR_CORE_LIBS = ("flash", "mmchain", "mmgrad", "softmaxmm", "conv",
+                    "matmul")
+
+
+def tensor_core_sass(libs: dict) -> dict:
+    """The tensor-core instructions (HMMA, by form) in each built
+    tensor-core library's SASS, read with cuobjdump beside nvcc; failing
+    if a library has none, or if the toolkit has no cuobjdump to read
+    them with."""
+    from collections import Counter
+
+    from repro_torch.kernels import common
+    tool = Path(common._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        fail(f"no cuobjdump beside nvcc ({tool}): the tensor-core "
+             f"instructions of the kernels cannot be read")
+    out = {}
+    for key in TENSOR_CORE_LIBS:
+        sass = subprocess.run([str(tool), "-sass", str(libs[key].path)],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        ops = Counter(re.findall(r"\b(HMMA\.[\w.]+)", sass))
+        out[libs[key].source.name] = dict(ops)
+        print(f"SASS {libs[key].source.name}: "
+              f"{', '.join(f'{k} x{v}' for k, v in sorted(ops.items()))}")
+        if not ops:
+            fail(f"{libs[key].source.name}: no tensor-core (HMMA) "
+                 f"instruction in its SASS")
+    return out
 
 
 def zero_counts() -> None:
@@ -526,19 +563,24 @@ def _tf32_parts(x):
     return hi, lo
 
 
-def _rn_in_kernel_order(a_hi, a_lo, w_hi, w_lo):
+def _rn_in_kernel_order(a_hi, a_lo, w_hi, w_lo, per: int = 0):
     """The three TF32 products summed in float32 with round-to-nearest in
     the kernels' k order: 8-deep steps, three products a step, the small
     terms first, each step's 8-term dot exact and rounded once into the
-    accumulator (one mma)."""
+    accumulator (one mma).  per > 0: each per-deep split of k into an
+    accumulator of its own, the splits then summed in order."""
     import torch
-    acc = torch.zeros(a_hi.shape[0], w_hi.shape[1], dtype=torch.float32,
-                      device=a_hi.device)
-    for k in range(0, a_hi.shape[1], 8):
-        for x, y in ((a_lo, w_hi), (a_hi, w_lo), (a_hi, w_hi)):
-            p = x[:, k:k + 8].double() @ y[k:k + 8].double()
-            acc = (acc.double() + p).float()
-    return acc
+    K = a_hi.shape[1]
+    total = None
+    for k0 in range(0, K, per or K):
+        acc = torch.zeros(a_hi.shape[0], w_hi.shape[1], dtype=torch.float32,
+                          device=a_hi.device)
+        for k in range(k0, min(K, k0 + (per or K)), 8):
+            for x, y in ((a_lo, w_hi), (a_hi, w_lo), (a_hi, w_hi)):
+                p = x[:, k:k + 8].double() @ y[k:k + 8].double()
+                acc = (acc.double() + p).float()
+        total = acc if total is None else total + acc
+    return total
 
 
 def check_precision(record: dict) -> None:
@@ -608,7 +650,131 @@ def check_precision(record: dict) -> None:
             print(f"    (the product with I rounds at most "
                   f"{m['identity_pass']:.3e}; mma_gemm.cuh's tile on these "
                   f"operands: accumulation {m['accumulation_mma_gemm']:.3e})")
+    out["flash_q0"] = _flash_precision(g, err)
+    out["conv"] = _conv_precision(g, err)
     record["precision"] = out
+
+
+def _flash_precision(g, err) -> dict:
+    """flash_attention's own tensor-core accumulation at gpt2_block's route
+    (one head, hd 1024, S = 1024): with q = 0 every score is 0, P is
+    exactly 1 and l exactly S, so the output is the mean of v summed on the
+    tensor cores in flash's key order (64-key tiles of 8-deep steps, each
+    key split apart, the splits combined in order).  Shares as the
+    chain's, on the output: the split (v's hi + lo in float64), the order
+    (float32 round-to-nearest in that order) and the accumulation (the
+    kernel's output against the order)."""
+    import torch
+    from repro_torch.kernels.flashattn import flash_attention
+    from repro_torch.kernels.flashattn.flashattn import key_splits
+    S = SEQS[1]
+    q, k, v = flash_route_operands(S, g)
+    q = torch.zeros_like(q)
+    got = flash_attention(q, k, v, causal=False, window=0, scale=C)[0, 0]
+    v2 = v[0, 0]
+    splits, tiles = key_splits(S, S, 1, D_MODEL)
+    exact = v2.double().mean(0, keepdim=True)
+    v_hi, v_lo = _tf32_parts(v2)
+    ones = torch.ones(1, S, device="cuda")
+    split = (v_hi.double() + v_lo.double()).mean(0, keepdim=True)
+    order = _rn_in_kernel_order(ones, torch.zeros_like(ones), v_hi, v_lo,
+                                per=64 * tiles) * (1.0 / S)
+    m = {"shape": [S, S, D_MODEL], "kernel": "flashattn.cu",
+         "key_splits": splits, "keys_per_split": 64 * tiles,
+         "scale": float(exact.abs().max()), "split": err(split, exact),
+         "order": err(order, split), "accumulation": err(got, order),
+         "kernel_vs_exact": err(got, exact)}
+    print(f"  precision flash q=0 {S}x{S}x{D_MODEL} (output = mean of v, "
+          f"scale {m['scale']:.4f}; {splits} key splits of {64 * tiles}), "
+          f"max abs error:")
+    print(f"    split {m['split']:.3e}, order {m['order']:.3e}, accumulation "
+          f"(flash's tensor cores) {m['accumulation']:.3e}, kernel vs exact "
+          f"{m['kernel_vs_exact']:.3e}")
+    return m
+
+
+def _conv_precision(g, err) -> dict:
+    """fused_pad_conv_relu's own accumulation at the deepest route of each
+    of its tiles, as a GEMM of w (CO, C·9) and the unfolded window (C·9,
+    N·H·W), on ReLU'd outputs (the ReLU maps each error to at most
+    itself): the split and order shares as above (the order split as the
+    call splits the window), the kernel's accumulation against the order,
+    cuDNN float32 beside them.  The wide tile (the tensor cores
+    accumulating each split) at VGG-16's 512 -> 512 x 28², and again
+    launched as one split of the whole 4608-deep window, the depth its
+    plan never takes (CONV_WIDE_DEPTH); the narrow tile (each stage
+    promoted) at ResNet-18's 64 -> 64 x 56² at N = 8, one split 576
+    deep."""
+    out = {}
+    for key, (N, C_, CO, H) in [("vgg16_512x28", (1, 512, 512, 28)),
+                                ("resnet18_n8_64x56", (8, 64, 64, 56))]:
+        out[key] = _conv_shares(g, err, N, C_, CO, H)
+    return out
+
+
+def _conv_shares(g, err, N, C_, CO, H) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.ops import full_f32_convolutions
+    from repro_torch.kernels.common import dtype_code, stream_of
+    from repro_torch.kernels.streamfuse import (CONV_LIBRARY,
+                                                fused_pad_conv_relu)
+    from repro_torch.kernels.streamfuse.streamfuse import (conv_splits,
+                                                           conv_tile_rows)
+    x, w = conv_operands(N, C_, H, H, CO, 3, g)
+    a = w.reshape(CO, -1)
+    win = F.unfold(x, 3, padding=1).permute(1, 0, 2).reshape(C_ * 9, -1)
+    splits, per = conv_splits(tuple(x.shape), tuple(w.shape))
+    rows = conv_tile_rows(CO)
+
+    def nchw(y):            # (N, CO, H, W) -> (CO, N·H·W), the GEMM's order
+        return y.reshape(N, CO, -1).permute(1, 0, 2).reshape(CO, -1)
+
+    exact = torch.relu(a.double() @ win.double())
+    (a_hi, a_lo), (w_hi, w_lo) = _tf32_parts(a), _tf32_parts(win)
+    split = torch.relu((a_lo.double() @ w_hi.double())
+                       + (a_hi.double() @ w_lo.double())
+                       + (a_hi.double() @ w_hi.double()))
+    order = torch.relu(_rn_in_kernel_order(a_hi, a_lo, w_hi, w_lo, per=per))
+    with full_f32_convolutions():
+        cudnn = nchw(torch.relu(F.conv2d(x, w, padding=1)))
+    got = nchw(fused_pad_conv_relu(x, w))
+    m = {"shape": [CO, C_ * 9, N * H * H], "N": N, "kernel": "pad_conv_relu.cu",
+         "tile_rows": rows, "promoted": rows == 64, "splits": splits,
+         "per": per, "scale": float(exact.abs().max()),
+         "split": err(split, exact), "order": err(order, split),
+         "accumulation": err(got, order), "kernel_vs_exact": err(got, exact),
+         "cudnn_f32": err(cudnn, exact)}
+    m["kernel_vs_exact_rel"] = m["kernel_vs_exact"] / m["scale"]
+    print(f"  precision conv N={N} {C_}x{H}x{H}->{CO} as "
+          f"{'x'.join(map(str, m['shape']))} ({rows}-channel tile, "
+          f"{'each stage promoted' if m['promoted'] else 'tensor cores alone'}"
+          f"; {splits} splits of {per}; output scale {m['scale']:.3f}), max "
+          f"abs error:")
+    print(f"    split {m['split']:.3e}, order {m['order']:.3e}, accumulation "
+          f"{m['accumulation']:.3e}; kernel vs exact "
+          f"{m['kernel_vs_exact']:.3e} ({m['kernel_vs_exact_rel']:.2e} of "
+          f"scale); cuDNN float32 {m['cudnn_f32']:.3e}")
+    if splits > 1 and rows == 128:
+        # The whole window as one split: the wide tile's error at a depth
+        # its plan does not take.
+        depth = C_ * 9
+        one = torch.empty((N, CO, H, H), dtype=x.dtype, device=x.device)
+        CONV_LIBRARY.launch("codo_pad_conv_relu", dtype_code(x), x.data_ptr(),
+                            w.data_ptr(), one.data_ptr(), N, C_, H, H, CO, 3,
+                            rows, depth, 1, 1, stream_of(x))
+        one = nchw(one)
+        order1 = torch.relu(_rn_in_kernel_order(a_hi, a_lo, w_hi, w_lo))
+        m.update({"one_split_order": err(order1, split),
+                  "one_split_accumulation": err(one, order1),
+                  "one_split_kernel_vs_exact": err(one, exact)})
+        m["one_split_kernel_vs_exact_rel"] = (m["one_split_kernel_vs_exact"]
+                                              / m["scale"])
+        print(f"    one split of {depth}: order {m['one_split_order']:.3e}, "
+              f"accumulation {m['one_split_accumulation']:.3e}; kernel vs "
+              f"exact {m['one_split_kernel_vs_exact']:.3e} "
+              f"({m['one_split_kernel_vs_exact_rel']:.2e} of scale)")
+    return m
 
 
 def conv_operands(N, C, H, W, CO, K, g, dtype=None):
@@ -638,9 +804,10 @@ def check_scaled(record: list, name: str, got, want, tol: float) -> float:
 
 def check_conv(record: list) -> None:
     """fused_pad_conv_relu against pad_conv_relu_plain: the reference
-    sweep's shapes in float32 and bfloat16, ragged shapes, ResNet-18's
-    route shapes at N = 1 and 8 and VGG-16's at N = 1; and VGG-16's
-    one-row mmchain head."""
+    sweep's shapes in float32 and bfloat16, ragged shapes (K = 5 and 7 also
+    in bfloat16), ResNet-18's route shapes at N = 1 and 8 and VGG-16's at
+    N = 1, each called twice (bit for bit the same) and in bfloat16; and
+    VGG-16's one-row mmchain head."""
     import torch
     from repro_torch.kernels.streamfuse import (fused_matmul_chain,
                                                 fused_pad_conv_relu,
@@ -651,9 +818,10 @@ def check_conv(record: list) -> None:
     ragged = [(1, 3, 9, 7, 5, 7), (2, 3, 5, 13, 6, 5), (2, 5, 17, 30, 70, 3),
               (3, 3, 31, 29, 9, 5)]
     for shape in sweep + ragged:
+        both = shape in sweep or shape[-1] in (5, 7)
         for dtype, tol in ([(torch.float32, CONV_TOL),
                             (torch.bfloat16, TOL["bf16"])]
-                           if shape in sweep else [(torch.float32, CONV_TOL)]):
+                           if both else [(torch.float32, CONV_TOL)]):
             x, w = conv_operands(*shape, g, dtype)
             check(record, f"conv {'x'.join(map(str, shape))} "
                   f"{str(dtype)[6:]}", fused_pad_conv_relu(x, w),
@@ -663,9 +831,14 @@ def check_conv(record: list) -> None:
                              (1, VGG_ROUTES, "vgg16")]:
         for C, CO, H in sorted(set(routes)):
             x, w = conv_operands(N, C, H, H, CO, 3, g)
-            check_scaled(record, f"conv route {model} {N}x{C}x{H}x{H}->{CO}",
-                         fused_pad_conv_relu(x, w), pad_conv_relu_plain(x, w),
+            name = f"conv route {model} {N}x{C}x{H}x{H}->{CO}"
+            got = fused_pad_conv_relu(x, w)
+            check_scaled(record, name, got, pad_conv_relu_plain(x, w),
                          CONV_TOL)
+            same(record, name, got, fused_pad_conv_relu(x, w))
+            x, w = x.bfloat16(), w.bfloat16()
+            check(record, f"{name} bf16", fused_pad_conv_relu(x, w),
+                  pad_conv_relu_plain(x, w), TOL["bf16"])
     M, K, N1, N2 = VGG_HEAD
     a = torch.randn(M, K, generator=g, device="cuda")
     w1 = torch.randn(K, N1, generator=g, device="cuda") / math.sqrt(K)
@@ -705,13 +878,17 @@ def check_conv_precision(record: dict) -> None:
 
 def measure_conv(N: int, routes, record: dict) -> dict:
     """The conv kernel at one request's route shapes: kernel, plain and
-    cuDNN (full float32) times, profiled device time, bound and max
-    error; each summed over the request's chains (a shape that repeats is
-    timed once and counted each time)."""
+    cuDNN (full float32) times, profiled device time, the bounds (3×TF32,
+    float32 beside it) and max error; each summed over the request's chains (a
+    shape that repeats is timed once and counted each time).  At N = 1,
+    where a call is host-bound, an in-turns host A/B of the kept launch
+    plan against the plan searched each call."""
     import torch
     from repro_torch.core.ops import full_f32_convolutions
     from repro_torch.kernels.streamfuse import (fused_pad_conv_relu,
                                                 pad_conv_relu_plain)
+    from repro_torch.kernels.streamfuse.streamfuse import (conv_splits,
+                                                           conv_tile_rows)
     g = torch.Generator(device="cuda").manual_seed(SEED + 6 + N)
     keys = ("ms", "plain_ms", "library_ms", "device_ms", "flops", "bytes")
     total = dict.fromkeys(keys, 0.0)
@@ -730,21 +907,39 @@ def measure_conv(N: int, routes, record: dict) -> dict:
                              lambda: fused_pad_conv_relu(x, w), iters)
         m = {"ms": ms, "plain_ms": plain, "library_ms": time_ms(library, iters),
              "device_ms": device_ms(lambda: fused_pad_conv_relu(x, w), iters),
+             "tile_rows": conv_tile_rows(CO),
+             "splits": conv_splits(tuple(x.shape), tuple(w.shape)),
              "flops": 2.0 * N * H * H * CO * C * 9,
              "bytes": 4.0 * (N * C * H * H + CO * C * 9 + N * CO * H * H)}
-        m["bound_ms"], m["bound_by"] = bound_ms(m["flops"], m["bytes"])
+        m.update(tf32x3_bound(m["flops"], m["bytes"]))
         shapes.append({"N": N, "C": C, "CO": CO, "H": H, "count": count,
                        "max_abs_err": err, **m})
         for k in keys:
             total[k] += count * m[k]
         total["max_abs_err"] = max(total["max_abs_err"], err)
-        print(f"  N={N} conv {C}x{H}x{H}->{CO} (x{count}): kernel "
-              f"{ms:.4f} ms (device {m['device_ms']:.4f})  plain {plain:.4f}"
-              f"  cuDNN {m['library_ms']:.4f}  bound {m['bound_ms']:.4f} "
-              f"({m['bound_by']})")
-    total["bound_ms"], total["bound_by"] = bound_ms(total["flops"],
-                                                    total["bytes"])
+        print(f"  N={N} conv {C}x{H}x{H}->{CO} (x{count}, {m['tile_rows']}-"
+              f"channel tile, {m['splits'][0]} splits of {m['splits'][1]}): "
+              f"kernel {ms:.4f} ms (device {m['device_ms']:.4f})  plain "
+              f"{plain:.4f}  cuDNN {m['library_ms']:.4f}  {bound_text(m)}")
+    total.update(tf32x3_bound(total["flops"], total["bytes"]))
     total["shapes"] = shapes
+    if N == 1:
+        C, CO, H = routes[-1]
+        x, w = conv_operands(N, C, H, H, CO, 3, g)
+
+        def plan_each_call():
+            conv_splits.cache_clear()
+            return fused_pad_conv_relu(x, w)
+
+        kept, searched = in_turns(plan_each_call,
+                                  lambda: fused_pad_conv_relu(x, w), 50)
+        total["host_ab"] = {"shape": [C, CO, H], "kept_plan_ms": kept,
+                            "plan_each_call_ms": searched}
+        print(f"  N=1 conv {C}x{H}x{H}->{CO} host A/B: kept plan {kept:.4f} "
+              f"ms, plan searched each call {searched:.4f} ms a call")
+    print(f"  N={N} request's conv chains: kernel {total['ms']:.4f} ms (device"
+          f" {total['device_ms']:.4f})  cuDNN {total['library_ms']:.4f}  "
+          f"{bound_text(total)}")
     return total
 
 
@@ -1110,11 +1305,12 @@ def main_path(S: int, record: dict) -> dict:
 
 def device_rows(run) -> list:
     """Device time by kernel name over one call of ``run`` (torch.profiler;
-    a second try when the first records no device activity)."""
+    up to three more tries when one records no device activity, which the
+    card's tracing does now and then)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     rows: list = []
-    for _ in range(2):
+    for _ in range(4):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             run()
@@ -1346,7 +1542,8 @@ def check_slice(record: list) -> None:
     their plain versions: the reference sweep's shapes, ragged edges and
     the route shapes; rglru also across chunk lengths, the tail with a
     transposed s and N wider than a block's columns, matmul in bfloat16
-    and against torch.matmul."""
+    and against torch.matmul, its route shape twice (bit for bit the
+    same) and in bfloat16."""
     import torch
     from repro_torch.kernels.matmul import matmul_plain, mm
     from repro_torch.kernels.rglru import rglru_scan, rglru_scan_plain
@@ -1423,10 +1620,15 @@ def check_slice(record: list) -> None:
     M, K, N = MM_SHAPE
     a, b = rn(M, K) / math.sqrt(K), rn(K, N)
     got = mm(a, b)
-    check(record, f"matmul route {M}x{K}x{N}", got, matmul_plain(a, b),
+    name = f"matmul route {M}x{K}x{N}"
+    check(record, name, got, matmul_plain(a, b), MM_TOL["f32"])
+    check(record, f"{name} vs torch.matmul", got, torch.matmul(a, b),
           MM_TOL["f32"])
-    check(record, f"matmul route {M}x{K}x{N} vs torch.matmul", got,
-          torch.matmul(a, b), MM_TOL["f32"])
+    same(record, name, got, mm(a, b))
+    a, b = a.bfloat16(), b.bfloat16()
+    got = mm(a, b)
+    check(record, f"{name} bf16", got, matmul_plain(a, b), MM_TOL["bf16"])
+    same(record, f"{name} bf16", got, mm(a, b))
 
 
 def measure_slice(record: dict) -> dict:
@@ -1512,6 +1714,11 @@ def measure_slice(record: dict) -> dict:
                lambda: torch.matmul(am, bm), 2.0 * M * N * K,
                4.0 * (M * K + K * N + M * N),
                max_err(mm(am, bm), matmul_plain(am, bm)))
+    m = out["matmul"]
+    m.update(tf32x3_bound(m["flops"], m["bytes"]))
+    m["vs_library"] = m["ms"] / m["library_ms"]
+    print(f"  {'matmul':<28s} {bound_text(m)}; {m['vs_library']:.2f}x "
+          f"torch.matmul")
     return out
 
 
@@ -1708,12 +1915,17 @@ def main() -> int:
         record["ptxas"][lib.source.name] = lines
         for line in lines:
             # A kernel's mangled name from its name and first template
-            # arguments on: enough to tell the instantiations apart.
-            entry = re.search(r"[a-z_]+_kernel\w{0,28}", line)
+            # arguments on: enough to tell the instantiations apart (the
+            # conv's tile shape spelled out, its promotion flag after it).
+            line = re.sub(r"N13codo_gemm_mma9TileShapeI((?:Li\d+E)+)EE",
+                          lambda m: "<" + ",".join(re.findall(
+                              r"Li(\d+)E", m.group(1))) + ">", line)
+            entry = re.search(r"[a-z_]+_kernel[\w<>,]{0,40}", line)
             if "Compiling entry" in line and entry:
                 line = f"entry {entry.group(0)}"
             print(f"  {lib.source.name}: {line}")
     record["build_s"] = build_s
+    record["sass_mma"] = tensor_core_sass(libs)
 
     print("kernels against their plain versions:")
     check_flash(record["checks"])

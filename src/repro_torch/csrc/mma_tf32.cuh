@@ -1,5 +1,6 @@
 // Tensor-core pieces shared by the port's redesigned kernels (chain.cu,
-// flashattn.cu, softmax_mm.cu, and chain_grad.cu through mma_gemm.cuh):
+// flashattn.cu, softmax_mm.cu, and chain_grad.cu, matmul.cu and
+// pad_conv_relu.cu through mma_gemm.cuh):
 // the m16n8k8 TF32 mma.sync, the 3×TF32 split that keeps a float32 product
 // float32-accurate on it, and cp.async copies.
 //

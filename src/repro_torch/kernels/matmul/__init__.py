@@ -1,5 +1,6 @@
-from .matmul import LIBRARY, matmul, matmul_plain
+from .matmul import LIBRARY, matmul, matmul_grid, matmul_plain
 from .ops import mm
 from .ref import matmul_ref
 
-__all__ = ["LIBRARY", "matmul", "matmul_plain", "matmul_ref", "mm"]
+__all__ = ["LIBRARY", "matmul", "matmul_grid", "matmul_plain", "matmul_ref",
+           "mm"]

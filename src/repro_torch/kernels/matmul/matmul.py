@@ -8,8 +8,9 @@ the last k step.  :func:`matmul` keeps the TPU function's contract — a
 accumulation, output in a's type — and drops its divisibility assert:
 ragged edges are masked.
 
-Tensors on the card launch ``csrc/matmul.cu`` (one launch a call: 64 ×
-128 output tiles, the accumulator in registers); tensors on the CPU run
+Tensors on the card launch ``csrc/matmul.cu`` (one launch a call: 128 ×
+128 output tiles on the tensor cores, mma.sync 3×TF32 in float32, the
+accumulator in registers until it is written); tensors on the CPU run
 :func:`matmul_plain`.
 """
 
@@ -17,12 +18,18 @@ from __future__ import annotations
 
 from ..common import INT, PTR, CudaLibrary, dtype_code, on_card, stream_of
 
-# Output tile of csrc/matmul.cu.
-BM, BN = 64, 128
+# Output tile of csrc/matmul.cu (csrc/mma_gemm.cuh's 128 × 128 tile).
+BM, BN = 128, 128
 
 LIBRARY = CudaLibrary("matmul.cu", {
     "codo_matmul": [INT, PTR, PTR, PTR, INT, INT, INT, PTR],
 })
+
+
+def matmul_grid(M: int, N: int) -> tuple[int, int]:
+    """The kernel's grid, (column tiles, row tiles): one block a BM × BN
+    output tile, the last row and column of tiles masked."""
+    return -(-N // BN), -(-M // BM)
 
 
 def _check(a, b):
@@ -59,4 +66,4 @@ def matmul_plain(a, b):
     return (a.float() @ b.float()).to(a.dtype)
 
 
-__all__ = ["BM", "BN", "LIBRARY", "matmul", "matmul_plain"]
+__all__ = ["BM", "BN", "LIBRARY", "matmul", "matmul_grid", "matmul_plain"]

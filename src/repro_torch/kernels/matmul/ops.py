@@ -3,10 +3,10 @@
 plain version for tensors on the CPU, or the oracle on request.
 
 ``block_m``, ``block_n`` and ``block_k`` are the TPU kernel's VMEM tile.
-The Hopper kernel's tile is fixed (64 × 128 outputs, 8-deep k stages, the
-accumulator in registers) and masks ragged edges, so the blocks choose
-nothing here; they are checked and kept so a caller of the reference's
-``mm`` runs unchanged.  No routing pattern reaches this kernel, as in the
+The Hopper kernel's tile is fixed (128 × 128 outputs on the tensor cores,
+32-deep k stages, the accumulator in registers) and masks ragged edges,
+so the blocks choose nothing here; they are checked and kept so a caller
+of the reference's ``mm`` runs unchanged.  No routing pattern reaches this kernel, as in the
 reference.
 """
 

@@ -10,15 +10,23 @@ x's type.  The padded input is never written: the kernel reads x through
 masked loads.
 
 Tensors on the card launch ``csrc/pad_conv_relu.cu``: an implicit GEMM,
-output channels × pixels (N·H·W) over the window C·K·K, in 64 × 128
-tiles of float32 FMAs; when the tiles are too few to fill the card the
-window is split (the rule :func:`~.chain.tile_splits`, at this kernel's
-tile, block and stage depth) and a second launch sums the splits in a
-fixed order and applies the ReLU.  Deterministic; no atomics.
-Tensors on the CPU run the plain version, :func:`pad_conv_relu_plain`.
+output channels × pixels (N·H·W) over the window C·K·K, on the tensor
+cores (mma.sync 3×TF32) in tiles of 128 pixels by 64 channels for layers
+of up to 64 channels (each 32-deep stage promoted into the float32
+accumulator by round-to-nearest adds) or by 128 for wider ones (the
+tensor cores accumulate, each split of the window at most
+``CONV_WIDE_DEPTH`` deep).  When the tiles are too few to fill the card
+the window is split (the rule :func:`~.chain.tile_splits`, at the tile,
+stage depth and fitted cost) and a second launch sums the splits in a
+fixed order and applies the ReLU.  Deterministic; no atomics.  The
+launch plan is kept per shape.  Tensors on the CPU run the plain
+version, :func:`pad_conv_relu_plain`.
 """
 
 from __future__ import annotations
+
+import functools
+import math
 
 from ..common import (INT, NUM_SMS, PTR, CudaLibrary, dtype_code, on_card,
                       stream_of)
@@ -26,37 +34,55 @@ from .chain import tile_splits
 
 LIBRARY = CudaLibrary("pad_conv_relu.cu", {
     "codo_pad_conv_relu": [INT, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT,
-                           INT, INT, INT, PTR],
+                           INT, INT, INT, INT, PTR],
     "codo_pad_conv_relu_reduce": [INT, PTR, PTR, INT, INT, INT, INT, PTR],
 })
 
 
-# The split rule's constants for csrc/pad_conv_relu.cu (gemm_tile.cuh): a
-# 64 × 128 output tile a 128-thread block, 8-deep stages, three blocks a
-# SM, and one wave of them advancing one k in about 0.254 µs (measured on
-# an H100 with the same tile).
-_CONV_TILE, _CONV_STAGE, _CONV_SLOTS, _CONV_WAVE_K_US = ((64, 128), 8,
-                                                         3 * NUM_SMS, 0.254)
+# csrc/pad_conv_relu.cu's tiles (NarrowTile, WideTile there): CONV_BN
+# pixels by 64 or 128 output channels a block, the window in CONV_STAGE-
+# deep stages, two blocks resident on a SM.
+CONV_BN, CONV_STAGE = 128, 32
+# The wide tile's splits of the window are at most this deep: its tensor
+# cores accumulate a split whole, and their error grows with its depth.
+CONV_WIDE_DEPTH = 512
+# The split rule's cost model (float32, NVIDIA H100 80GB HBM3, fitted to
+# the split counts that ran fastest at ResNet-18's and VGG-16's route
+# shapes, both tiles): the busiest SM's blocks run two at a time, a k
+# taking _CONV_K_US[0] µs for a block alone on its SM, [1] for two.
+_CONV_K_US = (0.12, 0.20)
 
 
+def conv_tile_rows(CO: int) -> int:
+    """Output channels a block: 64 for a layer of up to 64 channels (the
+    kernel promotes each stage), else 128."""
+    return 64 if CO <= 64 else 128
+
+
+@functools.lru_cache(maxsize=1024)
 def conv_splits(x_shape, w_shape) -> tuple[int, int]:
-    """(splits, depth of each) of the C·K·K window for this call."""
+    """(splits, depth of each) of the C·K·K window for this call, kept per
+    shape: the search below runs once a route."""
     N, C, H, W = x_shape
     CO, _, K, _ = w_shape
-    return tile_splits(CO, N * H * W, C * K * K, tile=_CONV_TILE,
-                       stage=_CONV_STAGE, cost=_conv_cost)
+    rows = conv_tile_rows(CO)
 
+    def cost(blocks: int, per: int) -> float:
+        """µs of the product; a wide split past CONV_WIDE_DEPTH is not
+        taken."""
+        if rows == 128 and per > CONV_WIDE_DEPTH:
+            return math.inf
+        pairs, single = divmod(-(-blocks // NUM_SMS), 2)
+        return per * (pairs * _CONV_K_US[1] + single * _CONV_K_US[0])
 
-def _conv_cost(blocks: int, per: int) -> float:
-    """µs of the conv kernel's product: waves of resident blocks times
-    their depth."""
-    return -(-blocks // _CONV_SLOTS) * per * _CONV_WAVE_K_US
+    return tile_splits(CO, N * H * W, C * K * K, tile=(rows, CONV_BN),
+                       stage=CONV_STAGE, cost=cost)
 
 
 def conv_launches(x_shape, w_shape) -> int:
     """Kernel launches of one :func:`fused_pad_conv_relu` call: the tiled
     product, and the split sum when the window is split."""
-    return 1 if conv_splits(x_shape, w_shape)[0] == 1 else 2
+    return 1 if conv_splits(tuple(x_shape), tuple(w_shape))[0] == 1 else 2
 
 
 def _check(x, w):
@@ -86,15 +112,16 @@ def fused_pad_conv_relu(x, w):
                          f"OIHW w; got strides {x.stride()}, {w.stride()}")
     N, C, H, W = x.shape
     CO, K = w.shape[0], w.shape[-1]
-    splits, per = conv_splits(x.shape, w.shape)
+    splits, per = conv_splits((N, C, H, W), (CO, C, K, K))
     out = torch.empty((N, CO, H, W), dtype=x.dtype, device=x.device)
     dst = out if splits == 1 else torch.empty(
         (splits, CO, N * H * W), dtype=torch.float32, device=x.device)
     code, stream = dtype_code(x), stream_of(x)
     with torch.cuda.device(x.device):
         LIBRARY.launch("codo_pad_conv_relu", code, x.data_ptr(), w.data_ptr(),
-                       dst.data_ptr(), N, C, H, W, CO, K, per, splits,
-                       int(splits == 1), stream)
+                       dst.data_ptr(), N, C, H, W, CO, K,
+                       conv_tile_rows(CO), per, splits, int(splits == 1),
+                       stream)
         if splits > 1:
             LIBRARY.launch("codo_pad_conv_relu_reduce", code, dst.data_ptr(),
                            out.data_ptr(), splits, CO, N, H * W, stream)
@@ -118,5 +145,6 @@ def pad_conv_relu_plain(x, w):
     return torch.relu(acc).reshape(N, CO, H, W).to(x.dtype)
 
 
-__all__ = ["LIBRARY", "conv_launches", "conv_splits", "fused_pad_conv_relu",
-           "pad_conv_relu_plain"]
+__all__ = ["CONV_BN", "CONV_STAGE", "CONV_WIDE_DEPTH", "LIBRARY",
+           "conv_launches", "conv_splits", "conv_tile_rows",
+           "fused_pad_conv_relu", "pad_conv_relu_plain"]

@@ -38,8 +38,10 @@ from repro_torch.kernels.streamfuse import (CONV_LIBRARY,  # noqa: E402
                                             fused_pad_conv_relu,
                                             pad_conv_relu_plain,
                                             pad_conv_relu_ref)
+from repro_torch.kernels import common  # noqa: E402
 from repro_torch.kernels.streamfuse.streamfuse import (  # noqa: E402
-    conv_launches, conv_splits)
+    CONV_BN, CONV_STAGE, CONV_WIDE_DEPTH, conv_launches, conv_splits,
+    conv_tile_rows)
 from repro_torch.models import dataflow_models as dm  # noqa: E402
 
 CONV_TOL = dict(rtol=1e-4, atol=1e-4)      # the reference sweep's band
@@ -113,16 +115,81 @@ def test_conv_rejects_bad_operands():
 @pytest.mark.parametrize("N", [1, 8])
 @pytest.mark.parametrize("C,H", RESNET_ROUTES[1:])
 def test_conv_splits_cover_the_window(N, C, H):
-    """The window splits into whole 8-deep stages, none empty, and the
-    deep stages at N = 1 (few 64 x 128 tiles) split to fill the card."""
+    """The window splits into whole 32-deep stages, none empty; the deep
+    stages at N = 1 (few tiles of 128 pixels by 64 or 128 channels) split
+    until their blocks cover at least two thirds of the card's SMs (the
+    fitted cost can prefer one block on each of fewer SMs to two on some);
+    the 128-channel tile's splits are at most CONV_WIDE_DEPTH deep."""
     shape_x, shape_w = (N, C, H, H), (C, C, 3, 3)
     splits, per = conv_splits(shape_x, shape_w)
     depth = C * 9
-    assert per % 8 == 0 and per * (splits - 1) < depth <= per * splits
-    tiles = -(-C // 64) * -(-N * H * H // 128)
+    assert per % CONV_STAGE == 0 and CONV_STAGE == 32
+    assert per * (splits - 1) < depth <= per * splits
+    rows = conv_tile_rows(C)
+    assert rows == (64 if C == 64 else 128) and CONV_BN == 128
+    if rows == 128:
+        assert per <= CONV_WIDE_DEPTH == 512
+    tiles = -(-C // rows) * -(-N * H * H // CONV_BN)
     if N == 1:
-        assert tiles * splits >= 132
+        assert tiles * splits >= 2 * 132 // 3
     assert conv_launches(shape_x, shape_w) == (1 if splits == 1 else 2)
+
+
+# Every routed chain of ResNet-18 and VGG-16 at 224 x 224, (C, CO, H = W).
+ROUTE_SHAPES = sorted({(C, C, H) for C, H in RESNET_ROUTES} | {
+    (3, 64, 224), (64, 64, 224), (64, 128, 112), (128, 128, 112),
+    (128, 256, 56), (256, 256, 56), (256, 512, 28), (512, 512, 28),
+    (512, 512, 14)})
+
+
+def _cu_tiles():
+    """pad_conv_relu.cu's two tiles as the source declares them, by
+    output channels a block: (BM, BN, WM, WN, STAGES), and the stage depth
+    BK of mma_gemm.cuh."""
+    import re
+    src = (common.CSRC / "pad_conv_relu.cu").read_text()
+    tiles = {}
+    for name in ("NarrowTile", "WideTile"):
+        decl = re.search(rf"using {name} = TileShape<([\d, ]+)>;", src)
+        shape = tuple(int(v) for v in decl.group(1).split(","))
+        tiles[shape[0]] = shape
+    bk = re.search(r"constexpr int BK = (\d+);",
+                   (common.CSRC / "mma_gemm.cuh").read_text())
+    return tiles, int(bk.group(1))
+
+
+@pytest.mark.parametrize("C,CO,H", ROUTE_SHAPES)
+def test_conv_tile_fits_two_blocks_and_rows_are_vectors(C, CO, H):
+    """The tile the wrapper picks for the route is one pad_conv_relu.cu
+    declares, of 128 pixels and 8 warps.  In float32 and bfloat16 two of
+    its blocks fit a SM's shared memory (each also reserves 1 KB: the
+    three-stage ring of the weight and window tiles, both kept k-minor,
+    or the float32 output tile after it), and every row of both tiles is
+    whole 16-byte vectors (cp.async, ldmatrix), as the source's
+    static_assert demands when it builds; the route's window splits into
+    whole 32-deep stages."""
+    tiles, bk = _cu_tiles()
+    rows = conv_tile_rows(CO)
+    BM, BN, WM, WN, stages = tiles[rows]
+    assert (BN, bk) == (CONV_BN, CONV_STAGE)
+    assert 32 * (BM // WM) * (BN // WN) == 256
+    for itemsize in (4, 2):
+        ld = bk + 16 // itemsize                 # mma_gemm.cuh k_ld
+        smem = max(itemsize * stages * (BM + BN) * ld, 4 * BM * (BN + 8))
+        assert 2 * (smem + 1024) <= common.SMEM_PER_SM
+        assert ld * itemsize % 16 == 0
+    splits, per = conv_splits((1, C, H, H), (CO, C, 3, 3))
+    assert per % CONV_STAGE == 0 and (splits - 1) * per < C * 9
+
+
+def test_conv_plan_is_kept_per_shape():
+    """The launch plan's search runs once a shape: a second call of the
+    same route is a cache hit."""
+    conv_splits.cache_clear()
+    conv_launches((1, 512, 7, 7), (512, 512, 3, 3))
+    conv_launches(torch.Size((1, 512, 7, 7)), (512, 512, 3, 3))
+    info = conv_splits.cache_info()
+    assert (info.misses, info.hits) == (1, 1)
 
 
 def test_full_f32_convolutions_overrides_the_global_flag():

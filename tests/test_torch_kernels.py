@@ -470,7 +470,8 @@ def _accumulate(a, w, rnd, block=0):
     return run if block else cur
 
 
-@pytest.mark.parametrize("case,block", [("mmgrad", 8), ("softmax_pv", 64)])
+@pytest.mark.parametrize("case,block", [("mmgrad", 8), ("softmax_pv", 64),
+                                        ("conv", 32)])
 def test_promotion_bounds_a_truncating_accumulator(case, block):
     """Part of the 3×TF32 error is the tensor cores' own float32
     accumulation, which rounds each mma's sum toward zero in this model
@@ -478,12 +479,16 @@ def test_promotion_bounds_a_truncating_accumulator(case, block):
     K = 1024, chip_smoke.py's precision phase).  Promoting each block-deep
     stretch into a float32 accumulator by round-to-nearest adds — every
     8-deep step at mmgrad's FFN product (the trial in PERF.md §6, which
-    mmgrad does not keep), every 64-key tile in softmaxmm, which does —
-    takes the error back to the round-to-nearest level."""
+    mmgrad does not keep), every 64-key tile in softmaxmm and every 32-deep
+    stage of the conv's 64-channel tile (here over a 4608-deep window),
+    which do — takes the error back to the round-to-nearest level."""
     rng = np.random.default_rng(2)
     if case == "mmgrad":
         a = rng.standard_normal((4, 1024)).astype(np.float32)
         w = (rng.standard_normal((1024, 256)) / 32).astype(np.float32)
+    elif case == "conv":        # weights over √fan-in, unit inputs
+        a = (rng.standard_normal((4, 4608)) / 68).astype(np.float32)
+        w = rng.standard_normal((4608, 64)).astype(np.float32)
     else:                       # unnormalized probabilities, as accumulated
         s = 2 * rng.standard_normal((4, 2048))
         a = np.exp(s - s.max(-1, keepdims=True)).astype(np.float32)
@@ -498,6 +503,28 @@ def test_promotion_bounds_a_truncating_accumulator(case, block):
     promoted = err(_accumulate(a, w, _round_toward_zero, block))
     assert truncated >= 5 * nearest
     assert promoted <= 2 * nearest
+
+
+def test_split_sums_bound_the_wide_conv_tiles_accumulation():
+    """The conv's 128-channel tile lets the tensor cores accumulate each
+    split of the window whole, and its plan keeps a split at most
+    CONV_WIDE_DEPTH deep; the splits are summed in float32 with
+    round-to-nearest.  At VGG-16's 4608-deep window that cuts the
+    truncating accumulator's error eightfold or more against one split
+    (the card reads the same on the kernel, chip_smoke.py's precision
+    phase)."""
+    from repro_torch.kernels.streamfuse.streamfuse import CONV_WIDE_DEPTH
+    rng = np.random.default_rng(2)
+    a = (rng.standard_normal((4, 4608)) / 68).astype(np.float32)
+    w = rng.standard_normal((4608, 64)).astype(np.float32)
+    exact = _mm(a.astype(np.float64), w.astype(np.float64))
+
+    def err(x):
+        return np.abs(x - exact).max()
+
+    whole = err(_accumulate(a, w, _round_toward_zero))
+    split = err(_accumulate(a, w, _round_toward_zero, CONV_WIDE_DEPTH))
+    assert 8 * split <= whole
 
 
 def test_chain_rejects_bad_operands():
@@ -900,6 +927,19 @@ def test_matmul_plain_matches_jax_kernel(M, N, K, bf16):
                                _np(want), **tol)
 
 
+@pytest.mark.parametrize("M,N", [(100, 130), (70, 130), (128, 128), (1, 1),
+                                 (1024, 4096)])
+def test_matmul_grid_covers_m_and_n(M, N):
+    """One block a 128 x 128 tile, the last row and column masked: the
+    grid covers M and N with no tile wholly outside; at the route shape
+    its 256 tiles are one wave of two blocks a SM."""
+    gx, gy = mm_pkg.matmul_grid(M, N)
+    assert (gx - 1) * 128 < N <= gx * 128
+    assert (gy - 1) * 128 < M <= gy * 128
+    if (M, N) == (1024, 4096):
+        assert gx * gy == 256 <= 2 * common.NUM_SMS
+
+
 def test_matmul_takes_a_ragged_edge_and_rejects_bad_operands():
     a, b = _rand((70, 33), 4), _rand((33, 130), 5)
     got = mm_pkg.matmul(torch.from_numpy(a), torch.from_numpy(b))
@@ -995,6 +1035,19 @@ def test_kernel_sources_name_what_they_replace(source, replaces):
     head = text.split("#include")[0]
     assert "Replaces: " + replaces in " ".join(head.replace("//", "").split())
     assert "What bounds it" in head and "What the design does" in head
+
+
+def test_every_included_header_exists():
+    """Each quoted #include of a kernel source names a header of csrc/
+    (the SIMT gemm_tile.cuh is gone; matmul.cu and the conv run
+    mma_gemm.cuh)."""
+    import re
+    for src in [*common.CSRC.glob("*.cu"), *common.CSRC.glob("*.cuh")]:
+        for name in re.findall(r'#include "([^"]+)"', src.read_text()):
+            assert (common.CSRC / name).is_file(), (src.name, name)
+    uses = {p.name for p in common.CSRC.glob("*.cu")
+            if '#include "mma_gemm.cuh"' in p.read_text()}
+    assert uses == {"chain_grad.cu", "matmul.cu", "pad_conv_relu.cu"}
 
 
 def test_build_directory_is_ignored_by_git():
