@@ -30,7 +30,11 @@
 //    multiplies by w2 the same way.  Plain FMAs: the bytes bound it.
 //  * Large M: 64-row tiles on mma.sync m16n8k8 TF32 with the 3×TF32 split
 //    (mma_tf32.cuh; bfloat16 operands exact in one pass), a and weight
-//    tiles double-buffered through cp.async, one barrier a stage.  A
+//    tiles double-buffered through cp.async, one barrier a stage.  Each
+//    32-deep stage goes into a fresh accumulator that is added into the
+//    running one with round-to-nearest adds: the tensor cores' float32
+//    accumulation truncates, and over gpt2_block's K = 1024 whole it
+//    erred 5.6 times as much as cuBLAS float32.  A
 //    thread-block cluster of c blocks shares one chunk of bn1 = 64·c
 //    columns of h: each block computes 64 of them into its own shared
 //    memory, then, after cluster.sync(), computes its share of the output
@@ -126,13 +130,18 @@ __host__ __device__ constexpr int a_ld() {
   return BK + 16 / (int)sizeof(T);
 }
 
-// acc[i][j] (+)= the warp's 32 × 32 tile of As (BM × BK) · Bs (BK × BN):
-// rows wm·32 + 16i.., columns wn·32 + 8j...
+// acc[i][j] += the warp's 32 × 32 tile of As (BM × BK) · Bs (BK × BN):
+// rows wm·32 + 16i.., columns wn·32 + 8j...  The stage's products go into
+// a fresh accumulator, which is then added into acc with round-to-nearest
+// adds: the tensor cores' own float32 accumulation truncates, so it never
+// carries more than one BK-deep stage (the promotion of mma_gemm.cuh's
+// ring_product).
 template <int PASSES, typename TA, typename TB>
 __device__ __forceinline__ void tile_mma(float (&acc)[2][4][4], const TA* As,
                                          int lda, const TB* Bs, int wm,
                                          int wn, int lane) {
   const int g = lane >> 2, t = lane & 3;
+  float fresh[2][4][4] = {};
 #pragma unroll
   for (int kk = 0; kk < BK; kk += 8) {
     FragA<PASSES> fa[2];
@@ -148,9 +157,16 @@ __device__ __forceinline__ void tile_mma(float (&acc)[2][4][4], const TA* As,
       FragB<PASSES> fb;
       fb.set(codo::to_f32(c[0]), codo::to_f32(c[4 * W_LD]));
 #pragma unroll
-      for (int i = 0; i < 2; ++i) mma_f32<PASSES>(acc[i][j], fa[i], fb);
+      for (int i = 0; i < 2; ++i) mma_f32<PASSES>(fresh[i][j], fa[i], fb);
     }
   }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[i][j][e] = __fadd_rn(acc[i][j][e], fresh[i][j][e]);
 }
 
 // Row and column (in the block's 64 × 64 tile) of accumulator element e
@@ -187,9 +203,11 @@ __device__ __forceinline__ void stash_h(float* dst, const float4 (&pre)[PRE],
 // Grid (chunks · c, ceil(M / 64)), clusters of c blocks along x.  Block
 // rank r of chunk ch computes h columns ch·64c + 64r.. into h_s, then
 // output columns [r·ncr, (r + 1)·ncr) of partial[ch] over the chunk's
-// 64c columns of h, rank by rank.
+// 64c columns of h, rank by rank.  Three blocks an SM: left to itself
+// ptxas gives the promoted tile 234 registers, which holds two blocks an
+// SM and runs a fifth slower.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 3)
     chain_kernel(const T* __restrict__ a, const T* __restrict__ w1,
                  const T* __restrict__ w2, float* __restrict__ partial, int M,
                  int K, int N1, int N2, int c, int ncr, EwChain ew) {

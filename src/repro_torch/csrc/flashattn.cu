@@ -24,13 +24,17 @@
 // (flash-decoding style; the wrapper splits keys only where the grid falls
 // short of the card).  QKᵀ and PV run on mma.sync m16n8k8 TF32 with the
 // 3×TF32 split (mma_tf32.cuh; bfloat16 operands, exact in TF32, take one
-// pass).  A warp scores all 64 keys of a tile for its 16 rows and
-// accumulates every output column, so the online softmax runs on the mma
-// accumulator's layout with no exchange between warps: a row lives on the
-// four lanes of a quad (quad_max, quad_sum in online_softmax.cuh), and the
-// probabilities stay in registers as the A operand of PV.  K and V tiles
-// of 64 keys stream through two cp.async buffers, one barrier a stage; a
-// kᵀ view (the routed chains hand k over so) is copied in 16-byte vectors
+// pass); each 32-deep stage of QKᵀ goes into a fresh accumulator added
+// into the scores with round-to-nearest adds, since the tensor cores'
+// float32 accumulation truncates (at gpt2_block's hd = 1024 the scores
+// reach ~100 before the scale).  A warp scores all 64 keys of a tile for
+// its 16 rows and accumulates every output column, so the online softmax
+// runs on the mma accumulator's layout with no exchange between warps: a
+// row lives on the four lanes of a quad (quad_max, quad_sum in
+// online_softmax.cuh), and the probabilities stay in registers as the A
+// operand of PV.  K and V tiles of 64 keys stream through two cp.async
+// buffers, one barrier a stage; a kᵀ view (the routed chains hand k over
+// so) is copied in 16-byte vectors
 // along the keys and kept transposed, d by d.  Above hd = 256 a cluster
 // of ceil(hd / 256) blocks shares each q tile: each computes the partial
 // scores over its 256 head-dim columns, the partials are summed in rank
@@ -189,29 +193,39 @@ __global__ void __launch_bounds__(FTHREADS, 1)
     const T* tile = kv_s + (st & 1) * BUF;
     const int k0 = (kt_begin + st / 2) * MK;
     if ((st & 1) == 0) {
-      // ---- scores: p = q (16 × HDP) · Kᵀ (HDP × 64) ----
+      // ---- scores: p = q (16 × HDP) · Kᵀ (HDP × 64), each 32-deep stage
+      // into a fresh accumulator added into p with round-to-nearest adds
+      // (the tensor cores' own float32 accumulation truncates) ----
 #pragma unroll
       for (int j = 0; j < NTS; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) p[j][e] = 0.f;
-#pragma unroll 2
-      for (int kk = 0; kk < HDP; kk += 8) {
-        const T* qr = q_s + row0 * LD + kk + t;
-        FragA<P> fa;
-        fa.set(codo::to_f32(qr[0]), codo::to_f32(qr[8 * LD]),
-               codo::to_f32(qr[4]), codo::to_f32(qr[8 * LD + 4]));
+#pragma unroll 1
+      for (int ks0 = 0; ks0 < HDP; ks0 += 32) {
+        float fresh[NTS][4] = {};
 #pragma unroll
-        for (int j = 0; j < NTS; ++j) {
-          FragB<P> fb;
-          if constexpr (KT) {
-            const T* kr = tile + (kk + t) * KT_LD + j * 8 + g;
-            fb.set(codo::to_f32(kr[0]), codo::to_f32(kr[4 * KT_LD]));
-          } else {
-            const T* kr = tile + (j * 8 + g) * LD + kk + t;
-            fb.set(codo::to_f32(kr[0]), codo::to_f32(kr[4]));
+        for (int kk = ks0; kk < ks0 + 32; kk += 8) {
+          const T* qr = q_s + row0 * LD + kk + t;
+          FragA<P> fa;
+          fa.set(codo::to_f32(qr[0]), codo::to_f32(qr[8 * LD]),
+                 codo::to_f32(qr[4]), codo::to_f32(qr[8 * LD + 4]));
+#pragma unroll
+          for (int j = 0; j < NTS; ++j) {
+            FragB<P> fb;
+            if constexpr (KT) {
+              const T* kr = tile + (kk + t) * KT_LD + j * 8 + g;
+              fb.set(codo::to_f32(kr[0]), codo::to_f32(kr[4 * KT_LD]));
+            } else {
+              const T* kr = tile + (j * 8 + g) * LD + kk + t;
+              fb.set(codo::to_f32(kr[0]), codo::to_f32(kr[4]));
+            }
+            mma_f32<P>(fresh[j], fa, fb);
           }
-          mma_f32<P>(p[j], fa, fb);
         }
+#pragma unroll
+        for (int j = 0; j < NTS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) p[j][e] = __fadd_rn(p[j][e], fresh[j][e]);
       }
       if constexpr (HDP == 256) {
         if (c > 1) {

@@ -6,49 +6,79 @@ keeps the TPU function's contract — a, b (B, S, D) of one element type
 the state carried in float32, h written in a's type — and drops its
 ``S % chunk == 0`` assert: the last time chunk may be short.
 
-Both versions scan time in chunks of ``chunk`` steps, in two passes:
-each chunk's summary from a zero state (the product of its a's and its
-local end state), then each chunk again from its carried-in state, which
-folds the earlier chunks' summaries in order.  No product is ever divided
-out, so a cumulative product that underflows over a long sequence costs
-nothing.  ``chunk`` changes only where rounding falls.
+Both versions scan time in chunks of ``chunk`` steps: each chunk's
+summary from a zero state (the product of its a's and its local end
+state), each chunk's carried-in state as the earlier chunks' summaries
+folded in order from zero, then the chunk from that state.  No product is
+ever divided out, so a cumulative product that underflows over a long
+sequence costs nothing.  ``chunk`` changes only where rounding falls.
 
-Tensors on the card launch ``csrc/rglru_scan.cu`` (the summary pass, then
-the apply pass: two launches, one when S fits one chunk); tensors on the
-CPU run :func:`rglru_scan_plain`, the same two passes in PyTorch ops.
+Tensors on the card launch ``csrc/rglru_scan.cu`` once: a block a (chunk,
+strip of channels) holds its chunk of a and b in registers, publishes its
+summary, waits for the earlier chunks' and applies its own, so a and b
+are read once.  The kernel keeps its tickets, flags and epoch in a small
+device buffer that this module owns for each stream (:func:`_state`).
+Tensors on the CPU run :func:`rglru_scan_plain`, the same arithmetic in
+PyTorch ops, pass by pass.
 """
 
 from __future__ import annotations
 
-from ..common import INT, PTR, CudaLibrary, dtype_code, on_card, stream_of
+from ..common import (INT, NUM_SMS, PTR, CudaLibrary, dtype_code, on_card,
+                      stream_of)
 
-# Threads a block of csrc/rglru_scan.cu, one a (b, d) channel of one chunk.
-THREADS = 256
-# Half the threads an H100 holds resident (132 SMs × 2048): 32 warps an
-# SM, each with 16 loads in flight, keep a streaming pass near its rate.
-_FILL_THREADS = 132 * 2048 // 2
+# Channels a block of csrc/rglru_scan.cu (one a thread), the steps a
+# thread holds in registers (a longer chunk is read twice), the blocks an
+# SM holds (its __launch_bounds__) and the state's header words before the
+# flags (its FLAGS).
+THREADS = 128
+HELD = 64
+BLOCKS_PER_SM = 3
+STATE_HEADER = 96
+# The threads the card holds resident: a route's chunks fill at least one
+# such wave.
+_FILL_THREADS = NUM_SMS * BLOCKS_PER_SM * THREADS
 
 LIBRARY = CudaLibrary("rglru_scan.cu", {
-    "codo_rglru_chunk_summary": [INT, PTR, PTR, PTR, PTR, INT, INT, INT, INT,
-                                 PTR],
-    "codo_rglru_chunk_apply": [INT, PTR, PTR, PTR, PTR, PTR, INT, INT, INT,
-                               INT, PTR],
+    "codo_rglru_scan": [INT, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT,
+                        PTR],
 })
+
+# The kernel's state, one zeroed int32 buffer a (device, stream), grown
+# (and zeroed anew) when a call needs more flags than it holds.
+_STATES: dict = {}
 
 
 def chunk_length(B: int, S: int, D: int) -> int:
-    """The route's chunk: the longest power of two up to 128 steps whose
-    (channel, chunk) threads reach half the card, at least 16 steps
-    (shorter chunks fold more summaries than they save)."""
-    chunk = 128
+    """The route's chunk: the longest power of two up to HELD steps whose
+    (channel, chunk) threads fill the card's resident threads once, at
+    least 16 steps (shorter chunks fold more summaries than they save)."""
+    chunk = HELD
     while chunk > 16 and B * D * -(-S // chunk) < _FILL_THREADS:
         chunk //= 2
     return chunk
 
 
-def launches(S: int, chunk: int) -> int:
-    """Kernel launches of one :func:`rglru_scan` call on the card."""
-    return 1 if S <= chunk else 2
+def launches() -> int:
+    """Kernel launches of one :func:`rglru_scan` call on the card, at any
+    shape and chunk."""
+    return 1
+
+
+def state_words(B: int, S: int, D: int, chunk: int) -> int:
+    """Words of kernel state a call needs: the header, then a flag for
+    each block (chunk, strip of THREADS channels, batch)."""
+    return STATE_HEADER + B * -(-D // THREADS) * -(-S // chunk)
+
+
+def _state(device, stream: int, words: int):
+    import torch
+    key = (device, stream)
+    state = _STATES.get(key)
+    if state is None or state.numel() < words:
+        state = torch.zeros(words, dtype=torch.int32, device=device)
+        _STATES[key] = state
+    return state
 
 
 def _check(a, b, chunk):
@@ -74,27 +104,24 @@ def rglru_scan(a, b, *, chunk: int = 128):
         raise ValueError("rglru_scan reads contiguous a and b")
     B, S, D = a.shape
     L = min(int(chunk), S)
-    nch = -(-S // L)
     out = torch.empty_like(a)
-    summary = torch.empty((2, B, nch, D), dtype=torch.float32,
+    summary = torch.empty((2, B, -(-S // L), D), dtype=torch.float32,
                           device=a.device)
-    prod, local = summary[0], summary[1]
-    code, stream = dtype_code(a), stream_of(a)
+    stream = stream_of(a)
+    state = _state(a.device, stream, state_words(B, S, D, L))
     with torch.cuda.device(a.device):
-        if nch > 1:
-            LIBRARY.launch("codo_rglru_chunk_summary", code, a.data_ptr(),
-                           b.data_ptr(), prod.data_ptr(), local.data_ptr(),
-                           B, S, D, L, stream)
-        LIBRARY.launch("codo_rglru_chunk_apply", code, a.data_ptr(),
-                       b.data_ptr(), prod.data_ptr(), local.data_ptr(),
-                       out.data_ptr(), B, S, D, L, stream)
+        LIBRARY.launch("codo_rglru_scan", dtype_code(a), a.data_ptr(),
+                       b.data_ptr(), out.data_ptr(), summary.data_ptr(),
+                       state.data_ptr(), B, S, D, L, stream)
     return out
 
 
 def rglru_scan_plain(a, b, *, chunk: int = 128):
-    """The kernel's two passes in plain PyTorch ops, float32 state: the
-    time axis padded to whole chunks with the identity step (a = 1,
-    b = 0), the chunks scanned side by side."""
+    """The kernel's arithmetic in plain PyTorch ops, float32 state, pass
+    by pass: every chunk's summary, the in-order fold of the summaries
+    from zero, every chunk from its carried-in state.  The time axis is
+    padded to whole chunks with the identity step (a = 1, b = 0) and the
+    chunks are scanned side by side."""
     import torch
     _check(a, b, chunk)
     B, S, D = a.shape
@@ -124,4 +151,4 @@ def rglru_scan_plain(a, b, *, chunk: int = 128):
 
 
 __all__ = ["LIBRARY", "chunk_length", "launches", "rglru_scan",
-           "rglru_scan_plain"]
+           "rglru_scan_plain", "state_words"]

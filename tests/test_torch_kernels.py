@@ -8,6 +8,7 @@ inputs, at the tolerances of ``tests/test_kernels.py``: 2e-5 in float32,
 2e-2 in bfloat16.
 """
 
+import importlib
 import math
 from pathlib import Path
 
@@ -505,6 +506,37 @@ def test_promotion_bounds_a_truncating_accumulator(case, block):
     assert promoted <= 2 * nearest
 
 
+@pytest.mark.parametrize("case,gain", [("chain", 8), ("flash_scores", 5)])
+def test_stage_promotion_bounds_the_chains_accumulation(case, gain):
+    """chain.cu's tile takes gpt2_block's FFN first product (K = 1024,
+    w1 over √K) in 32-deep stages, each into a fresh tensor-core
+    accumulator added into the running one with round-to-nearest; so does
+    flash's QKᵀ over each cluster block's 256 head-dim columns (q and k
+    unit normals: scores of ~±50 before the scale).  In this model that
+    cuts the truncating accumulator's error at least eightfold for the
+    chain (the card's precision phase read 4.48e-5 there unpromoted, 5.6
+    times cuBLAS float32) and fivefold for the scores, against
+    accumulating every product in one, and brings both within twice the
+    round-to-nearest level."""
+    rng = np.random.default_rng(3)
+    if case == "chain":
+        a = rng.standard_normal((4, 1024)).astype(np.float32)
+        w = (rng.standard_normal((1024, 256)) / 32).astype(np.float32)
+    else:                       # one warp's 16 rows against a 64-key tile
+        a = rng.standard_normal((16, 256)).astype(np.float32)
+        w = rng.standard_normal((256, 64)).astype(np.float32)
+    exact = _mm(a.astype(np.float64), w.astype(np.float64))
+
+    def err(x):
+        return np.abs(x - exact).max()
+
+    nearest = err(_accumulate(a, w, lambda x: x.astype(np.float32)))
+    whole = err(_accumulate(a, w, _round_toward_zero))
+    staged = err(_accumulate(a, w, _round_toward_zero, 32))
+    assert gain * staged <= whole
+    assert staged <= 2 * nearest
+
+
 def test_split_sums_bound_the_wide_conv_tiles_accumulation():
     """The conv's 128-channel tile lets the tensor cores accumulate each
     split of the window whole, and its plan keeps a split at most
@@ -839,6 +871,56 @@ def test_rglru_plain_takes_a_ragged_sequence(S, chunk):
     np.testing.assert_allclose(got.numpy(), oracle, **RGLRU_TOL)
     np.testing.assert_allclose(got.numpy(), rglru_pkg.rglru_scan(
         ta, tb, chunk=S).numpy(), **RGLRU_TOL)
+
+
+def _rglru_passes(a, b, chunk):
+    """h_t = a_t·h_{t−1} + b_t in numpy float32, chunk by chunk: every
+    chunk's summary (product of its a's, end state) from a zero state,
+    each chunk's carried-in state as the earlier summaries folded in order
+    from zero, then the chunk from that state."""
+    B, S, D = a.shape
+    starts = range(0, S, chunk)
+    prod, local = [], []
+    for t0 in starts:
+        p, h = np.ones((B, D), np.float32), np.zeros((B, D), np.float32)
+        for t in range(t0, min(S, t0 + chunk)):
+            p, h = p * a[:, t], a[:, t] * h + b[:, t]
+        prod.append(p)
+        local.append(h)
+    out = np.empty_like(a)
+    for c, t0 in enumerate(starts):
+        h = np.zeros((B, D), np.float32)
+        for j in range(c):
+            h = prod[j] * h + local[j]
+        for t in range(t0, min(S, t0 + chunk)):
+            h = a[:, t] * h + b[:, t]
+            out[:, t] = h
+    return out
+
+
+@pytest.mark.parametrize("S,chunk", [(128, 16), (100, 32)])
+def test_rglru_plain_is_summaries_fold_apply(S, chunk):
+    """rglru_scan_plain computes, bit for bit, the arithmetic the one-pass
+    kernel repeats: summaries from zero, the in-order fold from zero, the
+    apply (S = 100 leaves a last chunk of 4 steps)."""
+    a, b = _rglru_operands(2, S, 24, seed=S + chunk)
+    got = rglru_pkg.rglru_scan_plain(torch.from_numpy(a), torch.from_numpy(b),
+                                     chunk=chunk)
+    np.testing.assert_array_equal(got.numpy(), _rglru_passes(a, b, chunk))
+
+
+def test_rglru_constants_mirror_the_source():
+    """The wrapper's copies of csrc/rglru_scan.cu's constants: channels a
+    block, steps held, blocks an SM and the state's header; and the state
+    a call needs, a flag for each (chunk, strip, batch) block."""
+    mod = importlib.import_module("repro_torch.kernels.rglru.rglru")
+    src = (common.CSRC / "rglru_scan.cu").read_text()
+    assert f"constexpr int THREADS = {mod.THREADS};" in src
+    assert f"constexpr int HELD = {mod.HELD};" in src
+    assert f"FLAGS = {mod.STATE_HEADER};" in src
+    assert f"__launch_bounds__(THREADS, {mod.BLOCKS_PER_SM})" in src
+    assert mod.state_words(2, 2048, 4096, 64) == 96 + 2 * 32 * 32
+    assert mod.state_words(2, 100, 130, 32) == 96 + 2 * 2 * 4
 
 
 def test_rglru_bf16_carries_the_state_in_f32():

@@ -46,8 +46,8 @@ from repro_torch.core import ops, routing  # noqa: E402
 from repro_torch.core.autodiff import build_train_graphs  # noqa: E402
 from repro_torch.core.compiler import codo_opt  # noqa: E402
 from repro_torch.kernels import rglru, ssd, streamfuse  # noqa: E402
-from repro_torch.kernels.rglru.rglru import (chunk_length,  # noqa: E402
-                                             launches)
+from repro_torch.kernels.rglru.rglru import (HELD,  # noqa: E402
+                                             chunk_length, launches)
 from repro_torch.models import dataflow_models as dm  # noqa: E402
 from repro_torch.models.rglru import rglru_block_fn  # noqa: E402
 from repro_torch.models.ssm import ssd_block_fn  # noqa: E402
@@ -272,11 +272,15 @@ def test_scan_factories_take_the_full_width_chain(name, build, kernel):
 
 
 def test_route_chunk_fills_the_card():
-    """The rglru route's chunk at (2, 2048, 4096): 64 steps, 32 chunks of
-    8192 channels — a full card of threads — and two launches."""
-    assert chunk_length(2, 2048, 4096) == 64
+    """The rglru route's chunk at (2, 2048, 4096): 64 steps, the most a
+    thread holds in registers, 32 chunks of 8192 channels — five waves of
+    the card's resident threads — and one launch at any shape.  A narrower
+    sequence halves the chunk until one wave is full (32 steps at one
+    batch of 1024 channels), never below 16 steps."""
+    assert chunk_length(2, 2048, 4096) == 64 == HELD
+    assert chunk_length(1, 2048, 1024) == 32
     assert chunk_length(2, 128, 64) == 16
-    assert launches(2048, 64) == 2 and launches(100, 128) == 1
+    assert launches() == 1
 
 
 # --------------------------------------------------------------------------
