@@ -62,8 +62,27 @@ problem:
    the card against the port on the CPU; then the blocked matmul through
    ``ops.mm`` at (1024, 1024) @ (1024, 4096), four calls counted the same
    way;
-8. prints the card line, the ``kernels`` JSON line and, last, the
-   ``{"ok": true, "device": ...}`` line.
+8. drives the slice's train paths — ``codo_torch.compile(<loss>,
+   *shapes, grad=True)`` with the default gate over three MSE losses
+   written here: ResNet-18 at (N, 3, 224, 224) against an (N, 1000)
+   target, N=1 and 8 (no group routed in any phase: cuDNN forward and
+   backward, the gradient kinds' bodies in full float32); rglru_block at
+   (2, 2048, 4096) with ``wrt=("a", "gate")`` and ssd_block at (16, 96,
+   64, 128) with ``wrt=("states", "decay")``, the other inputs passed by
+   name (exactly one ``rglru.scan`` / ``ssd.scan`` group, in the
+   forward) — each with seeded inputs in its model's domain: a warm step,
+   four steps with the launch counters zeroed just before and read just
+   after (one scan launch a step, no other kernel), ``verify()`` on the
+   card with each gradient held to its own scale, one step against the
+   port on the CPU (ResNet-18 at N=1) and one profiled step;
+9. exports gpt2_block at S=128 with its weights (a ``.npz`` sidecar) and
+   its train step (weights embedded) under ``build/artifacts/``, loads
+   both with ``codo_torch.load`` on the card, and holds four requests
+   bit for bit against the exporting program (same groups, same
+   launches) and one train step from the same state within rtol 1e-6;
+10. prints the card line, the ``kernels`` JSON line (the scans' entries
+    twice: their serving and their train-path launches) and, last, the
+    ``{"ok": true, "device": ...}`` line.
 
 The full record (every check, every timing) goes to
 ``chiprun_out/chip_smoke.json``.  Imports nothing of JAX or the JAX
@@ -125,6 +144,7 @@ GRAD_TOL = 1e-4
 # skipped update (1) or a flipped sign (2) does not.
 UPDATE_TOL = 1e-2
 MMGRAD = "pallas:streamfuse.mmgrad"
+PHASES = ("forward", "backward", "update")      # of a train step
 # The CNN path: ImageNet's 224 x 224 input, ResNet-18 at N = 1 and 8,
 # VGG-16 at N = 1.  Conv tolerances: the reference sweep's 1e-4
 # (tests/test_kernels.py, rtol and atol) at its shapes and the ragged
@@ -1467,8 +1487,7 @@ def train_path(S: int) -> dict:
     step = codo_torch.compile(gpt2_block_loss_fn, (S, D_MODEL), (S, D_MODEL),
                               grad=True)
     groups = {ph: [g.kernel for g in getattr(step, ph).lower().groups
-                   if g.routes]
-              for ph in ("forward", "backward", "update")}
+                   if g.routes] for ph in PHASES}
     compile_s = time.perf_counter() - t0
     if groups != {"forward": [], "backward": [MMGRAD, MMGRAD], "update": []}:
         fail(f"S={S}: expected exactly two {MMGRAD} groups in the backward "
@@ -1530,25 +1549,27 @@ def train_path(S: int) -> dict:
               "verify_band": TRAIN_BAND, "verify": verify,
               "verify_grad_rel_err": rel, "grad_tol": GRAD_TOL}
     if S == SEQS[0]:
-        result["cpu"] = train_card_vs_cpu(S, params, zero, x, target,
-                                          (p1, s1, m1))
+        result["cpu"] = train_card_vs_cpu(
+            f"S={S}", gpt2_block_loss_fn, [(S, D_MODEL)] * 2, None, params,
+            zero, {"x": x, "target": target}, (p1, s1, m1))
     result["profile"] = profile_device(lambda: step.step(q, u, xt, tt))
     return result
 
 
-def train_card_vs_cpu(S: int, params, zero, x, target, card) -> dict:
+def train_card_vs_cpu(name: str, fn, specs, wrt, params, zero, named,
+                      card) -> dict:
     """The first step from the same state on the card and by the port on
-    the CPU (plain versions).  Bands: loss and gradient norm rtol 2e-3
-    (the verify band), lr 1e-6; m and v each within GRAD_TOL (v twice) of
-    its largest value; the update p1 - p0 within UPDATE_TOL in norm."""
+    the CPU (plain versions) of ``codo_torch.compile(fn, *specs,
+    grad=True, wrt=wrt)``, the inputs ``named`` passed by name.  Bands:
+    loss and gradient norm rtol 2e-3 (the verify band), lr 1e-6; m and v
+    each within GRAD_TOL (v twice) of its largest value; the update p1 -
+    p0 within UPDATE_TOL in norm."""
     import torch
 
     import codo_torch
-    from repro_torch.models.dataflow_models import gpt2_block_loss_fn
-    cpu = codo_torch.compile(gpt2_block_loss_fn, (S, D_MODEL), (S, D_MODEL),
-                             grad=True, device="cpu")
+    cpu = codo_torch.compile(fn, *specs, grad=True, wrt=wrt, device="cpu")
     p, s = codo_torch.train_state_from_numpy(params, zero, cpu)
-    want = cpu.step(p, s, x, target)
+    want = cpu.step(p, s, **named)
     (cp, cs, cm), (wp, ws, wm) = _to_host(card), want
     errs = {"loss": _close("loss", cm["loss"], wm["loss"], 2e-3, 0.0),
             "grad_norm": _close("grad_norm", cm["grad_norm"],
@@ -1558,19 +1579,20 @@ def train_card_vs_cpu(S: int, params, zero, x, target, card) -> dict:
         for key, tol in (("m", GRAD_TOL), ("v", 2 * GRAD_TOL)):
             got, ref = cs[key][w], ws[key][w]
             errs[f"{key} {w}"] = scaled(
-                f"S={S} {key} {w}", max_err(got, ref),
+                f"{name} {key} {w}", max_err(got, ref),
                 float(ref.abs().max()), tol)
         p0 = torch.as_tensor(params[w])
         step_card, step_cpu = cp[w] - p0, wp[w] - p0
         norm = float(step_cpu.double().norm())
         errs[f"dp {w}"] = scaled(
-            f"S={S} update {w}", float((step_card - step_cpu).double().norm()),
+            f"{name} update {w}",
+            float((step_card - step_cpu).double().norm()),
             norm, UPDATE_TOL)
     if not int(cs["step"]) == int(ws["step"]) == 1:
         fail("step counters disagree")
     worst = {k: max(v for n, v in errs.items() if n.split()[0] == k)
              for k in ("dp", "m", "v")}
-    print(f"  S={S}: one step, card vs the port on the CPU: loss "
+    print(f"  {name}: one step, card vs the port on the CPU: loss "
           f"{errs['loss']:.3e}, grad_norm {errs['grad_norm']:.3e}, lr "
           f"{errs['lr']:.1e} (max abs); relative to each tensor: m "
           f"{worst['m']:.2e}, v {worst['v']:.2e} (of the max, bands "
@@ -1977,6 +1999,253 @@ def mm_path() -> dict:
             "max_abs_err_vs_torch": err}
 
 
+def _mse(F, y, target):
+    d = F.sub(y, target)
+    return F.mean_all(F.mul(d, d))
+
+
+def resnet18_loss_fn(x, target):
+    """ResNet-18's MSE against a (N, 1000) target: the CNN train path."""
+    from repro_torch.core import frontend as F
+    from repro_torch.models.dataflow_models import resnet18_fn
+    return _mse(F, resnet18_fn(x), target)
+
+
+def rglru_loss_fn(a, gate, x, target):
+    """rglru_block's MSE: differentiated with respect to its operands
+    ``a`` and ``gate`` (it has no weights)."""
+    from repro_torch.core import frontend as F
+    from repro_torch.models.rglru import rglru_block_fn
+    return _mse(F, rglru_block_fn(a, gate, x), target)
+
+
+def ssd_loss_fn(states, decay, target):
+    """ssd_block's MSE, with respect to ``states`` and ``decay``."""
+    from repro_torch.core import frontend as F
+    from repro_torch.models.ssm import ssd_block_fn
+    return _mse(F, ssd_block_fn(states, decay), target)
+
+
+def train_workloads() -> list:
+    """(name, loss, specs, wrt, the forward's routed group or None, the
+    library that must launch, its launches a step, a maker of seeded
+    (parameters, inputs by name), whether to hold one step against the
+    CPU) of each train path of the slice: ResNet-18 at N = 1 and 8, whose
+    phases route nothing (its relu outputs are residuals, so no conv
+    chain is exclusive), and the two recurrences, whose forward routes
+    its scan."""
+    import numpy as np
+
+    from repro_torch.kernels.rglru.rglru import launches as rglru_launches
+    from repro_torch.models.dataflow_models import random_inputs
+
+    def resnet(N):
+        def make(step, rng):
+            env = random_inputs(step.source, seed=int(rng.integers(1 << 30)))
+            params = {w: env[w] for w in step.param_names}
+            return params, {"x": env["x"], "target": env["target"]}
+        return (f"resnet18 N={N}", resnet18_loss_fn,
+                [(N, 3, IMAGE, IMAGE), (N, 1000)], None, None, None, 0,
+                make, N == 1)
+
+    def rglru_make(step, rng):
+        params = {"a": rng.uniform(0.5, 0.999, RGLRU_SHAPE),
+                  "gate": rng.uniform(0.0, 1.0, RGLRU_SHAPE)}
+        named = {k: rng.standard_normal(RGLRU_SHAPE) for k in ("x", "target")}
+        return ({k: v.astype(np.float32) for k, v in params.items()},
+                {k: v.astype(np.float32) for k, v in named.items()})
+
+    nc, BH = SSD_SHAPE[:2]
+
+    def ssd_make(step, rng):
+        params = {"states": 0.1 * rng.standard_normal(SSD_SHAPE),
+                  "decay": rng.uniform(0.5, 0.99, (nc, BH, 1, 1))}
+        named = {"target": 0.1 * rng.standard_normal(SSD_SHAPE)}
+        return ({k: v.astype(np.float32) for k, v in params.items()},
+                {k: v.astype(np.float32) for k, v in named.items()})
+
+    return [resnet(N) for N in CNN_BATCHES] + [
+        ("rglru_block", rglru_loss_fn, [RGLRU_SHAPE] * 4, ("a", "gate"),
+         RGLRU, "rglru", rglru_launches(), rglru_make, True),
+        ("ssd_block", ssd_loss_fn, [SSD_SHAPE, (nc, BH, 1, 1), SSD_SHAPE],
+         ("states", "decay"), SSD, "ssd", 1, ssd_make, True)]
+
+
+def slice_train_path(seed, name, fn, specs, wrt, group, lib_name, per_step,
+                     make, on_cpu) -> dict:
+    """codo_torch.compile(fn, *specs, grad=True, wrt=wrt) with the default
+    gate: the routed groups of each phase asserted; a warm step, then
+    four steps with the launch counters zeroed just before and read just
+    after (the path's kernel, its count a step, and no other); verify()
+    on the card with each gradient held to its own scale; one step
+    against the port on the CPU; one profiled step."""
+    import numpy as np
+    import torch
+
+    import codo_torch
+    t0 = time.perf_counter()
+    step = codo_torch.compile(fn, *specs, grad=True, wrt=wrt)
+    groups = {ph: [g.kernel for g in getattr(step, ph).lower().groups
+                   if g.routes] for ph in PHASES}
+    compile_s = time.perf_counter() - t0
+    want = {"forward": [group] if group else [], "backward": [],
+            "update": []}
+    if groups != want:
+        fail(f"{name} train step: expected routed groups {want}, got "
+             f"{groups}")
+    params, named = make(step, np.random.default_rng(seed))
+    if len({v.tobytes() for v in params.values()}) != len(params):
+        fail(f"{name}: parameters are not distinct")
+    zero = {"m": {w: np.zeros_like(v) for w, v in params.items()},
+            "v": {w: np.zeros_like(v) for w, v in params.items()},
+            "step": np.zeros((), np.int32)}
+    p, s = codo_torch.train_state_from_numpy(params, zero, step)
+    # The inputs come from the layer before, on the card: placed there as
+    # set-up, not copied in each step.
+    dev = {k: torch.as_tensor(v, device="cuda") for k, v in named.items()}
+    p1, s1, m1 = step.step(p, s, **dev)            # warm (allocator, libs)
+    torch.cuda.synchronize()
+
+    zero_counts()
+    walls, metrics = [], []
+    q, u = p1, s1
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        q, u, m = step.step(q, u, **dev)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t))
+        metrics.append(m)
+    launches = {k: lib.launches for k, lib in all_libraries().items()}
+    expected = {k: TRAIN_STEPS * per_step if k == lib_name else 0
+                for k in launches}
+    if launches != expected:
+        fail(f"{name} train step: launches {launches}, expected {expected}")
+    values = {k: [float(m[k]) for m in metrics] for k in metrics[0]}
+    if not all(math.isfinite(v) for vs in values.values() for v in vs):
+        fail(f"{name}: non-finite metrics {values}")
+    if int(u["step"]) != 1 + TRAIN_STEPS:
+        fail(f"{name}: step counter {int(u['step'])}")
+    for w in step.param_names:
+        if not bool(torch.isfinite(q[w]).all()) or bool((q[w] == p[w]).all()):
+            fail(f"{name}: parameter {w} not finite or not updated")
+    verify = step.verify(params=p, **dev, **TRAIN_BAND)
+    rel = {w: scaled(f"{name} verify grad {w}", *verify[w], GRAD_TOL)
+           for w in step.param_names}
+    print(f"  {name}: groups {groups}; {TRAIN_STEPS} steps, wall "
+          f"{', '.join(f'{w:.3f}' for w in walls)} ms; launches "
+          f"{ {k: n for k, n in launches.items() if n} or 'none'}; loss "
+          f"{values['loss'][0]:.6f} -> {values['loss'][-1]:.6f}; verify "
+          f"within rtol {TRAIN_BAND['rtol']:.0e} / atol "
+          f"{TRAIN_BAND['atol']:.0e}, each gradient within "
+          f"{max(rel.values()):.2e} of its max (band {GRAD_TOL:.0e})")
+    result = {"name": name, "specs": specs, "wrt": wrt, "groups": groups,
+              "compile_s": compile_s, "step_ms": walls,
+              "launches": launches,
+              "kernel_launches": launches[lib_name] if lib_name else 0,
+              "launches_per_step": per_step, "metrics": values,
+              "verify_band": TRAIN_BAND, "verify": verify,
+              "verify_grad_rel_err": rel, "grad_tol": GRAD_TOL}
+    if on_cpu:
+        result["cpu"] = train_card_vs_cpu(name, fn, specs, wrt, params, zero,
+                                          named, (p1, s1, m1))
+    result["profile"] = profile_device(lambda: step.step(q, u, **dev))
+    return result
+
+
+def reload_path() -> dict:
+    """gpt2_block at S=128 and its train step through export and
+    codo_torch.load on the card: the program (weights in a .npz sidecar)
+    answers four requests bit for bit as the exporting program does, with
+    the same routed groups and launches; the train step (weights
+    embedded) takes one step from the same state as the exporting step,
+    loss and parameters within rtol 1e-6."""
+    import numpy as np
+    import torch
+
+    import codo_torch
+    from repro_torch.models.dataflow_models import (gpt2_block_fn,
+                                                    gpt2_block_loss_fn)
+    S = SEQS[0]
+    out_dir = ROOT / "build" / "artifacts"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(SEED + 70)
+    program = codo_torch.compile(gpt2_block_fn, (S, D_MODEL))
+    weights = {b.name: (rng.standard_normal(b.shape) / math.sqrt(b.shape[0])
+                        ).astype(np.float32) for b in program.graph.weights()}
+    program.bind(**codo_torch.params_from_numpy(weights, program.graph,
+                                                program.device))
+    groups = [g.kernel for g in program.lower().groups if g.routes]
+    t0 = time.perf_counter()
+    path = out_dir / "gpt2_block.json"
+    program.export(path, weights=True, sidecar=True)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = codo_torch.load(path)
+    loaded_groups = [g.kernel for g in loaded.lower().groups if g.routes]
+    load_s = time.perf_counter() - t0
+    if loaded.device != program.device or loaded_groups != groups:
+        fail(f"reload: groups {loaded_groups} on {loaded.device}, the "
+             f"exporting program's {groups}")
+    xs = [torch.as_tensor(rng.standard_normal((S, D_MODEL)).astype(
+        np.float32), device="cuda") for _ in range(REQUESTS)]
+    zero_counts()
+    want = [program(x) for x in xs]
+    torch.cuda.synchronize()
+    launches = {k: lib.launches for k, lib in all_libraries().items()}
+    zero_counts()
+    got = [loaded(x) for x in xs]
+    torch.cuda.synchronize()
+    again = {k: lib.launches for k, lib in all_libraries().items()}
+    if again != launches or not launches["flash"]:
+        fail(f"reload: launches {again}, the exporting program's {launches}")
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        fail("reload: the loaded program's outputs differ from the "
+             "exporting program's")
+
+    step = codo_torch.compile(gpt2_block_loss_fn, (S, D_MODEL), (S, D_MODEL),
+                              grad=True)
+    params = {b.name: (rng.standard_normal(b.shape) / math.sqrt(b.shape[0])
+                       ).astype(np.float32) for b in step.source.weights()}
+    zero = {"m": {w: np.zeros_like(v) for w, v in params.items()},
+            "v": {w: np.zeros_like(v) for w, v in params.items()},
+            "step": np.zeros((), np.int32)}
+    p, s = codo_torch.train_state_from_numpy(params, zero, step)
+    train_path_ = out_dir / "gpt2_block_loss.json"
+    t0 = time.perf_counter()
+    step.export(train_path_, weights=p)
+    loaded_step = codo_torch.load(train_path_)
+    train_reload_s = time.perf_counter() - t0
+    lp = loaded_step.init_params()
+    if sorted(lp) != sorted(p) or not all(torch.equal(lp[w], p[w])
+                                          for w in p):
+        fail("reload: the train step's carried weights differ")
+    x, t = (torch.as_tensor(rng.standard_normal((S, D_MODEL)).astype(
+        np.float32), device="cuda") for _ in range(2))
+    a = step.step(p, s, x, t)
+    b = loaded_step.step(lp, loaded_step.init_opt_state(lp), x, t)
+    torch.cuda.synchronize()
+    loss_err = abs(float(a[2]["loss"]) - float(b[2]["loss"]))
+    if not loss_err <= 1e-6 * abs(float(a[2]["loss"])):
+        fail(f"reload: loss {float(b[2]['loss'])} against "
+             f"{float(a[2]['loss'])}")
+    param_err = 0.0
+    for w in step.param_names:
+        param_err = max(param_err, max_err(b[0][w], a[0][w]))
+        if not bool(torch.allclose(b[0][w], a[0][w], rtol=1e-6, atol=0.0)):
+            fail(f"reload: parameter {w} after one step differs")
+    sizes = {f.name: f.stat().st_size for f in sorted(out_dir.iterdir())}
+    print(f"  gpt2_block S={S}: export {export_s:.2f} s, load + lower "
+          f"{load_s:.2f} s, groups {loaded_groups}; {REQUESTS} requests bit "
+          f"for bit the exporting program's, launches {again}; train step "
+          f"export + load {train_reload_s:.2f} s, one step: loss "
+          f"{loss_err:.1e}, parameters {param_err:.1e} (max abs); files "
+          f"{sizes}")
+    return {"S": S, "groups": loaded_groups, "export_s": export_s,
+            "load_s": load_s, "launches": again,
+            "train_reload_s": train_reload_s, "train_loss_err": loss_err,
+            "train_param_max_abs_err": param_err, "bytes": sizes}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail("src/repro_torch not found beside chip_smoke.py: run it from a "
@@ -2067,6 +2336,13 @@ def main() -> int:
     print("the blocked matmul through ops.mm:")
     mm_run = mm_path()
     record["mm_path"] = mm_run
+    print("train paths of the slice: codo_torch.compile(<loss>, *shapes, "
+          "grad=True[, wrt=...]):")
+    train_slices = {w[0]: slice_train_path(SEED + 80 + i, *w)
+                    for i, w in enumerate(train_workloads())}
+    record["train_slice_path"] = train_slices
+    print("artifacts: export, then codo_torch.load on the card:")
+    record["reload_path"] = reload_path()
 
     # One entry a kernel and S.  fused_matmul_grad's serves both backward
     # chains, and its launch counter counts both: its entry carries that
@@ -2117,6 +2393,18 @@ def main() -> int:
          "src/repro_torch/csrc/ssd_scan.cu",
          "src/repro/kernels/ssd/ssd.py:45", slice_measured["ssd"],
          slices["ssd_block"]["kernel_launches"]),
+        # The train steps' forwards run the same scans at the same shapes:
+        # the same measurements, the train paths' launches.
+        ("rglru_scan[rglru_block train step "
+         + "x".join(map(str, RGLRU_SHAPE)) + "]",
+         "src/repro_torch/csrc/rglru_scan.cu",
+         "src/repro/kernels/rglru/rglru.py:49", slice_measured["rglru"],
+         train_slices["rglru_block"]["kernel_launches"]),
+        ("ssd_chunk_scan[ssd_block train step "
+         + "x".join(map(str, SSD_SHAPE)) + "]",
+         "src/repro_torch/csrc/ssd_scan.cu",
+         "src/repro/kernels/ssd/ssd.py:45", slice_measured["ssd"],
+         train_slices["ssd_block"]["kernel_launches"]),
         ("flash_attention[mha_batched " + "x".join(map(str, MHA_SHAPE)) + "]",
          *source["flash"][1:], slice_measured["flash_mha"],
          slices["mha_batched"]["kernel_launches"])]

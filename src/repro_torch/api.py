@@ -14,6 +14,8 @@ the ``src/codo_torch.py`` alias):
 
     program = codo_torch.compile(model, (64, 512))     # trace -> codo_opt
     y = program(x_tensor)                              # lower + execute
+    program.export("design.json", weights=True)        # portable artifact
+    same = codo_torch.load("design.json")              # on the card again
 
 ``compile`` traces the function, runs the six-pass ``codo_opt`` pipeline
 (the reference's own code) and wraps the result in a
@@ -34,15 +36,26 @@ across with :func:`params_from_numpy`.
 instead and returns a :class:`CompiledTrainStep`: forward, backward and
 AdamW-update graphs, each through the same pipeline, running on the
 program's device (:func:`train_state_from_numpy` carries a reference
-run's parameters and optimizer state across).
+run's parameters and optimizer state across).  ``wrt=`` names the buffers
+to differentiate: weights by default, or inputs of a function that has
+none (a recurrence block's operands); the other inputs are then passed
+by name to ``step``.
+
+``export`` writes the reference's schema-1.5 JSON artifact
+(:mod:`repro_torch.core.artifact`) of a program or a train step, with its
+weights if asked; :func:`load` reads an artifact written by either
+package back onto a device.  Provenance records a traced function under
+its reference counterpart's module (``repro.…``), so the two packages'
+exports of one model diff clean; the ``generator`` field tells them apart.
 
 Not ported yet, each raising :class:`NotImplementedError` with its
-``ROADMAP.md`` item: artifacts — ``export``/``load`` (Queue 1 item 6),
-``autotune=`` (item 9), ``mesh=`` (item 11).
+``ROADMAP.md`` item: ``autotune`` (Queue 1 item 3, "Tuning"), ``mesh=``
+and sharded artifacts (item 6, "Sharding").
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Any, Callable, Sequence
 
 import numpy as np
@@ -52,6 +65,7 @@ from repro_torch.core.autodiff import TrainGraphs, build_train_graphs
 from repro_torch.core.compiler import (CodoOptions, CompiledDataflow, _UNSET,
                                        codo_opt)
 from repro_torch.core.graph import DataflowGraph
+from repro_torch.core.ops import full_f32_convolutions
 
 F = frontend
 ShapedBuffer = frontend.ShapedBuffer
@@ -128,6 +142,8 @@ class CompiledProgram:
         self.input_names = list(input_names)
         self.output_names = list(output_names)
         self.device = device
+        self.origin: str | None = None        # trace provenance (v1.5)
+        self._provenance: dict | None = None  # as loaded from an artifact
         self._bindings: dict[str, Any] = {}
         self._lowered = None
 
@@ -250,14 +266,43 @@ class CompiledProgram:
         the method form of ``compile(fn, ..., grad=True)``."""
         return _compile_train_step(self.source, self.device,
                                    options=self.compiled.options, opt=opt,
-                                   wrt=wrt)
+                                   wrt=wrt, origin=self.origin)
+
+    # ---- artifacts -------------------------------------------------------
+    def export(self, path: str | None = None, *,
+               weights: "bool | dict | None" = None, sidecar: bool = False):
+        """Write (or return) the schema-1.5 JSON artifact of this design
+        (``docs/artifact_format.md``), which either package's ``load``
+        reads.  ``weights=True`` embeds every weight buffer's value —
+        bound tensors first, the shape-keyed initializer for the rest — so
+        the artifact is a self-contained served model; a dict ships
+        specific values, and ``sidecar=True`` writes them to
+        ``<path>.weights.npz`` instead of base64 in the JSON.  A design
+        not lowered yet records the routing its device's gate decides."""
+        from repro_torch.core.artifact import export_artifact
+        from repro_torch.core.costmodel import routing_backend
+        if weights is True:
+            weights = {b.name: (self._bindings[b.name]
+                                if b.name in self._bindings
+                                else frontend.weight_init(b.shape, b.dtype))
+                       for b in self.graph.weights()}
+        return export_artifact(self.compiled, path, weights=weights,
+                               weights_sidecar=sidecar,
+                               provenance=self.provenance(),
+                               backend=routing_backend(self.device))
+
+    def provenance(self) -> dict:
+        """The v1.5 ``provenance`` section: the pre-pass source graph's
+        structural hash and the trace origin (a loaded program returns the
+        section its artifact stored)."""
+        if self._provenance is not None:
+            return dict(self._provenance)
+        return {"source_structural_hash": self.source.structural_hash(),
+                "origin": self.origin or f"graph:{self.source.name}"}
 
     # ---- not ported yet --------------------------------------------------
     def autotune(self, **_kw):
-        raise _not_ported("autotune", "item 9")
-
-    def export(self, *_a, **_kw):
-        raise _not_ported("artifact export", "item 6")
+        raise _not_ported("autotune", "item 3 (Tuning)")
 
 
 def _io_from_graph(graph: DataflowGraph) -> tuple[list[str], list[str]]:
@@ -294,11 +339,18 @@ class CompiledTrainStep:
         self.device = forward.device
         self.input_names = [b.name for b in source.inputs()]
         self.param_names = list(graphs.params)
+        self.origin: str | None = None
+        self._provenance: dict | None = None
+        self._initial_params: dict | None = None   # artifact-carried weights
 
     # ---- state -----------------------------------------------------------
     def init_params(self) -> dict:
-        """Deterministic initial parameters (shape-keyed ``weight_init``)
-        as tensors on the device."""
+        """Initial parameters as tensors on the device: the weights the
+        artifact this step was loaded from carries, else the deterministic
+        shape-keyed ``weight_init``."""
+        if self._initial_params is not None:
+            return params_from_numpy(self._initial_params, self.source,
+                                     self.device)
         names = set(self.param_names)
         return {b.name: _as_buffer_tensor(
                     b, frontend.weight_init(b.shape, b.dtype), self.device)
@@ -378,7 +430,11 @@ class CompiledTrainStep:
                   for w in self.param_names]
         env.update(zip(self.param_names, leaves))
         ref_loss = self.source.execute(env)[g.loss].reshape(())
-        ref_grads = torch.autograd.grad(ref_loss, leaves, allow_unused=True)
+        # The oracle's conv gradients in full float32, as its conv2d body
+        # runs: autograd's backward convolutions read cuDNN's TF32 flag.
+        with full_f32_convolutions():
+            ref_grads = torch.autograd.grad(ref_loss, leaves,
+                                            allow_unused=True)
         pairs = {"loss": (_host(loss).reshape(()), _host(ref_loss))}
         for w, leaf, ref in zip(self.param_names, leaves, ref_grads):
             pairs[w] = (_host(grads[w]),
@@ -412,10 +468,36 @@ class CompiledTrainStep:
                 f"upd={len(self.update.graph.tasks)}t>")
 
     def autotune(self, **_kw):
-        raise _not_ported("autotune of a train step", "item 9")
+        raise _not_ported("autotune of a train step", "item 3 (Tuning)")
 
-    def export(self, *_a, **_kw):
-        raise _not_ported("train-step artifact export", "item 6")
+    # ---- artifacts -------------------------------------------------------
+    def provenance(self) -> dict:
+        if self._provenance is not None:
+            return dict(self._provenance)
+        return {"source_structural_hash": self.source.structural_hash(),
+                "origin": self.origin or f"graph:{self.source.name}"}
+
+    def export(self, path: str | None = None, *,
+               weights: "bool | dict | None" = None):
+        """Write (or return) the v1.5 train-step artifact (``kind:
+        "train_step"``): the three phases' artifacts and the linking
+        ``train`` section, which either package's ``load`` turns back into
+        an executable step.  ``weights=True`` embeds :meth:`init_params`
+        in the forward phase."""
+        from repro_torch.core.artifact import export_train_step_artifact
+        from repro_torch.core.costmodel import routing_backend
+        g = self.graphs
+        if weights is True:
+            weights = self.init_params()
+        train = {"loss": g.loss, "seeds": dict(g.seeds),
+                 "residuals": list(g.residuals), "grads": dict(g.grads),
+                 "params": list(g.params), "opt": dict(g.opt)}
+        return export_train_step_artifact(
+            {"forward": self.forward.compiled,
+             "backward": self.backward.compiled,
+             "update": self.update.compiled},
+            train, path, weights=weights, provenance=self.provenance(),
+            backend=routing_backend(self.device))
 
 
 def _host(x) -> np.ndarray:
@@ -424,6 +506,7 @@ def _host(x) -> np.ndarray:
 
 def _compile_train_step(source: DataflowGraph, device, *, options=None,
                         cache=_UNSET, opt=None, wrt=None,
+                        origin: str | None = None,
                         **codo_kwargs) -> CompiledTrainStep:
     graphs = build_train_graphs(source, oc=opt, wrt=wrt)
     progs = []
@@ -431,7 +514,19 @@ def _compile_train_step(source: DataflowGraph, device, *, options=None,
         compiled = codo_opt(phase, options, cache=cache, **codo_kwargs)
         progs.append(CompiledProgram(phase, compiled, *_io_from_graph(phase),
                                      device))
-    return CompiledTrainStep(source, graphs, *progs)
+    step = CompiledTrainStep(source, graphs, *progs)
+    step.origin = origin or f"graph:{source.name}"
+    return step
+
+
+def _trace_origin(fn, source: DataflowGraph) -> str:
+    """``traced:<module>.<qualname>`` of a traced function, a function of
+    this package under its reference counterpart's module (``repro.…``):
+    the two packages' exports of one model then carry one origin."""
+    module = getattr(fn, "__module__", "?")
+    if module == "repro_torch" or module.startswith("repro_torch."):
+        module = "repro" + module[len("repro_torch"):]
+    return f"traced:{module}.{getattr(fn, '__qualname__', source.name)}"
 
 
 def train_state_from_numpy(params: dict[str, Any], opt_state: dict,
@@ -479,9 +574,9 @@ def compile(fn: Callable | DataflowGraph, *specs,  # noqa: A001 — the API name
     arguments are forwarded to :func:`~repro_torch.core.compiler.codo_opt`.
     """
     if mesh is not None:
-        raise _not_ported("mesh= (sharded programs)", "item 11")
+        raise _not_ported("mesh= (sharded programs)", "item 6 (Sharding)")
     if autotune:
-        raise _not_ported("autotune=True", "item 9")
+        raise _not_ported("autotune=True", "item 3 (Tuning)")
     device = resolve_device(device)
     if isinstance(fn, DataflowGraph):
         if specs:
@@ -491,21 +586,71 @@ def compile(fn: Callable | DataflowGraph, *specs,  # noqa: A001 — the API name
         if name is not None and name != source.name:
             raise TraceError(f"compile(graph, name={name!r}) cannot rename "
                              f"graph {source.name!r}")
+        origin = f"graph:{source.name}"
     else:
         source, ins, outs = frontend.trace_io(fn, *specs, name=name)
+        origin = _trace_origin(fn, source)
     if grad:
         return _compile_train_step(source, device, options=options,
                                    cache=cache, opt=opt, wrt=wrt,
-                                   **codo_kwargs)
+                                   origin=origin, **codo_kwargs)
     if opt is not None or wrt is not None:
         raise TraceError("opt=/wrt= only apply with grad=True")
     compiled = codo_opt(source, options, cache=cache, **codo_kwargs)
-    return CompiledProgram(source, compiled, ins, outs, device)
+    program = CompiledProgram(source, compiled, ins, outs, device)
+    program.origin = origin
+    return program
 
 
-def load(path) -> CompiledProgram:
-    """Reconstruct a program from an exported artifact — not ported yet."""
-    raise _not_ported("artifact load", "item 6")
+def load(path, *, device=None) -> "CompiledProgram | CompiledTrainStep":
+    """Reconstruct a program from an artifact (a path or a parsed
+    document) written by either package, on ``device`` (CUDA unless the
+    caller asks for the CPU; see :func:`resolve_device`).  No recompile:
+    op kinds resolve against this package's registry.  Weight payloads
+    are hash-checked and bound as tensors on the device.  A train-step
+    artifact (``kind: "train_step"``) gives a :class:`CompiledTrainStep`
+    whose ``init_params`` are the weights it carries.  An artifact with a
+    ``sharding`` section raises :class:`NotImplementedError`."""
+    from repro_torch.core.artifact import (TRAIN_STEP_KIND, artifact_weights,
+                                           import_artifact, load_artifact)
+    from repro_torch.core.costmodel import routing_backend
+    device = resolve_device(device)
+    doc = load_artifact(path)
+    if doc.get("kind") == TRAIN_STEP_KIND:
+        return _load_train_step(doc, device)
+    compiled = import_artifact(doc, backend=routing_backend(device))
+    # The artifact carries the optimized graph only; it is its own oracle.
+    program = CompiledProgram(compiled.graph, compiled,
+                              *_io_from_graph(compiled.graph), device)
+    # The stored provenance (the post-pass graph's hash is not the pre-pass
+    # source's) travels on, so a re-export round-trips the section.
+    program._provenance = doc.get("provenance")
+    base_dir = None if isinstance(path, dict) else Path(path).parent
+    bound = artifact_weights(doc, base_dir=base_dir)
+    if bound:
+        program.bind(**bound)
+    return program
+
+
+def _load_train_step(doc: dict, device) -> CompiledTrainStep:
+    from repro_torch.core.artifact import import_train_step
+    from repro_torch.core.costmodel import routing_backend
+    phases, train, weights = import_train_step(
+        doc, backend=routing_backend(device))
+    graphs = TrainGraphs(
+        forward=phases["forward"].graph, backward=phases["backward"].graph,
+        update=phases["update"].graph, loss=train["loss"],
+        seeds=dict(train["seeds"]), residuals=list(train["residuals"]),
+        grads=dict(train["grads"]), params=list(train["params"]),
+        opt=dict(train["opt"]))
+    progs = [CompiledProgram(c.graph, c, *_io_from_graph(c.graph), device)
+             for c in (phases["forward"], phases["backward"],
+                       phases["update"])]
+    step = CompiledTrainStep(phases["forward"].graph, graphs, *progs)
+    step._provenance = doc.get("provenance")
+    if weights:
+        step._initial_params = weights
+    return step
 
 
 __all__ = ["CodoOptions", "CompiledProgram", "CompiledTrainStep", "F",

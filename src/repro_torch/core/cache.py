@@ -23,10 +23,18 @@ Two tiers:
   work, lowering raises).  Executable disk hits are promoted into the
   memory tier; stripped ones are not.
 
-Knobs: ``CODO_CACHE_SIZE`` (LRU entries, default 256) and
-``CODO_CACHE_DIR`` (enables the disk tier) — read by
-:func:`repro_torch.core.compiler.default_cache`.  The JSON artifact mirror
-of the reference waits for the port's artifact module.
+With ``json_mirror`` (or ``CODO_CACHE_JSON=1``) every disk store also
+writes the entry's versioned JSON artifact (``<key>.json``, the
+``docs/artifact_format.md`` format) next to the pickle, so the disk tier
+is *inspectable*: ``python -m repro_torch.core.artifact summary
+<entry>.json`` — or either package's ``import_artifact``, or any
+non-Python consumer — reads exactly what was cached.  Mirroring is
+best-effort; closure-built entries (which cannot serialize) are skipped
+silently.
+
+Knobs: ``CODO_CACHE_SIZE`` (LRU entries, default 256), ``CODO_CACHE_DIR``
+(enables the disk tier) and ``CODO_CACHE_JSON`` (JSON mirror) — read by
+:func:`repro_torch.core.compiler.default_cache`.
 """
 
 from __future__ import annotations
@@ -34,11 +42,18 @@ from __future__ import annotations
 import dataclasses
 import os
 import pickle
+import re
 import threading
 from collections import OrderedDict
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Any
+
+# Disk-entry file stem — what :meth:`CompileCache.key` produces:
+# "<sha256 graph hash>-<16-hex options key>".  clear() only touches JSON
+# files with this shape so user artifacts sharing the directory survive.
+_KEY_RE = re.compile(r"^[0-9a-f]{64}-[0-9a-f]{16}$")
+
 
 @dataclass
 class CacheStats:
@@ -49,6 +64,7 @@ class CacheStats:
     evictions: int = 0
     disk_errors: int = 0
     promotions: int = 0      # executable disk hits promoted to memory
+    json_mirrors: int = 0    # artifact JSONs written next to pickles
 
     def summary(self) -> str:
         return (f"cache: {self.hits} hits, {self.disk_hits} disk hits, "
@@ -89,9 +105,14 @@ def _clone(compiled: Any, *, strip_closures: bool = False) -> Any:
 class CompileCache:
     """Thread-safe LRU of compile results, with an optional pickle tier."""
 
-    def __init__(self, maxsize: int = 256, disk_dir: str | Path | None = None):
+    def __init__(self, maxsize: int = 256, disk_dir: str | Path | None = None,
+                 json_mirror: bool | None = None):
         self.maxsize = max(1, int(maxsize))
         self.disk_dir = Path(disk_dir) if disk_dir else None
+        if json_mirror is None:
+            json_mirror = os.environ.get("CODO_CACHE_JSON", "") \
+                .lower() in ("1", "true", "yes")
+        self.json_mirror = bool(json_mirror)
         self.stats = CacheStats()
         self._mem: OrderedDict[str, Any] = OrderedDict()
         self._lock = threading.RLock()
@@ -157,11 +178,12 @@ class CompileCache:
         # Graph copies and pickling happen before taking the lock so a
         # batch-compile thread pool doesn't serialize on the cache.
         entry = _clone(compiled)
-        blob = None
+        blob = stripped = None
         path = self._disk_path(key)
         if path is not None:
             try:
-                blob = pickle.dumps(_clone(compiled, strip_closures=True))
+                stripped = _clone(compiled, strip_closures=True)
+                blob = pickle.dumps(stripped)
             except Exception:
                 # Unpicklable report: the memory tier still works, so
                 # degrade silently but count it.
@@ -180,6 +202,30 @@ class CompileCache:
             except Exception:
                 with self._lock:
                     self.stats.disk_errors += 1
+            else:
+                if self.json_mirror:
+                    self._mirror_json(path, stripped)
+
+    def _mirror_json(self, pkl_path: Path, stripped: Any) -> None:
+        """Write the entry's versioned JSON artifact next to its pickle —
+        the disk tier's inspectable form.  ``stripped`` is the
+        closure-free clone already built for the pickle blob.
+        Closure-built entries cannot serialize and are skipped (expected,
+        not an error); anything else — I/O failures included — counts in
+        ``stats.disk_errors`` like the pickle path."""
+        from .artifact import ArtifactError, dumps, export_artifact  # lazy
+        try:
+            doc = export_artifact(stripped)
+            jtmp = pkl_path.with_suffix(f".{os.getpid()}.json.tmp")
+            jtmp.write_text(dumps(doc))
+            jtmp.replace(pkl_path.with_suffix(".json"))
+            with self._lock:
+                self.stats.json_mirrors += 1
+        except ArtifactError:
+            pass                      # closure/spec-less entry: expected skip
+        except Exception:
+            with self._lock:
+                self.stats.disk_errors += 1
 
     # ---- tuning-database tier ----------------------------------
     @property
@@ -225,13 +271,17 @@ class CompileCache:
 
     def clear(self, *, disk: bool = False) -> None:
         """Drop the memory tier and, with ``disk=True``, the cache's own
-        disk files: pickles and temp files orphaned by interrupted
-        writes."""
+        disk files: pickles, their JSON mirrors (cache-key-named only —
+        a user's hand-exported artifacts sharing the directory survive),
+        and temp files orphaned by interrupted writes."""
         with self._lock:
             self._mem.clear()
             if disk and self.disk_dir is not None and self.disk_dir.exists():
                 for p in self.disk_dir.glob("*.pkl"):
                     p.unlink(missing_ok=True)
+                for p in self.disk_dir.glob("*.json"):
+                    if _KEY_RE.match(p.stem):
+                        p.unlink(missing_ok=True)
                 for p in self.disk_dir.glob("*.tmp"):
                     p.unlink(missing_ok=True)
 

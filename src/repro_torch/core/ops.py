@@ -1,17 +1,20 @@
 """Declarative op registry: ``Task`` numerics as data, not closures.
 
 The PyTorch counterpart of ``repro/core/ops.py``: the same ``OpSpec``
-records, registry, epochs and VJP table, with torch bodies for every
-forward kind (identity, dup, fused, zeros, fill_interior, pad2d, conv2d,
-relu, gelu, add, vadd, scale, affine, divc, rdivc, div, mul, const,
-softmax, matmul, mv, transpose, maxpool2d, mean, reshape, concat, split,
-slice, rglru_scan, ssd_scan) and for the gradient and optimizer kinds
-the GPT-2 block's train step runs (mean_all, bcast, relu_grad, gelu_grad,
-softmax_grad, sumsq, clip_scale, lr_sched, adamw_step).  Any other kind
-(the other gradient kinds, ``rglru_scan_grad`` and ``ssd_scan_grad``
-among them) raises :class:`UnknownOpError` naming it.  No body writes in place: ``dup`` and
-``identity`` alias their input, ``transpose``, ``bcast``, ``split`` and
-``slice`` return views.  ``conv2d`` runs in full float32 whatever
+records, registry, epochs and VJP table, with a torch body for each of the
+reference's 47 kinds — every forward kind (identity, dup, fused, zeros,
+fill_interior, pad2d, conv2d, relu, gelu, add, vadd, scale, affine, divc,
+rdivc, div, mul, const, softmax, matmul, mv, transpose, maxpool2d, mean,
+reshape, concat, split, slice, rglru_scan, ssd_scan), every gradient kind
+the VJP rules emit (mean_all, bcast, outer, relu_grad, gelu_grad,
+softmax_grad, conv2d_input_grad, conv2d_weight_grad, maxpool2d_grad,
+slice_grad, mean_grad, rglru_scan_grad, ssd_scan_grad) and the
+optimizer kinds (sumsq, clip_scale, lr_sched, adamw_step).  A kind
+neither registry holds raises :class:`UnknownOpError` naming it.  Every
+body runs on the device its operands are on.  No body writes in place:
+``dup`` and ``identity`` alias their input, ``transpose``, ``bcast``,
+``split``, ``slice`` and ``mean_grad`` return views.  ``conv2d`` and its
+two gradients run in full float32 whatever
 ``torch.backends.cudnn.allow_tf32`` says.
 
 Historically every :class:`~repro.core.graph.Task` carried its numeric
@@ -611,6 +614,129 @@ def _softmax_grad(spec: OpSpec, env: dict) -> dict:
     axis = int(spec.attrs.get("axis", -1))
     g, y = env[spec.ins[0]], env[spec.ins[1]]
     return {spec.outs[0]: y * (g - (g * y).sum(dim=axis, keepdim=True))}
+
+
+@register_op("outer")
+def _outer(spec: OpSpec, env: dict) -> dict:
+    """Rank-1 outer product ``a ⊗ b`` — the matrix grad of ``mv``."""
+    a, b = env[spec.ins[0]], env[spec.ins[1]]
+    return {spec.outs[0]: a[:, None] * b[None, :]}
+
+
+@register_op("conv2d_input_grad")
+def _conv2d_input_grad(spec: OpSpec, env: dict) -> dict:
+    """Cotangent of a VALID conv's input, in full float32.  ``x_shape``
+    fixes the size: at stride 2 a conv may leave the input's last row or
+    column unread (ResNet-18 pads 56 → 58 and reads 57), and that edge's
+    cotangent is zero."""
+    import torch
+    s = int(spec.attrs.get("stride", 1))
+    groups = int(spec.attrs.get("groups", 1))
+    x_shape = tuple(int(v) for v in spec.attrs["x_shape"])
+    g, w = env[spec.ins[0]], env[spec.ins[1]]
+    with full_f32_convolutions():
+        dx = torch.nn.grad.conv2d_input(x_shape, w, g, stride=s,
+                                        groups=groups)
+    return {spec.outs[0]: dx}
+
+
+@register_op("conv2d_weight_grad")
+def _conv2d_weight_grad(spec: OpSpec, env: dict) -> dict:
+    """Cotangent of a VALID conv's weight, in full float32 (the unread
+    edge of a ragged stride contributes nothing)."""
+    import torch
+    s = int(spec.attrs.get("stride", 1))
+    groups = int(spec.attrs.get("groups", 1))
+    w_shape = tuple(int(v) for v in spec.attrs["w_shape"])
+    g, x = env[spec.ins[0]], env[spec.ins[1]]
+    with full_f32_convolutions():
+        dw = torch.nn.grad.conv2d_weight(x, w_shape, g, stride=s,
+                                         groups=groups)
+    return {spec.outs[0]: dw}
+
+
+@register_op("maxpool2d_grad")
+def _maxpool2d_grad(spec: OpSpec, env: dict) -> dict:
+    """Each k × k window's cotangent to its first maximum in row-major
+    order (a tied window, all zeros after a relu, gives it to its first
+    element, as the reference's ``select_and_scatter`` does); the edge a
+    floor drops gets zero."""
+    import torch.nn.functional as fn
+    k = int(spec.attrs["k"])
+    g, x = env[spec.ins[0]], env[spec.ins[1]]
+    _, where = fn.max_pool2d(x, k, k, return_indices=True)
+    dx = fn.max_unpool2d(g, where, k, k, output_size=tuple(x.shape[-2:]))
+    return {spec.outs[0]: dx}
+
+
+@register_op("slice_grad")
+def _slice_grad(spec: OpSpec, env: dict) -> dict:
+    """Zero-embed the window cotangent back into the source shape (a fresh
+    tensor; the operand is not written)."""
+    import torch
+    g = env[spec.ins[0]]
+    x_shape = tuple(int(v) for v in spec.attrs["x_shape"])
+    ix = tuple(slice(int(st), int(st) + int(sz))
+               for st, sz in zip(spec.attrs["starts"], spec.attrs["sizes"]))
+    out = torch.zeros(x_shape, dtype=g.dtype, device=g.device)
+    out[ix] = g
+    return {spec.outs[0]: out}
+
+
+@register_op("mean_grad")
+def _mean_grad(spec: OpSpec, env: dict) -> dict:
+    """``g / count`` (true division by a 0-d tensor, as ``divc``) spread
+    over the reduced axes: an ``expand`` view, like ``bcast``."""
+    import torch
+    g = env[spec.ins[0]]
+    x_shape = tuple(int(v) for v in spec.attrs["x_shape"])
+    axes = sorted(int(a) % len(x_shape) for a in spec.attrs["axes"])
+    count = 1
+    for a in axes:
+        count *= x_shape[a]
+    q = g / torch.full((), float(count), dtype=g.dtype, device=g.device)
+    for a in axes:
+        q = q.unsqueeze(a)
+    return {spec.outs[0]: q.expand(x_shape)}
+
+
+@register_op("rglru_scan_grad")
+def _rglru_scan_grad(spec: OpSpec, env: dict) -> dict:
+    """``(da, db)`` of ``h_t = a_t·h_{t−1} + b_t``: ``h`` recomputed by the
+    forward loop, then the reverse recurrence ``λ_t = g_t + a_{t+1}·λ_{t+1}``
+    from ``λ_{S−1} = g_{S−1}``, a loop over time in ``a``'s type (a
+    cumulative product would underflow); ``db = λ``, ``da_t = λ_t·h_{t−1}``
+    with ``h_{−1} = 0``."""
+    import torch
+    g, a, b = (env[n] for n in spec.ins)
+    h = _rglru_reference(a, b)
+    lam = g[:, -1]
+    lams = [lam]
+    for t in range(a.shape[1] - 2, -1, -1):
+        lam = g[:, t] + a[:, t + 1] * lam
+        lams.append(lam)
+    db = torch.stack(lams[::-1], dim=1)
+    h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+    return {spec.outs[0]: db * h_prev, spec.outs[1]: db}
+
+
+@register_op("ssd_scan_grad")
+def _ssd_scan_grad(spec: OpSpec, env: dict) -> dict:
+    """``(dstates, ddecay)`` of the carried-in recurrence ``h_{c+1} =
+    h_c·dec_c + st_c`` (outputs ``h_c``): from ``μ_nc = 0`` backwards,
+    ``dst_c = μ_{c+1}``, ``ddec_c = Σ_{P,N} μ_{c+1}·h_c`` (kept at (BH, 1,
+    1)), ``μ_c = g_c + dec_c·μ_{c+1}``."""
+    import torch
+    g, states, decay = (env[n] for n in spec.ins)
+    h = _ssd_reference(states, decay)
+    mu = torch.zeros_like(states[0])
+    dst, ddec = [], []
+    for c in range(states.shape[0] - 1, -1, -1):
+        dst.append(mu)
+        ddec.append((mu * h[c]).sum(dim=(-2, -1), keepdim=True))
+        mu = g[c] + decay[c] * mu
+    return {spec.outs[0]: torch.stack(dst[::-1], dim=0),
+            spec.outs[1]: torch.stack(ddec[::-1], dim=0).to(decay.dtype)}
 
 
 @register_op("sumsq")

@@ -1,15 +1,17 @@
 """The port's op registry against the reference's jnp bodies.
 
-Same seeded numpy inputs through both registries.  Indexing and exact
-arithmetic (identity, dup, transpose, bcast, add, vadd, affine, scale,
-mul, divc, rdivc, div, relu, relu_grad, pad2d, the zeros/fill_interior
-pair, maxpool2d, reshape, const, concat, split, slice) must match bit for
-bit; gelu, softmax, matmul, mv, mean, the reductions and the gradient and
+Same seeded numpy inputs through both registries, which hold the same 47
+kinds.  Indexing and exact arithmetic (identity, dup, transpose, bcast,
+add, vadd, affine, scale, mul, divc, rdivc, div, relu, relu_grad, pad2d,
+the zeros/fill_interior pair, maxpool2d, reshape, const, concat, split,
+slice, and the gradient kinds outer, slice_grad, mean_grad and
+maxpool2d_grad) must match bit for bit; gelu, softmax, matmul, mv, mean,
+the reductions, the two scan gradients and the other gradient and
 optimizer kinds within rtol 1e-6 / atol 2e-6 (torch and XLA:CPU evaluate
 tanh, exp, pow and the sums in another order: about 1e-6 apart on
-unit-scale inputs); conv2d within rtol 1e-5 / atol 1e-5 (sums of up to
-C·K·K = 72 products in another order, outputs up to about 30).  Every
-other kind is not ported and must say so.
+unit-scale inputs); conv2d and its two gradients within rtol 1e-5 /
+atol 1e-5 (sums of up to 72 products in another order, outputs up to
+about 30).  A kind neither registry holds must say so.
 """
 
 import numpy as np
@@ -22,13 +24,6 @@ from repro.core import ops as ref_ops  # noqa: E402
 from repro_torch.core import frontend as F  # noqa: E402
 from repro_torch.core import ops  # noqa: E402
 
-PORTED = ["adamw_step", "add", "affine", "bcast", "clip_scale", "concat",
-          "const", "conv2d", "div", "divc", "dup", "fill_interior", "fused",
-          "gelu", "gelu_grad", "identity", "lr_sched", "matmul", "maxpool2d",
-          "mean", "mean_all", "mul", "mv", "pad2d", "rdivc", "relu",
-          "relu_grad", "reshape", "rglru_scan", "scale", "slice", "softmax",
-          "softmax_grad", "split", "ssd_scan", "sumsq", "transpose", "vadd",
-          "zeros"]
 # The update graph's optimizer attributes (the reference's defaults).
 ADAM = {"b1": 0.9, "b2": 0.95, "eps": 1e-8, "wd": 0.1}
 SCHED = {"lr": 3e-4, "warmup_steps": 100, "total_steps": 10000,
@@ -198,13 +193,13 @@ def test_conv2d_within_band(case):
 
 
 def test_registry_holds_exactly_the_ported_kinds():
-    assert ops.registered_ops() == PORTED
+    assert ops.registered_ops() == ref_ops.registered_ops()
+    assert len(ops.registered_ops()) == 47
 
 
-@pytest.mark.parametrize("kind", ["ssd_scan_grad", "outer", "mean_grad",
-                                  "conv2d_input_grad", "maxpool2d_grad",
-                                  "rglru_scan_grad"])
+@pytest.mark.parametrize("kind", ["no_such_grad"])
 def test_unported_kind_raises_naming_it(kind):
+    assert kind not in ref_ops.registered_ops()
     with pytest.raises(ops.UnknownOpError, match=kind):
         ops.materialize(ops.OpSpec(kind, ("x",), ("y",)))
 
@@ -309,3 +304,157 @@ def test_eager_block_matches_reference():
     got = gpt2_block_fn(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, np.asarray(ref_fn(x)), rtol=1e-5,
                                atol=1e-5)
+
+
+# --------------------------------------------------------------------------
+# The gradient kinds the VJP rules emit (outer, slice_grad, mean_grad,
+# maxpool2d_grad, the conv gradients, the scan gradients).
+# --------------------------------------------------------------------------
+
+
+def _relu_tied(*shape, seed=0):
+    """relu(N(0, 1) − 0.5): about a quarter of the 2 × 2 windows are all
+    zero, so the max-pool gradient's ties show."""
+    return np.maximum(_rand(*shape, seed=seed) - 0.5, 0.0).astype(np.float32)
+
+
+def _gates(*shape, seed=0, lo=0.5, hi=0.999):
+    return np.random.default_rng(seed).uniform(lo, hi, shape).astype(
+        np.float32)
+
+
+GRAD_EXACT = {
+    "outer": (ops.OpSpec("outer", ("a", "b"), ("y",)),
+              [_rand(7, seed=1), _rand(5, seed=2)]),
+    "slice_grad": (ops.OpSpec("slice_grad", ("g",), ("y",), {
+        "starts": (1, 0, 2), "sizes": (2, 3, 3), "x_shape": (4, 3, 6)}),
+        [_rand(2, 3, 3)]),
+    "slice_grad_pad_window": (ops.OpSpec("slice_grad", ("g",), ("y",), {
+        "starts": (0, 0, 1, 1), "sizes": (2, 3, 5, 4),
+        "x_shape": (2, 3, 7, 6)}), [_rand(2, 3, 5, 4)]),
+    "mean_grad_spatial": (ops.OpSpec("mean_grad", ("g",), ("y",), {
+        "axes": (2, 3), "x_shape": (2, 5, 7, 7)}), [_rand(2, 5)]),
+    "mean_grad_unsorted": (ops.OpSpec("mean_grad", ("g",), ("y",), {
+        "axes": (2, 0), "x_shape": (3, 4, 6)}), [_rand(4)]),
+    "maxpool2d_grad": (ops.OpSpec("maxpool2d_grad", ("g", "x"), ("y",),
+                                  {"k": 2}),
+                       [_rand(2, 3, 4, 3, seed=1), _relu_tied(2, 3, 8, 6)]),
+    "maxpool2d_grad_odd": (ops.OpSpec("maxpool2d_grad", ("g", "x"), ("y",),
+                                      {"k": 2}),
+                           [_rand(2, 3, 3, 4, seed=1),
+                            _relu_tied(2, 3, 7, 9)]),
+    "maxpool2d_grad_k3": (ops.OpSpec("maxpool2d_grad", ("g", "x"), ("y",),
+                                     {"k": 3}),
+                          [_rand(1, 2, 3, 2, seed=1), _relu_tied(1, 2, 10, 8)]),
+}
+
+# (spec, inputs): ``x_shape`` / ``w_shape`` at stride 1, at a ragged
+# stride 2 (the last row and column unread) and with groups = C.
+GRAD_CONV = {
+    "input_s1": (ops.OpSpec("conv2d_input_grad", ("g", "w"), ("y",), {
+        "stride": 1, "groups": 1, "x_shape": (2, 4, 8, 8)}),
+        [_rand(2, 6, 6, 6), _rand(6, 4, 3, 3, seed=1)]),
+    "input_s2_ragged": (ops.OpSpec("conv2d_input_grad", ("g", "w"), ("y",), {
+        "stride": 2, "groups": 1, "x_shape": (2, 4, 10, 10)}),
+        [_rand(2, 6, 4, 4), _rand(6, 4, 3, 3, seed=1)]),
+    "input_depthwise": (ops.OpSpec("conv2d_input_grad", ("g", "w"), ("y",), {
+        "stride": 2, "groups": 4, "x_shape": (2, 4, 9, 9)}),
+        [_rand(2, 4, 4, 4), _rand(4, 1, 3, 3, seed=1)]),
+    "input_depthwise_s1": (ops.OpSpec("conv2d_input_grad", ("g", "w"), ("y",),
+                                      {"stride": 1, "groups": 4,
+                                       "x_shape": (1, 4, 7, 7)}),
+                           [_rand(1, 4, 5, 5), _rand(4, 1, 3, 3, seed=1)]),
+    "weight_s1": (ops.OpSpec("conv2d_weight_grad", ("g", "x"), ("y",), {
+        "stride": 1, "groups": 1, "w_shape": (6, 4, 3, 3)}),
+        [_rand(2, 6, 6, 6), _rand(2, 4, 8, 8, seed=1)]),
+    "weight_s2_ragged": (ops.OpSpec("conv2d_weight_grad", ("g", "x"), ("y",), {
+        "stride": 2, "groups": 1, "w_shape": (6, 4, 3, 3)}),
+        [_rand(2, 6, 4, 4), _rand(2, 4, 10, 10, seed=1)]),
+    "weight_depthwise": (ops.OpSpec("conv2d_weight_grad", ("g", "x"), ("y",), {
+        "stride": 2, "groups": 4, "w_shape": (4, 1, 3, 3)}),
+        [_rand(2, 4, 4, 4), _rand(2, 4, 9, 9, seed=1)]),
+    "weight_depthwise_s1": (ops.OpSpec("conv2d_weight_grad", ("g", "x"),
+                                       ("y",), {"stride": 1, "groups": 4,
+                                                "w_shape": (4, 1, 3, 3)}),
+                            [_rand(1, 4, 5, 5), _rand(1, 4, 7, 7, seed=1)]),
+    "weight_1x1_s2_ragged": (ops.OpSpec("conv2d_weight_grad", ("g", "x"),
+                                        ("y",), {"stride": 2, "groups": 1,
+                                                 "w_shape": (8, 4, 1, 1)}),
+                             [_rand(1, 8, 4, 4), _rand(1, 4, 8, 8, seed=1)]),
+}
+
+GRAD_SCAN = {
+    "rglru_scan_grad": (ops.OpSpec("rglru_scan_grad", ("g", "a", "b"),
+                                   ("da", "db")),
+                        [_rand(2, 37, 6), _gates(2, 37, 6, seed=1),
+                         0.1 * _rand(2, 37, 6, seed=2)]),
+    "rglru_scan_grad_one_step": (ops.OpSpec("rglru_scan_grad",
+                                            ("g", "a", "b"), ("da", "db")),
+                                 [_rand(3, 1, 4), _gates(3, 1, 4, seed=1),
+                                  _rand(3, 1, 4, seed=2)]),
+    "ssd_scan_grad": (ops.OpSpec("ssd_scan_grad", ("g", "s", "d"),
+                                 ("ds", "dd")),
+                      [_rand(6, 3, 4, 5), 0.1 * _rand(6, 3, 4, 5, seed=1),
+                       _gates(6, 3, 1, 1, seed=2, hi=0.99)]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GRAD_EXACT))
+def test_gradient_kinds_bit_for_bit(case):
+    spec, arrays = GRAD_EXACT[case]
+    got, want = _both(spec, arrays)
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].shape == want[k].shape
+        np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_maxpool_grad_cases_hold_tied_windows():
+    """The relu'd inputs do hold all-zero windows, and the gradient lands
+    on one element of each (the first), not on all four."""
+    spec, (g, x) = GRAD_EXACT["maxpool2d_grad_odd"]
+    win = x[:, :, :6, :8].reshape(2, 3, 3, 2, 4, 2).max(axis=(3, 5))
+    assert (win == 0).sum() >= 4
+    got, _ = _both(spec, [g, x])
+    y = got["y"][:, :, :6, :8].reshape(2, 3, 3, 2, 4, 2)
+    np.testing.assert_array_equal((y != 0).sum(axis=(3, 5)), g != 0)
+    assert not got["y"][:, :, 6:, :].any() and not got["y"][:, :, :, 8:].any()
+
+
+@pytest.mark.parametrize("case", sorted(GRAD_CONV))
+def test_conv_gradients_within_band(case):
+    spec, arrays = GRAD_CONV[case]
+    got, want = _both(spec, arrays)
+    assert got["y"].shape == want["y"].shape
+    np.testing.assert_allclose(got["y"], want["y"], **CONV_BAND)
+
+
+def test_ragged_stride_leaves_the_unread_edge_zero():
+    spec, arrays = GRAD_CONV["input_s2_ragged"]
+    got, _ = _both(spec, arrays)
+    assert not got["y"][:, :, 9, :].any() and not got["y"][:, :, :, 9].any()
+    assert got["y"][:, :, 8, :].any()
+
+
+@pytest.mark.parametrize("case", sorted(GRAD_SCAN))
+def test_scan_gradients_within_band(case):
+    spec, arrays = GRAD_SCAN[case]
+    got, want = _both(spec, arrays)
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].shape == want[k].shape and got[k].dtype == want[k].dtype
+        np.testing.assert_allclose(got[k], want[k], err_msg=k, **BAND)
+
+
+def test_gradient_bodies_write_no_operand():
+    """slice_grad embeds into a fresh tensor; mean_grad is an expand view
+    of ``g / count``; neither touches its operand."""
+    g = torch.from_numpy(_rand(2, 3, 3))
+    before = g.clone()
+    spec, _ = GRAD_EXACT["slice_grad"]
+    y = ops.materialize(spec)({"g": g})["y"]
+    assert y.data_ptr() != g.data_ptr()
+    torch.testing.assert_close(g, before, rtol=0, atol=0)
+    spec, _ = GRAD_EXACT["mean_grad_spatial"]
+    y = ops.materialize(spec)({"g": torch.from_numpy(_rand(2, 5))})["y"]
+    assert y.shape == (2, 5, 7, 7) and y.stride()[2:] == (0, 0)
