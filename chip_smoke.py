@@ -6,8 +6,10 @@ CUDA toolkit:
 
     python3 chip_smoke.py
 
-In order, and failing (non-zero exit, no result line) at the first
-problem:
+Every path and kernel check runs under forced routing
+(``CODO_FORCE_PALLAS=1``), so every kernel launches whatever the fitted
+gate decides; phase 10 asserts the default gate's plans.  In order, and
+failing (non-zero exit, no result line) at the first problem:
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every kernel of the port from ``src/repro_torch/csrc`` (eight
@@ -30,12 +32,12 @@ problem:
    the generic ``conv2d`` body is full float32 on the card with cuDNN's
    TF32 flag at its default;
 4. drives the serving path — ``codo_torch.compile(gpt2_block_fn, (S,
-   1024))`` with the default cost gate, distinct seeded weights bound
+   1024))``, distinct seeded weights bound
    through ``params_from_numpy`` — at S=128 and S=1024: four requests
    each, the launch counters zeroed just before and read just after, then
    ``verify()`` against the task-by-task oracle on the card;
 5. drives the training path — ``codo_torch.compile(gpt2_block_loss_fn,
-   (S, 1024), (S, 1024), grad=True)`` with the default gate, distinct
+   (S, 1024), (S, 1024), grad=True)``, distinct
    seeded parameters, input and target carried in through
    ``train_state_from_numpy`` — at S=128 and S=1024: the backward routed
    to exactly two ``streamfuse.mmgrad`` groups, four ``step()``s with the
@@ -43,7 +45,7 @@ problem:
    on the card with each gradient also held to a band of its own scale,
    and (S=128) one step against the same step of the port on the CPU;
 6. drives the CNN serving path — ``codo_torch.compile(resnet18_fn, (N, 3,
-   224, 224))`` at N=1 and N=8 and ``vgg16_fn`` at N=1, default gate,
+   224, 224))`` at N=1 and N=8 and ``vgg16_fn`` at N=1,
    fan-in-scaled seeded weights (``random_inputs``) bound through
    ``params_from_numpy`` — with the routed groups asserted (five
    ``streamfuse.conv`` chains; thirteen plus the ``streamfuse.mmchain``
@@ -54,7 +56,7 @@ problem:
    ``rglru_block_fn`` (2, 2048, 4096), ``ssd_block_fn`` (16, 96, 64, 128),
    ``mha_batched_fn`` (16, 2048, 256) and the bare tail ``matmul(softmax(s),
    v)`` at (1024, 1024) @ (1024, 64) and (2048, 2048) @ (2048, 256) —
-   through ``codo_torch.compile`` with the default gate and seeded inputs
+   through ``codo_torch.compile`` with seeded inputs
    in each model's domain: the one routed group asserted (``rglru.scan``,
    ``ssd.scan``, ``flashattn.mha``, ``streamfuse.softmaxmm``), four
    requests with the launch counters zeroed just before and read just
@@ -63,7 +65,7 @@ problem:
    ``ops.mm`` at (1024, 1024) @ (1024, 4096), four calls counted the same
    way;
 8. drives the slice's train paths — ``codo_torch.compile(<loss>,
-   *shapes, grad=True)`` with the default gate over three MSE losses
+   *shapes, grad=True)`` over three MSE losses
    written here: ResNet-18 at (N, 3, 224, 224) against an (N, 1000)
    target, N=1 and 8 (no group routed in any phase: cuDNN forward and
    backward, the gradient kinds' bodies in full float32); rglru_block at
@@ -80,9 +82,28 @@ problem:
    both with ``codo_torch.load`` on the card, and holds four requests
    bit for bit against the exporting program (same groups, same
    launches) and one train step from the same state within rtol 1e-6;
-10. prints the card line, the ``kernels`` JSON line (the scans' entries
-    twice: their serving and their train-path launches) and, last, the
-    ``{"ok": true, "device": ...}`` line.
+10. the routing fit: autotunes every path above (and gpt2_block batched
+    as phase 11 serves it) into a private ``TuningDB``, after a first run
+    and ``verify()`` on the card of mobilenet and zfnet at 224 x 224 and
+    yolo_tiny at 384 x 1280; prints each record (routed and generic walls,
+    the choice) and ``calibrate_routing_params`` of them beside the
+    ``"cuda"`` constants; asserts each path's plan under the default gate
+    (``DEFAULT_GATE_PLANS``);
+11. serves gpt2_block at GPT-2 medium (S=128) through
+    ``repro_torch.serving.ServingRuntime`` from an exported artifact:
+    flash held against its plain version at the batched shape (8, 128,
+    1024); one window of eight requests as one batched dispatch (one
+    compile miss, flash launched once for the batch, each answer within
+    1e-4 of the request served alone, the bit-for-bit count printed);
+    32 free-running requests (p50, p99) against 32 served one at a time;
+    ResNet-18 per request (it cannot batch); a hot-swap to a second
+    generation with requests in flight (none lost, each answer one
+    generation's, later requests the new one's); a one-worker spawn pool,
+    bit for bit the inline runtime's answers;
+12. prints the card line, the ``kernels`` JSON line (the scans' entries
+    twice: their serving and their train-path launches; flash's also at
+    the serving batch) and, last, the ``{"ok": true, "device": ...}``
+    line.
 
 The full record (every check, every timing) goes to
 ``chiprun_out/chip_smoke.json``.  Imports nothing of JAX or the JAX
@@ -203,6 +224,37 @@ RGLRU = "pallas:rglru.scan"
 SSD = "pallas:ssd.scan"
 FLASH = "pallas:flashattn.mha"
 SOFTMAXMM = "pallas:streamfuse.softmaxmm"
+# The routing fit: every matched chain of every path timed routed and
+# generic (best-of walls, host time included) into a private TuningDB;
+# the generic scans are Python loops over time, so fewer repeats there.
+FIT_REPEATS = 5
+FIT_SCAN_REPEATS = 3
+# Catalog CNNs that first run on the card in the routing fit, at N = 1:
+# ImageNet's 224 x 224 for mobilenet and zfnet, yolo_tiny's 384 x 1280.
+NEW_CNNS = [("mobilenet", (1, 3, IMAGE, IMAGE)), ("zfnet", (1, 3, IMAGE, IMAGE)),
+            ("yolo_tiny", (1, 3, 384, 1280))]
+# The serving phase: gpt2_block at GPT-2 medium (S = 128) behind the
+# runtime, one window of SERVE_BATCH requests coalesced into one batched
+# dispatch, then SERVE_FREE requests free-running.
+SERVE_S = 128
+SERVE_BATCH = 8
+SERVE_FREE = 32
+# The routed groups of each path under the default gate with the fitted
+# "cuda" parameters (costmodel.DEFAULT_ROUTING_PARAMS); a train step's by
+# phase.  Flash, the FFN chain and the softmax tail lost to the generic
+# path on the card, so no gpt2_block forward, attention or tail routes;
+# the conv chains, mmgrad and the scans do.  The tests pin the same plans
+# on the CPU ("cuda" backend) for the gpt2, CNN and recurrence paths.
+DEFAULT_GATE_PLANS: dict = {
+    "gpt2_block S=128": [], "gpt2_block S=1024": [],
+    f"gpt2_block serving batch {SERVE_BATCH}": [],
+    **{f"gpt2_block train S={S}": {"forward": [], "backward": [MMGRAD] * 2,
+                                   "update": []} for S in SEQS},
+    "resnet18 N=1": [CONV] * 5, "resnet18 N=8": [CONV] * 5,
+    "vgg16 N=1": [CONV] * 13, "rglru_block": [RGLRU], "ssd_block": [SSD],
+    "mha_batched": [], "attention_tail 1024x1024x64": [],
+    "attention_tail 2048x2048x256": [], "mobilenet N=1": [],
+    "zfnet N=1": [CONV] * 3, "yolo_tiny N=1": [CONV] * 7}
 
 
 def fail(msg: str) -> None:
@@ -1105,8 +1157,8 @@ def conv_route_shapes(program) -> list:
 
 
 def cnn_path(model: str, N: int, routes) -> dict:
-    """codo_torch.compile(<model>_fn, (N, 3, 224, 224)) with the default
-    gate, fan-in-scaled seeded weights (random_inputs) bound through
+    """codo_torch.compile(<model>_fn, (N, 3, 224, 224)) under forced
+    routing, fan-in-scaled seeded weights (random_inputs) bound through
     params_from_numpy: the routed groups asserted, four requests with the
     launch counters zeroed just before and read just after, verify() on
     the card, and (N = 1) the card against the port on the CPU."""
@@ -1211,12 +1263,32 @@ def cnn_path(model: str, N: int, routes) -> dict:
     return result
 
 
+def measure_flash(record: dict, name: str, q, k, v, iters: int) -> dict:
+    """Flash at a route's operands with gpt2_block's score scale: held
+    against its plain version, timed beside it and SDPA, with its bound
+    and profiled device time."""
+    import torch
+    from repro_torch.kernels.flashattn import (flash_attention,
+                                               flash_attention_plain)
+    kw = dict(causal=False, window=0, scale=C)
+    err = check(record["checks"], name, flash_attention(q, k, v, **kw),
+                flash_attention_plain(q, k, v, **kw), TOL["f32_wide"])
+    ms, plain = in_turns(lambda: flash_attention_plain(q, k, v, **kw),
+                         lambda: flash_attention(q, k, v, **kw), iters)
+    library = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, scale=C), iters)
+    B, H, S, hd = q.shape
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=library,
+                **tf32x3_bound(4.0 * B * H * S * S * hd,
+                               4.0 * 4 * B * H * S * hd),
+                device_ms=device_ms(lambda: flash_attention(q, k, v, **kw),
+                                    iters))
+
+
 def measure_kernels(S: int, record: dict) -> dict:
     """Kernel, plain and library times at the main path's shapes for S,
     the kernel's profiled device time, and the max error there."""
     import torch
-    from repro_torch.kernels.flashattn import (flash_attention,
-                                               flash_attention_plain)
     from repro_torch.kernels.streamfuse import (fused_matmul_chain,
                                                 fused_matmul_grad,
                                                 matmul_chain_plain,
@@ -1226,21 +1298,9 @@ def measure_kernels(S: int, record: dict) -> dict:
     iters = 20 if S <= 128 else 5
     out = {}
 
-    q, k, v = flash_route_operands(S, g)
-    kw = dict(causal=False, window=0, scale=C)
-    err = check(record["checks"], f"flash route 1x1x{S}x{D_MODEL} scale={C}",
-                flash_attention(q, k, v, **kw),
-                flash_attention_plain(q, k, v, **kw), TOL["f32_wide"])
-    ms, plain = in_turns(lambda: flash_attention_plain(q, k, v, **kw),
-                         lambda: flash_attention(q, k, v, **kw), iters)
-    library = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, scale=C), iters)
-    out["flash"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                        library_ms=library,
-                        **tf32x3_bound(4.0 * S * S * D_MODEL,
-                                       4.0 * 4 * S * D_MODEL),
-                        device_ms=device_ms(
-                            lambda: flash_attention(q, k, v, **kw), iters))
+    out["flash"] = measure_flash(record, f"flash route 1x1x{S}x{D_MODEL} "
+                                 f"scale={C}", *flash_route_operands(S, g),
+                                 iters)
 
     a, w1, w2 = chain_route_operands(S, g)
     err = check(record["checks"], f"mmchain route {S}x{D_MODEL}x"
@@ -1304,7 +1364,7 @@ def measure_kernels(S: int, record: dict) -> dict:
 
 
 def main_path(S: int, record: dict) -> dict:
-    """codo_torch.compile(gpt2_block_fn, (S, D)) with the default gate:
+    """codo_torch.compile(gpt2_block_fn, (S, D)) under forced routing:
     four requests with the launch counters zeroed just before, then
     verify() on the card."""
     import numpy as np
@@ -1469,7 +1529,7 @@ def _close(name: str, got, want, rtol: float, atol: float) -> float:
 
 def train_path(S: int) -> dict:
     """codo_torch.compile(gpt2_block_loss_fn, (S, D), (S, D), grad=True)
-    with the default gate: the backward routed to exactly two mmgrad
+    under forced routing: the backward routed to exactly two mmgrad
     groups; a warm step, then four steps with the launch counters zeroed
     just before and read just after; verify() on the card; and (S=128)
     one step against the same step of the port on the CPU."""
@@ -1896,7 +1956,7 @@ def slice_workloads() -> list:
 
 def slice_path(seed, name, fn, shapes, group, lib_name, per_request,
                make_inputs) -> dict:
-    """codo_torch.compile(fn, *shapes) with the default gate: the one
+    """codo_torch.compile(fn, *shapes) under forced routing: the one
     routed group asserted, four requests with the launch counters zeroed
     just before and read just after (the slice's kernel and no other, its
     expected count a request), verify() on the card, the card against
@@ -2073,8 +2133,8 @@ def train_workloads() -> list:
 
 def slice_train_path(seed, name, fn, specs, wrt, group, lib_name, per_step,
                      make, on_cpu) -> dict:
-    """codo_torch.compile(fn, *specs, grad=True, wrt=wrt) with the default
-    gate: the routed groups of each phase asserted; a warm step, then
+    """codo_torch.compile(fn, *specs, grad=True, wrt=wrt) under forced
+    routing: the routed groups of each phase asserted; a warm step, then
     four steps with the launch counters zeroed just before and read just
     after (the path's kernel, its count a step, and no other); verify()
     on the card with each gradient held to its own scale; one step
@@ -2246,13 +2306,471 @@ def reload_path() -> dict:
             "train_param_max_abs_err": param_err, "bytes": sizes}
 
 
+def fit_workloads() -> list:
+    """(label, compile, repeats) of every path the script drives — the
+    gpt2_block program at both S and batched as the serving phase serves
+    it, its train step at both S, ResNet-18 at both N, VGG-16, the
+    recurrence and attention-tail paths — then the three catalog CNNs new
+    to the card; ``compile()`` builds the program or train step on the
+    card."""
+    import codo_torch
+    from repro_torch.core.frontend import batch_graph, trace
+    from repro_torch.models import dataflow_models as dm
+    D = D_MODEL
+    out = [(f"gpt2_block S={S}",
+            lambda S=S: codo_torch.compile(dm.gpt2_block_fn, (S, D)),
+            FIT_REPEATS) for S in SEQS]
+    # The serving phase's batched program: SERVE_BATCH requests of
+    # gpt2_block coalesced (frontend.batch_graph), as the runtime builds it.
+    out.append((f"gpt2_block serving batch {SERVE_BATCH}",
+                lambda: codo_torch.compile(batch_graph(
+                    trace(dm.gpt2_block_fn, (SERVE_S, D), name="gpt2_block"),
+                    SERVE_BATCH)), FIT_REPEATS))
+    out += [(f"gpt2_block train S={S}",
+             lambda S=S: codo_torch.compile(dm.gpt2_block_loss_fn, (S, D),
+                                            (S, D), grad=True),
+             FIT_REPEATS) for S in SEQS]
+    out += [(f"resnet18 N={N}",
+             lambda N=N: codo_torch.compile(dm.resnet18_fn,
+                                            (N, 3, IMAGE, IMAGE)),
+             FIT_REPEATS) for N in CNN_BATCHES]
+    out.append(("vgg16 N=1", lambda: codo_torch.compile(
+        dm.vgg16_fn, (1, 3, IMAGE, IMAGE)), FIT_REPEATS))
+    for name, fn, shapes, group, *_ in slice_workloads():
+        out.append((name, lambda fn=fn, shapes=shapes: codo_torch.compile(
+            fn, *shapes), FIT_SCAN_REPEATS if group in (RGLRU, SSD)
+            else FIT_REPEATS))
+    out += [(f"{name} N=1", lambda name=name, shape=shape: codo_torch.compile(
+        getattr(dm, f"{name}_fn"), shape), FIT_REPEATS)
+        for name, shape in NEW_CNNS]
+    return out
+
+
+def first_run(label: str, program) -> dict:
+    """A catalog CNN's first run on the card (under forced routing, so its
+    chains run their kernels): fan-in-scaled seeded weights, one request,
+    finite output, verify() against the oracle on the card."""
+    import torch
+
+    import codo_torch
+    from repro_torch.models.dataflow_models import random_inputs
+    env = random_inputs(program.graph, seed=SEED + 90)
+    weights = {k: v for k, v in env.items()
+               if program.graph.buffers[k].kind == "weight"}
+    program.bind(**codo_torch.params_from_numpy(weights, program.graph,
+                                                program.device))
+    x = env[program.input_names[0]]
+    t = time.perf_counter()
+    y = program(x)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t)
+    if not bool(torch.isfinite(y).all()):
+        fail(f"{label}: output not finite")
+    program.verify(x, rtol=VERIFY_BAND, atol=VERIFY_BAND)
+    env = program.make_env(x)
+    got = program.lower()(env)[program.output_names[0]]
+    ref = program.source.execute(env)[program.output_names[0]]
+    err, scale = max_err(got, ref), float(ref.abs().max())
+    groups = [g.kernel for g in program.lower().groups if g.routes]
+    print(f"  {label}: first run on the card, output {tuple(y.shape)}, "
+          f"{len(groups)} routed groups (forced), first request {wall:.1f} "
+          f"ms; verify max_abs_err {err:.3e} (scale {scale:.3f}) within "
+          f"{VERIFY_BAND:.0e}")
+    return {"output_shape": list(y.shape), "routed_groups": groups,
+            "first_request_ms": wall, "verify_max_abs_err": err,
+            "verify_scale": scale}
+
+
+def gate_plan(made):
+    """The routed groups of a program (a train step's by phase) under the
+    default gate — lowered afresh, as a program on the card would be."""
+    from repro_torch.core.lowering import lower
+
+    def routed(program):
+        return [g.kernel for g in lower(program.compiled,
+                                        device=program.device).groups
+                if g.routes]
+
+    forced = os.environ.pop("CODO_FORCE_PALLAS", None)
+    try:
+        if hasattr(made, "forward"):
+            return {ph: routed(getattr(made, ph)) for ph in PHASES}
+        return routed(made)
+    finally:
+        if forced is not None:
+            os.environ["CODO_FORCE_PALLAS"] = forced
+
+
+def routing_fit() -> dict:
+    """Autotune every path into a private TuningDB — never the process
+    default: its records beat CODO_FORCE_PALLAS in the routing gate, and
+    later phases would stop launching kernels — and print each record;
+    fit the "cuda" gate's efficiencies from them (calibrate_routing_params)
+    beside the constants in use; then each path's plan under the default
+    gate, asserted."""
+    from repro_torch.core.costmodel import (DEFAULT_ROUTING_PARAMS,
+                                            calibrate_routing_params)
+    from repro_torch.core.tuning import TuningDB
+    t0 = time.perf_counter()
+    db = TuningDB()
+    rows, plans, first, seconds = [], {}, {}, {}
+    new = {f"{name} N=1" for name, _ in NEW_CNNS}
+    for label, build, repeats in fit_workloads():
+        t = time.perf_counter()
+        made = build()
+        if label in new:
+            first[label] = first_run(label, made)
+        for r in made.autotune(db=db, repeats=repeats, warmup=2, seed=SEED):
+            rows.append({"workload": label, "graph": r.workload,
+                         "kernel": r.pattern, "tasks": r.tasks,
+                         "routed_ms": r.routed_ms, "generic_ms": r.generic_ms,
+                         "speedup": r.speedup, "choice": r.choice,
+                         "signature": r.signature})
+            print(f"  {label}: {r.pattern:<20s} routed {r.routed_ms:.4f} ms, "
+                  f"generic {r.generic_ms:.4f} ms ({r.speedup:.3f}x) -> "
+                  f"{r.choice}")
+        plan = gate_plan(made)
+        plans[label] = plan
+        seconds[label] = time.perf_counter() - t
+        print(f"  {label}: default-gate plan {plan}")
+        if plan != DEFAULT_GATE_PLANS.get(label):
+            fail(f"{label}: the default gate routes {plan}, expected "
+                 f"{DEFAULT_GATE_PLANS.get(label)}")
+    fit = calibrate_routing_params({"backend": "cuda", "records": rows})
+    have = DEFAULT_ROUTING_PARAMS["cuda"]
+    print("  fitted efficiency (geomean of generic/routed, clamped 0.5-2.0) "
+          "beside the constants in use:")
+    for pat, eff in fit.efficiency:
+        n = sum(1 for r in rows if r["kernel"] == pat)
+        print(f"    {pat:<20s} {eff:.4f} from {n} records (constant "
+              f"{have.eff(pat):.4f})")
+    total = time.perf_counter() - t0
+    print(f"  routing fit: {len(rows)} records in {total:.1f} s")
+    return {"records": rows, "efficiency": dict(fit.efficiency),
+            "constants": dict(have.efficiency), "default_gate_plans": plans,
+            "first_runs": first, "seconds": seconds, "total_s": total}
+
+
+def measure_serving_flash(record: dict) -> dict:
+    """Flash at the batched program's shape, (8, 128, 1024) with kᵀ a
+    view as the route hands it over: measure_flash, and two calls bit
+    for bit the same."""
+    import torch
+    from repro_torch.kernels.flashattn import flash_attention
+    g = torch.Generator(device="cuda").manual_seed(SEED + 101)
+    B, S = SERVE_BATCH, SERVE_S
+    q = torch.randn(B, 1, S, D_MODEL, generator=g, device="cuda")
+    k = torch.randn(B, 1, D_MODEL, S, generator=g,
+                    device="cuda").transpose(-1, -2)
+    v = torch.randn(B, 1, S, D_MODEL, generator=g, device="cuda")
+    name = f"flash serving batch {B}x1x{S}x{D_MODEL} scale={C}"
+    m = measure_flash(record, name, q, k, v, 20)
+    kw = dict(causal=False, window=0, scale=C)
+    same(record["checks"], name, flash_attention(q, k, v, **kw),
+         flash_attention(q, k, v, **kw))
+    print(f"  {name}: kernel {m['ms']:.4f} ms (device {m['device_ms']:.4f})"
+          f"  plain {m['plain_ms']:.4f} ms  SDPA {m['library_ms']:.4f} ms  "
+          f"{bound_text(m)}")
+    return m
+
+
+def _rel(got, want) -> float:
+    """Largest difference relative to the answer's own scale."""
+    return max_err(got, want) / float(want.float().abs().max())
+
+
+def dispatch_parts(program, xs, y_name: str) -> dict:
+    """One dispatch of ``program`` on the requests ``xs`` (stacked when
+    there are several) taken apart on the host, median of five: the
+    inputs to the card, the lowered program to its end, the answer to the
+    host; and the profiled device time of one run."""
+    import numpy as np
+    import torch
+    parts: dict = {"to_card_ms": [], "run_ms": [], "to_host_ms": []}
+    for _ in range(5):
+        t0 = time.perf_counter()
+        x = torch.stack([torch.as_tensor(x, device="cuda") for x in xs])
+        x = x if len(xs) > 1 else x[0]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        env = program.make_env(x)
+        y = program.lower()(env)[y_name]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        y.cpu()
+        t3 = time.perf_counter()
+        for key, a, b in (("to_card_ms", t0, t1), ("run_ms", t1, t2),
+                          ("to_host_ms", t2, t3)):
+            parts[key].append(1e3 * (b - a))
+    out = {k: float(np.median(v)) for k, v in parts.items()}
+    run = program.lower()
+    out["profile"] = profile_device(lambda: run(env))
+    out["device_ms"] = sum(r["device_us"] for r in out["profile"]) / 1e3
+    print(f"    {len(xs)} request(s) in one dispatch: to the card "
+          f"{out['to_card_ms']:.3f} ms, run {out['run_ms']:.3f} ms (device "
+          f"{out['device_ms']:.3f}), to the host {out['to_host_ms']:.3f} ms")
+    return out
+
+
+def serving_path() -> dict:
+    """The serving runtime on the card, under forced routing as every
+    kernel path here (the fitted gate declines flash at every gpt2_block
+    shape, the batched one included: the routing fit asserts that plan):
+    gpt2_block at GPT-2 medium exported with distinct seeded weights and
+    served from the artifact — one window of SERVE_BATCH requests as one
+    batched dispatch (one compile miss, flash launched once for the whole
+    batch), each answer against the same request served alone, and the
+    dispatch's host and device time taken apart; SERVE_FREE requests
+    free-running against as many served one at a time; ResNet-18, which
+    cannot batch, per request; a hot-swap to a second generation under
+    load; and a one-worker spawn pool against the inline runtime, bit for
+    bit."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import codo_torch
+    from repro_torch.core.cache import CompileCache
+    from repro_torch.kernels.flashattn.flashattn import flash_launches
+    from repro_torch.kernels.streamfuse import CONV_LIBRARY as CONVLIB
+    from repro_torch.models import dataflow_models as dm
+    from repro_torch.serving import ServeConfig, ServingRuntime
+
+    S, B = SERVE_S, SERVE_BATCH
+    rng = np.random.default_rng(SEED + 100)
+
+    def requests(n):
+        return [rng.standard_normal((S, D_MODEL)).astype(np.float32)
+                for _ in range(n)]
+
+    def window(rt, model, xs):
+        """xs placed in one batching window: (futures, answers)."""
+        rt.pause()
+        futs = [rt.submit(model, x=x) for x in xs]
+        rt.resume()
+        return futs, [f.result(timeout=600)[y_name] for f in futs]
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    out: dict = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        gens, paths = [], []
+        for gen in range(2):
+            # cache=None: a design of its own, whose recorded routing no
+            # earlier lowering of the same structure has written over.
+            program = codo_torch.compile(dm.gpt2_block_fn, (S, D_MODEL),
+                                         cache=None)
+            weights = {b.name: (rng.standard_normal(b.shape)
+                                / math.sqrt(b.shape[0])).astype(np.float32)
+                       for b in program.graph.weights()}
+            if len({w.tobytes() for w in weights.values()}) != len(weights):
+                fail("serving: bound weights are not distinct")
+            program.bind(**codo_torch.params_from_numpy(
+                weights, program.graph, program.device))
+            path = Path(tmp) / f"gpt2_block_gen{gen}.json"
+            program.export(path, weights=True)
+            gens.append(program)
+            paths.append(str(path))
+        y_name = gens[0].output_names[0]
+
+        cache = CompileCache()
+        cfg = ServeConfig(batch_window_ms=500, max_batch=B)
+        # Requests served alone: a runtime that dispatches each at once.
+        solo = ServingRuntime(ServeConfig(max_batch=1), cache=cache)
+        solo.add_model("gpt2", paths[0])
+        with solo, ServingRuntime(cfg, cache=cache) as rt:
+            handle = rt.add_model("gpt2", paths[0])
+            xs = requests(B)
+            misses = cache.stats.misses
+            zero_counts()
+            t = time.perf_counter()
+            futs, outs = window(rt, "gpt2", xs)
+            first_ms = 1e3 * (time.perf_counter() - t)
+            launches = {k: lib.launches for k, lib in all_libraries().items()}
+            st = rt.stats
+            if (st.batches, st.batched_requests) != (1, B):
+                fail(f"serving: {st.batches} dispatches, "
+                     f"{st.batched_requests} batched; expected 1 and {B}")
+            if cache.stats.misses - misses != 1:
+                fail(f"serving: {cache.stats.misses - misses} compile "
+                     f"misses for one batched window, expected 1")
+            plan = [g.kernel for g in handle.batched[B].lower().groups]
+            want = flash_launches(S, S, B, D_MODEL)
+            print(f"  batched window: {B} requests in one dispatch, "
+                  f"{first_ms:.1f} ms (its compile included); plan {plan}; "
+                  f"launches {launches}")
+            if launches["flash"] != want or any(
+                    n for k, n in launches.items() if k != "flash"):
+                fail(f"serving: launches {launches}, expected flash {want} "
+                     f"(one call for the whole batch) and nothing else")
+            alone = [solo.submit("gpt2", x=x).result(timeout=600)[y_name]
+                     for x in xs]
+            rel = [_rel(b, a) for b, a in zip(outs, alone)]
+            bitwise = [bool(torch.equal(b, a)) for b, a in zip(outs, alone)]
+            print(f"  batched vs served alone, relative to each answer's "
+                  f"scale: {', '.join(f'{r:.2e}' for r in rel)}; bit for "
+                  f"bit: {sum(bitwise)} of {B}")
+            if max(rel) > VERIFY_BAND:
+                fail(f"serving: batched answers {max(rel):.3e} from "
+                     f"sequential, above {VERIFY_BAND:.0e}")
+            out["batched"] = {"plan": plan, "launches": launches,
+                              "flash_launches": launches["flash"],
+                              "first_window_ms": first_ms,
+                              "rel_vs_alone": rel, "bit_identical": bitwise,
+                              "compile_misses": 1,
+                              "dispatch": dispatch_parts(
+                                  handle.batched[B], xs, y_name),
+                              "request": dispatch_parts(
+                                  gens[0], xs[:1], y_name)}
+
+            # Free-running arrival, then the same number one at a time.
+            xs = requests(SERVE_FREE)
+            t = time.perf_counter()
+            futs = [rt.submit("gpt2", x=x) for x in xs]
+            for f in futs:
+                f.result(timeout=600)
+            batched_s = time.perf_counter() - t
+            lat = sorted(1e3 * (f.resolved - f.submitted) for f in futs)
+            t = time.perf_counter()
+            seq = []
+            for x in xs:
+                f = solo.submit("gpt2", x=x)
+                f.result(timeout=600)
+                seq.append(1e3 * (f.resolved - f.submitted))
+            sequential_s = time.perf_counter() - t
+            p50, p99 = (float(np.percentile(lat, q)) for q in (50, 99))
+            # Each dispatch of the free-running run, from the one before it
+            # ended to its own end (the queue never ran dry in between).
+            ends = [max(f.resolved for f in futs[i:i + B])
+                    for i in range(0, SERVE_FREE, B)]
+            gaps = [1e3 * (b - a) for a, b in zip(ends, ends[1:])]
+            out["throughput"] = {
+                "requests": SERVE_FREE, "batched_s": batched_s,
+                "sequential_s": sequential_s,
+                "batched_rps": SERVE_FREE / batched_s,
+                "sequential_rps": SERVE_FREE / sequential_s,
+                "p50_ms": p50, "p99_ms": p99,
+                "sequential_p50_ms": float(np.percentile(seq, 50)),
+                "sequential_p99_ms": float(np.percentile(seq, 99)),
+                "dispatch_gaps_ms": gaps}
+            print(f"  {SERVE_FREE} free-running requests: "
+                  f"{SERVE_FREE / batched_s:.1f} req/s batched, p50 "
+                  f"{p50:.2f} ms, p99 {p99:.2f} ms; one at a time "
+                  f"{SERVE_FREE / sequential_s:.1f} req/s; a dispatch of "
+                  f"{B} after the first: "
+                  f"{', '.join(f'{g:.2f}' for g in gaps)} ms")
+
+            # ResNet-18 cannot batch (pad2d, conv2d): per request.
+            shape = (1, 3, IMAGE, IMAGE)
+            cnn = codo_torch.compile(dm.resnet18_fn, shape)
+            env = dm.random_inputs(cnn.graph, seed=SEED + 102)
+            cnn.bind(**codo_torch.params_from_numpy(
+                {k: v for k, v in env.items()
+                 if cnn.graph.buffers[k].kind == "weight"},
+                cnn.graph, cnn.device))
+            blockers = rt.add_model("resnet18", cnn).blockers
+            routed = sum(1 for g in cnn.lower().groups for r in g.routes
+                         if r.kernel == "streamfuse.conv")
+            before = rt.stats.fallback_requests
+            zero_counts()
+            rt.pause()
+            cfuts = [rt.submit("resnet18",
+                               x=rng.standard_normal(shape).astype(np.float32))
+                     for _ in range(REQUESTS)]
+            rt.resume()
+            cnn_outs = [f.result(timeout=600)[cnn.output_names[0]]
+                        for f in cfuts]
+            conv_calls = CONVLIB.entry_launches["codo_pad_conv_relu"]
+            fallback = rt.stats.fallback_requests - before
+            print(f"  resnet18 {shape}: {fallback} requests per request "
+                  f"({blockers[0]}); conv kernel calls "
+                  f"{conv_calls} = {routed} routed chains x {REQUESTS}")
+            if fallback != REQUESTS or conv_calls != routed * REQUESTS:
+                fail(f"serving: resnet18 fallback {fallback}, conv calls "
+                     f"{conv_calls}; expected {REQUESTS} and "
+                     f"{routed} x {REQUESTS}")
+            if not all(bool(torch.isfinite(y).all()) for y in cnn_outs):
+                fail("serving: resnet18 answers not finite")
+            out["fallback"] = {"requests": fallback, "routed_chains": routed,
+                               "conv_calls": conv_calls}
+
+            # Hot-swap to the second generation with requests in flight.
+            xs = requests(3 * B)
+            refs = [[g(x).cpu() for x in xs] for g in gens]
+            done0 = rt.stats.completed
+            rt.pause()
+            futs = [rt.submit("gpt2", x=x) for x in xs]
+            rt.resume()
+            t = time.perf_counter()
+            rt.swap("gpt2", paths[1])
+            swap_ms = 1e3 * (time.perf_counter() - t)
+            after = requests(B)
+            afuts, aouts = window(rt, "gpt2", after)
+            answers = [f.result(timeout=600)[y_name] for f in futs]
+            which = []
+            for i, y in enumerate(answers):
+                hits = [g for g in range(2)
+                        if _rel(y, refs[g][i]) <= VERIFY_BAND]
+                if len(hits) != 1:
+                    fail(f"serving: swap answer {i} matches generations "
+                         f"{hits}")
+                which.append(hits[0])
+            for y, x in zip(aouts, after):
+                if _rel(y, gens[1](x).cpu()) > VERIFY_BAND:
+                    fail("serving: a request after swap() returned did "
+                         "not get the new generation")
+            lost = 4 * B - (rt.stats.completed - done0)
+            print(f"  hot-swap under load: swap {swap_ms:.1f} ms; "
+                  f"{which.count(0)} in-flight answers from the old "
+                  f"generation, {which.count(1)} from the new; {B} after "
+                  f"the swap all new; lost {lost}, failed {rt.stats.failed}")
+            if lost or rt.stats.failed:
+                fail(f"serving: {lost} requests lost, {rt.stats.failed} "
+                     f"failed in the swap")
+            out["swap"] = {"swap_ms": swap_ms, "old": which.count(0),
+                           "new": which.count(1), "after": B, "lost": lost}
+
+            # The same window of four through the inline runtime (now the
+            # second generation), for the pool to match.
+            xs4 = requests(4)
+            _f, inline = window(rt, "gpt2", xs4)
+            out["stats"] = rt.stats.snapshot()
+
+        pool_cfg = ServeConfig(batch_window_ms=500, max_batch=4, workers=1)
+        with ServingRuntime(pool_cfg, cache=CompileCache()) as pool:
+            pool.add_model("gpt2", paths[1])
+            futs, pooled = window(pool, "gpt2", xs4)
+            first_ms = 1e3 * (futs[0].resolved - futs[0].submitted)
+            futs2, again = window(pool, "gpt2", xs4)
+            warm_ms = 1e3 * (futs2[0].resolved - futs2[0].submitted)
+            if pool.stats.batched_requests != 8:
+                fail(f"serving: the pool coalesced "
+                     f"{pool.stats.batched_requests} of 8 requests")
+        same_bits = all(bool(torch.equal(a, b))
+                        for a, b in zip(pooled + again, inline + inline))
+        print(f"  worker pool (1 spawned worker): first window {first_ms:.1f} "
+              f"ms (spawn, CUDA context, load, compile), next "
+              f"{warm_ms:.1f} ms; answers equal the inline runtime's bit for "
+              f"bit: {same_bits}")
+        if not same_bits:
+            fail("serving: the worker's answers differ from the inline "
+                 "runtime's")
+        out["pool"] = {"first_window_ms": first_ms, "next_window_ms": warm_ms,
+                       "bit_identical": same_bits}
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail("src/repro_torch not found beside chip_smoke.py: run it from a "
              "checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
-    for var in ("CODO_FORCE_PALLAS", "CODO_DISABLE_PALLAS", "CODO_BACKEND"):
-        os.environ.pop(var, None)          # the default gate, no forcing
+    for var in ("CODO_DISABLE_PALLAS", "CODO_BACKEND", "CODO_TUNING_DB"):
+        os.environ.pop(var, None)
+    # Every path and kernel check runs under forced routing, so every
+    # kernel launches whatever the fitted gate decides; the routing fit
+    # asserts the default gate's plans.
+    os.environ["CODO_FORCE_PALLAS"] = "1"
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device: the port's kernels run on the card")
@@ -2343,6 +2861,14 @@ def main() -> int:
     record["train_slice_path"] = train_slices
     print("artifacts: export, then codo_torch.load on the card:")
     record["reload_path"] = reload_path()
+    print("routing fit: autotune every path (a private TuningDB), the "
+          "fitted gate, each path's default-gate plan:")
+    record["routing_fit"] = routing_fit()
+    print("serving: the runtime on the card (forced routing):")
+    serving_flash = measure_serving_flash(record)
+    record["measured_serving_flash"] = serving_flash
+    serving = serving_path()
+    record["serving_path"] = serving
 
     # One entry a kernel and S.  fused_matmul_grad's serves both backward
     # chains, and its launch counter counts both: its entry carries that
@@ -2414,6 +2940,10 @@ def main() -> int:
          "src/repro/kernels/streamfuse/chain.py:185",
          slice_measured[f"softmaxmm_{t}"],
          slices[f"attention_tail {t}"]["kernel_launches"]) for t in tails]
+    cnn_entries.append((
+        f"flash_attention[serving batch {SERVE_BATCH}x{SERVE_S}x{D_MODEL}]",
+        *source["flash"][1:], serving_flash,
+        serving["batched"]["flash_launches"]))
     cnn_entries.append((
         "matmul[ops.mm " + "x".join(map(str, MM_SHAPE)) + "]",
         "src/repro_torch/csrc/matmul.cu",

@@ -48,9 +48,14 @@ package back onto a device.  Provenance records a traced function under
 its reference counterpart's module (``repro.…``), so the two packages'
 exports of one model diff clean; the ``generator`` field tells them apart.
 
-Not ported yet, each raising :class:`NotImplementedError` with its
-``ROADMAP.md`` item: ``autotune`` (Queue 1 item 3, "Tuning"), ``mesh=``
-and sharded artifacts (item 6, "Sharding").
+``autotune`` (or ``compile(..., autotune=True)``) times every matched
+chain routed and generic on the program's device and records the winners
+in the tuning database, which the routing gate then prefers to its
+prediction (:mod:`repro_torch.core.tuning`).
+
+Not ported yet, raising :class:`NotImplementedError` with its
+``ROADMAP.md`` item: ``mesh=`` and sharded artifacts (Queue 1 item 6,
+"Sharding").
 """
 
 from __future__ import annotations
@@ -300,9 +305,23 @@ class CompiledProgram:
         return {"source_structural_hash": self.source.structural_hash(),
                 "origin": self.origin or f"graph:{self.source.name}"}
 
-    # ---- not ported yet --------------------------------------------------
-    def autotune(self, **_kw):
-        raise _not_ported("autotune", "item 3 (Tuning)")
+    # ---- autotuning ------------------------------------------------------
+    def autotune(self, *, repeats: int = 5, warmup: int = 2, seed: int = 0,
+                 save_path: str | None = None, db=None) -> list:
+        """Measure routed-vs-generic for every pattern-matched chain of
+        this design on the program's device and persist the winners in the
+        tuning database (``db``, the process default when ``None``) —
+        later :meth:`lower`/calls route on the measurement instead of the
+        prediction (the default database's digest is in the lowering memo
+        key, so the switch is automatic; a private ``db`` only collects
+        records).  Returns the new
+        :class:`~repro_torch.core.tuning.TuningRecord`\\ s."""
+        from repro_torch.core.tuning import autotune_compiled
+        records = autotune_compiled(self.compiled, device=self.device, db=db,
+                                    repeats=repeats, warmup=warmup, seed=seed,
+                                    save_path=save_path)
+        self._lowered = None            # re-route against the measurements
+        return records
 
 
 def _io_from_graph(graph: DataflowGraph) -> tuple[list[str], list[str]]:
@@ -467,8 +486,13 @@ class CompiledTrainStep:
                 f"bwd={len(self.backward.graph.tasks)}t "
                 f"upd={len(self.update.graph.tasks)}t>")
 
-    def autotune(self, **_kw):
-        raise _not_ported("autotune of a train step", "item 3 (Tuning)")
+    def autotune(self, **kw) -> list:
+        """Autotune all three phases' routed chains (see
+        :meth:`CompiledProgram.autotune`)."""
+        records = []
+        for p in (self.forward, self.backward, self.update):
+            records += p.autotune(**kw)
+        return records
 
     # ---- artifacts -------------------------------------------------------
     def provenance(self) -> dict:
@@ -570,13 +594,13 @@ def compile(fn: Callable | DataflowGraph, *specs,  # noqa: A001 — the API name
 
     ``fn`` may also be a ready :class:`DataflowGraph` (then ``specs`` must
     be empty).  ``options`` defaults to the full opt5 pipeline;
-    ``cache=None`` disables memoization for this call.  Extra keyword
-    arguments are forwarded to :func:`~repro_torch.core.compiler.codo_opt`.
+    ``cache=None`` disables memoization for this call.  ``autotune=True``
+    measures the design's matched chains on the device before returning
+    (:meth:`CompiledProgram.autotune`).  Extra keyword arguments are
+    forwarded to :func:`~repro_torch.core.compiler.codo_opt`.
     """
     if mesh is not None:
         raise _not_ported("mesh= (sharded programs)", "item 6 (Sharding)")
-    if autotune:
-        raise _not_ported("autotune=True", "item 3 (Tuning)")
     device = resolve_device(device)
     if isinstance(fn, DataflowGraph):
         if specs:
@@ -591,14 +615,19 @@ def compile(fn: Callable | DataflowGraph, *specs,  # noqa: A001 — the API name
         source, ins, outs = frontend.trace_io(fn, *specs, name=name)
         origin = _trace_origin(fn, source)
     if grad:
-        return _compile_train_step(source, device, options=options,
+        step = _compile_train_step(source, device, options=options,
                                    cache=cache, opt=opt, wrt=wrt,
                                    origin=origin, **codo_kwargs)
+        if autotune:
+            step.autotune()
+        return step
     if opt is not None or wrt is not None:
         raise TraceError("opt=/wrt= only apply with grad=True")
     compiled = codo_opt(source, options, cache=cache, **codo_kwargs)
     program = CompiledProgram(source, compiled, ins, outs, device)
     program.origin = origin
+    if autotune:
+        program.autotune()
     return program
 
 

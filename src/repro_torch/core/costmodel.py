@@ -342,12 +342,23 @@ DEFAULT_ROUTING_PARAMS: dict[str, RoutingCostParams] = {
     # GPU hosts run the same fused-jnp reference path as CPU.
     "gpu": RoutingCostParams(backend="gpu",
                              efficiency=_CPU_PARAMS.efficiency),
-    # Hand-written Hopper kernels: neutral until fitted from a routing
-    # bench measured on the card (efficiency 1.0 everywhere, no spill, no
-    # overlap), so only the dispatch overhead and slack separate the paths.
+    # Hand-written Hopper kernels: each efficiency is
+    # calibrate_routing_params of the autotune records (generic/routed
+    # walls, host time included) of every chain chip_smoke.py's paths
+    # match, on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6).  The
+    # scans clamp at 2.0 (their generic bodies loop over time) and the
+    # conv and the backward epilogues win; flash, the chain and the tail
+    # lose to cuBLAS and eager elementwise at these shapes, so the gate
+    # declines them.  No record shows a spill or an overlap the walls do
+    # not hold.
     "cuda": RoutingCostParams(
         backend="cuda",
-        efficiency=tuple((p, 1.0) for p, _ in _CPU_PARAMS.efficiency)),
+        efficiency=(("flashattn.mha", 0.6595476106271205),
+                    ("rglru.scan", 2.0), ("ssd.scan", 2.0),
+                    ("streamfuse.conv", 1.7143326629894324),
+                    ("streamfuse.mmchain", 0.7434056413496987),
+                    ("streamfuse.mmgrad", 1.4360230773709262),
+                    ("streamfuse.softmaxmm", 0.7092238587226014))),
     # On TPU the kernel is the real Pallas implementation: stages pipeline
     # through VMEM (overlap=1) and the generic path pays the interior HBM
     # round-trips (spill=1) — the paper's §VII-C win.  The attention and

@@ -1075,8 +1075,170 @@ def ssd_scan(states, decay):
     return _eager("ssd_scan", (states, decay))
 
 
+# --------------------------------------------------------------------------
+# Request coalescing (serving): rebuild a graph with a leading batch dim.
+#
+# The serving runtime (repro_torch.serving.runtime) coalesces same-signature
+# requests arriving within one batching window into a single execution of
+# a *batched* design: every buffer that depends on an input grows a
+# leading dimension of size B, every touched task a leading batch loop.
+# Weights (and const-producer chains) stay unbatched — the registered op
+# implementations broadcast them per batch element, exactly like torch's
+# leading-batch-dim convention for `@`, so the batched design computes
+# what B independent runs compute.  It need not be bit for bit the same:
+# a BLAS may pick another kernel, and so another summation order, for the
+# B-times-taller product.
+#
+# The rebuild is *clean*: all schedule state (loop parallel degrees, access
+# enclosing sets, buffer impls, fusion ids) is dropped, because the batched
+# graph goes back through the full codo_opt pipeline — it is a new design,
+# compiled and cached under its own structural hash.
+# --------------------------------------------------------------------------
+
+# Op kinds whose registered implementations are polymorphic over a leading
+# batch dimension (elementwise broadcasting, `@`'s batch semantics, or an
+# explicit attr rewrite below).  Graphs using anything else — conv2d's
+# fixed NCHW layout, scans with a baked-in batch axis — fall back to
+# per-request execution in the runtime.
+BATCHABLE_KINDS = frozenset({
+    "identity", "dup", "fused", "relu", "gelu", "add", "vadd", "scale",
+    "affine", "divc", "rdivc", "div", "mul", "softmax", "matmul",
+    "transpose",
+})
+
+
+def _batched_buffers(graph: DataflowGraph) -> set[str]:
+    """Buffers that (transitively) depend on an input buffer — the ones a
+    leading batch dim threads through.  Weights and const-producer chains
+    stay unbatched (broadcasting lifts them per batch element)."""
+    batched = {b.name for b in graph.inputs()}
+    for t in graph.toposort():
+        if any(a.buffer in batched for a in t.reads):
+            batched.update(a.buffer for a in t.writes)
+    return batched
+
+
+def batch_blockers(graph: DataflowGraph) -> list[str]:
+    """Why :func:`batch_graph` cannot coalesce this graph (empty = it can).
+
+    A graph batches when every task touched by the batch dim carries a
+    declarative spec built only from :data:`BATCHABLE_KINDS` and every
+    output depends on an input.  The returned strings are human-readable
+    reasons — the serving runtime records the first one when it falls back
+    to per-request execution."""
+    problems: list[str] = []
+    batched = _batched_buffers(graph)
+    missing = [b.name for b in graph.outputs() if b.name not in batched]
+    if missing:
+        problems.append(f"outputs {missing} do not depend on any input")
+
+    def _walk(spec: OpSpec):
+        yield spec
+        for p in spec.parts:
+            yield from _walk(p)
+
+    for t in graph.tasks:
+        if not any(a.buffer in batched for a in t.accesses()):
+            continue                      # untouched by the batch dim
+        if t.fn_is_closure:
+            problems.append(f"task {t.name}: closure numerics cannot be "
+                            "re-batched (no declarative spec)")
+            continue
+        if t.spec is None:
+            problems.append(f"task {t.name}: no numeric semantics")
+            continue
+        for s in _walk(t.spec):
+            if s.kind not in BATCHABLE_KINDS:
+                problems.append(f"task {t.name}: op kind {s.kind!r} is not "
+                                "batch-polymorphic")
+    return problems
+
+
+def _batch_spec(spec: OpSpec, batched: set[str]) -> OpSpec:
+    """Copy of ``spec`` adjusted for a leading batch dim on the operands in
+    ``batched``.  Most kinds need nothing (broadcasting does the work);
+    ``transpose`` perms and non-negative ``softmax`` axes shift by one.
+    Fused parts propagate batched-ness through their interior names."""
+    out = spec.copy()
+    if out.kind == "fused":
+        inner = set(batched)
+        parts = []
+        for part in out.parts:
+            parts.append(_batch_spec(part, inner))
+            if any(b in inner for b in part.ins):
+                inner.update(part.outs)
+        out.parts = tuple(parts)
+        return out
+    if not any(b in batched for b in out.ins):
+        return out
+    if out.kind == "transpose":
+        perm = out.attrs.get("perm")
+        if perm is None:                       # 2-D .T -> batched (0, 2, 1)
+            out.attrs["perm"] = (0, 2, 1)
+        else:
+            out.attrs["perm"] = (0,) + tuple(int(p) + 1 for p in perm)
+    elif out.kind == "softmax":
+        axis = int(out.attrs.get("axis", -1))
+        if axis >= 0:
+            out.attrs["axis"] = axis + 1
+    return out
+
+
+def batch_graph(graph: DataflowGraph, batch: int, *,
+                name: str | None = None, var: str = "rb") -> DataflowGraph:
+    """A clean rebuild of ``graph`` with a leading batch dimension of size
+    ``batch`` on every input-dependent buffer (weights stay shared).
+
+    The result is a fresh, schedule-free design — compile it through
+    ``codo_torch.compile``/``codo_opt`` like any other graph; it caches under its
+    own structural hash.  Raises :class:`TraceError` when
+    :func:`batch_blockers` is non-empty or ``batch < 1``.
+    """
+    batch = int(batch)
+    if batch < 1:
+        raise TraceError(f"batch_graph needs batch >= 1, got {batch}")
+    problems = batch_blockers(graph)
+    if problems:
+        raise TraceError(f"graph {graph.name!r} cannot take a leading "
+                         f"batch dim: " + "; ".join(problems))
+    batched = _batched_buffers(graph)
+    out = DataflowGraph(name or f"{graph.name}@b{batch}")
+    for b in graph.buffers.values():
+        shape = ((batch,) + tuple(b.shape)) if b.name in batched \
+            else tuple(b.shape)
+        out.add_buffer(Buffer(b.name, shape, b.dtype, b.kind))
+    for t in graph.tasks:
+        loops = [Loop(l.var, l.trip) for l in t.loops]
+        bvar = None
+        if any(a.buffer in batched for a in t.accesses()):
+            bvar = var
+            used = {l.var for l in t.loops}
+            while bvar in used:
+                bvar += "_"
+            loops = [Loop(bvar, batch)] + loops
+
+        def _acc(a: Access) -> Access:
+            index = tuple(tuple(dim) for dim in a.index)
+            if a.buffer in batched:
+                index = (idx(bvar),) + index
+            return Access(a.buffer, index, a.is_write)
+
+        spec = None
+        if t.spec is not None:
+            spec = (_batch_spec(t.spec, batched) if bvar is not None
+                    else t.spec.copy())
+        out.add_task(Task(
+            t.name, loops, [_acc(a) for a in t.reads],
+            [_acc(a) for a in t.writes], op=t.op,
+            flops_per_iter=t.flops_per_iter,
+            bytes_per_iter=t.bytes_per_iter, spec=spec, tags=set(t.tags)))
+    out.validate()
+    return out
+
+
 __all__ = [
-    "GB", "ShapedBuffer", "TraceError", "Tracer", "buffer", "trace",
+    "BATCHABLE_KINDS", "GB", "ShapedBuffer", "TraceError", "Tracer",
+    "batch_blockers", "batch_graph", "buffer", "trace",
     "trace_io", "weight_init",
     # ops
     "add", "concat", "conv", "div", "fc", "flatten", "gelu",

@@ -30,3 +30,11 @@ def register_all() -> None:
     flashattn.register()
     rglru.register()
     ssd.register()
+
+
+def libraries() -> list:
+    """Every CUDA library of the port, one a ``csrc/*.cu`` source (build
+    them together with :func:`.common.build_all`)."""
+    return [flashattn.LIBRARY, streamfuse.LIBRARY, streamfuse.GRAD_LIBRARY,
+            streamfuse.CONV_LIBRARY, streamfuse.SOFTMAX_LIBRARY,
+            rglru.LIBRARY, ssd.LIBRARY, matmul.LIBRARY]

@@ -308,7 +308,7 @@ def test_load_needs_a_card_by_default(monkeypatch):
 def test_routing_is_recorded_and_checked_for_the_programs_backend(
         monkeypatch):
     """An unlowered design records the routing its device's gate decides
-    (the neutral ``cuda`` gate routes gpt2's two backward mmgrad chains
+    (the fitted ``cuda`` gate routes gpt2's two backward mmgrad chains
     at D=1024, the CPU gate neither), and an import checks the record
     against the loading program's backend: no drift warning on the card,
     a warning where the CPU gate would route otherwise."""

@@ -102,16 +102,20 @@ def test_route_plan_matches_reference(name, forced, monkeypatch):
 
 
 def test_cuda_backend_routes_both_chains_at_full_width(monkeypatch):
-    """Planning only: the neutral ``cuda`` gate routes both chains of the
-    GPT-2-medium-width block, as the reference's gate does on CPU."""
+    """Planning only: both chains of the GPT-2-medium-width block still
+    match at full width on the ``cuda`` backend (no TPU budget drops
+    them), and the fitted gate declines both — flash and the FFN chain
+    lost to the generic path on the card (PERF.md §6)."""
     monkeypatch.setenv("CODO_BACKEND", "cuda")
     monkeypatch.delenv("CODO_FORCE_PALLAS", raising=False)
     c = codo_opt(dm.gpt2_block(128, 1024), cache=None)
     plan = routing.route_plan(c.graph, c.buffer_plan.impl)
-    assert [g["kernel"] for g in plan] == [
-        "pallas:flashattn.mha+streamfuse.mmchain"]
+    assert [g["kernel"] for g in plan] == ["xla-fused"]
     (group,) = plan
-    assert {r["decision"] for r in group["routes"]} == {"predicted-win"}
+    assert group["routes"] == []
+    assert [(r["kernel"], r["decision"]) for r in group["rejected"]] == [
+        ("flashattn.mha", "predicted-loss"),
+        ("streamfuse.mmchain", "predicted-loss")]
     assert len(group["tasks"]) == 17
 
 
@@ -124,11 +128,79 @@ def test_routing_backend_follows_device(monkeypatch):
     assert costmodel.routing_backend("cuda") == "tpu"
 
 
+# The autotune records the "cuda" gate is fitted from: every matched chain
+# of chip_smoke.py's paths timed routed and generic (best-of walls, ms) on
+# an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6), as
+# (pattern, routed_ms, generic_ms) in the order the routing fit took them.
+CUDA_FIT_RECORDS = [
+    ('flashattn.mha', 0.1219, 0.0791),
+    ('streamfuse.mmchain', 0.1578, 0.091),
+    ('flashattn.mha', 0.3628, 0.1556),
+    ('streamfuse.mmchain', 0.5014, 0.3834),
+    ('flashattn.mha', 0.1032, 0.084),
+    ('streamfuse.mmgrad', 0.0921, 0.2107),
+    ('streamfuse.mmgrad', 0.0699, 0.078),
+    ('streamfuse.mmgrad', 0.2888, 0.4467),
+    ('streamfuse.mmgrad', 0.1559, 0.1679),
+    ('streamfuse.conv', 0.0556, 0.0926),
+    ('streamfuse.conv', 0.0899, 0.1629),
+    ('streamfuse.conv', 0.0549, 0.104),
+    ('streamfuse.conv', 0.0765, 0.1314),
+    ('streamfuse.conv', 0.0629, 0.1714),
+    ('streamfuse.conv', 0.1184, 0.1955),
+    ('streamfuse.conv', 0.1182, 0.1957),
+    ('streamfuse.conv', 0.1043, 0.1679),
+    ('streamfuse.conv', 0.1041, 0.174),
+    ('streamfuse.conv', 0.1085, 0.1922),
+    ('streamfuse.conv', 0.0455, 0.08),
+    ('streamfuse.conv', 0.1511, 0.1847),
+    ('streamfuse.conv', 0.094, 0.1274),
+    ('streamfuse.conv', 0.1308, 0.1925),
+    ('streamfuse.conv', 0.1138, 0.1818),
+    ('streamfuse.conv', 0.1519, 0.2402),
+    ('streamfuse.conv', 0.1516, 0.2528),
+    ('streamfuse.conv', 0.1156, 0.1983),
+    ('streamfuse.conv', 0.1555, 0.2975),
+    ('streamfuse.conv', 0.1625, 0.3025),
+    ('streamfuse.conv', 0.1011, 0.2089),
+    ('streamfuse.conv', 0.0976, 0.2018),
+    ('streamfuse.conv', 0.0969, 0.1998),
+    ('streamfuse.mmchain', 0.0785, 0.0761),
+    ('rglru.scan', 0.141, 77.9143),
+    ('ssd.scan', 0.0842, 0.7102),
+    ('flashattn.mha', 2.2861, 1.9097),
+    ('streamfuse.softmaxmm', 0.0608, 0.0415),
+    ('streamfuse.softmaxmm', 0.13, 0.0958),
+    ('streamfuse.conv', 0.0585, 0.1129),
+    ('streamfuse.conv', 0.0631, 0.1428),
+    ('streamfuse.conv', 0.0602, 0.1398),
+    ('streamfuse.mmchain', 0.152, 0.1086),
+    ('streamfuse.conv', 0.1367, 0.1792),
+    ('streamfuse.conv', 0.1351, 0.1451),
+    ('streamfuse.conv', 0.0799, 0.1251),
+    ('streamfuse.conv', 0.1021, 0.1399),
+    ('streamfuse.conv', 0.0862, 0.1125),
+    ('streamfuse.conv', 0.0988, 0.1445),
+    ('streamfuse.conv', 0.0803, 0.2152),
+]
+
+
 def test_cuda_routing_params_start_neutral():
+    """The ``cuda`` gate's constants are no longer neutral: they are
+    ``calibrate_routing_params`` of the card's autotune records, with no
+    spill and no overlap."""
     p = costmodel.DEFAULT_ROUTING_PARAMS["cuda"]
     assert p.generic_spill == 0.0 and p.stream_overlap == 0.0
-    assert {e for _, e in p.efficiency} == {1.0}
-    assert p.eff("flashattn.mha") == p.eff("streamfuse.mmchain") == 1.0
+    doc = {"backend": "cuda",
+           "records": [{"kernel": k, "speedup": g / r}
+                       for k, r, g in CUDA_FIT_RECORDS]}
+    fit = costmodel.calibrate_routing_params(doc)
+    assert fit == p
+    assert {k for k, _ in p.efficiency} == {k for k, _, _ in CUDA_FIT_RECORDS}
+    assert p.eff("rglru.scan") == p.eff("ssd.scan") == 2.0       # clamped
+    assert p.eff("streamfuse.conv") > p.eff("streamfuse.mmgrad") > 1.0
+    assert max(p.eff("flashattn.mha"), p.eff("streamfuse.mmchain"),
+               p.eff("streamfuse.softmaxmm")) < 1.0
 
 
 def test_h100_params_and_v5e_default():

@@ -132,8 +132,10 @@ def test_forced_route_plan_matches_reference(runs, phase):
 
 @pytest.mark.parametrize("S", [128, 1024])
 def test_cuda_gate_routes_both_chains_at_full_width(S, monkeypatch):
-    """Planning only: the neutral ``cuda`` parameters route both backward
-    chains of the GPT-2-medium-width train step, and nothing else."""
+    """Planning only: the backward's two chains of the GPT-2-medium-width
+    train step still match at full width, and the fitted ``cuda``
+    parameters (mmgrad's efficiency 1.44, PERF.md §6) route both,
+    and nothing else."""
     monkeypatch.setenv("CODO_BACKEND", "cuda")
     monkeypatch.delenv("CODO_FORCE_PALLAS", raising=False)
     graphs = build_train_graphs(dm.trace(dm.gpt2_block_loss_fn, (S, 1024),

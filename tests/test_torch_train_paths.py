@@ -266,9 +266,10 @@ def test_verify_holds_each_tensor_to_its_scale(run):
 ])
 def test_cuda_gate_routes_the_scan_in_the_forward_at_full_width(
         name, specs, kernel, monkeypatch):
-    """Planning only: at the published widths the neutral ``cuda``
-    parameters route each train step's scan in its forward, and nothing
-    in the backward or the update."""
+    """Planning only: at the published widths the fitted ``cuda``
+    parameters (the scans' efficiency clamped at 2.0, PERF.md §6)
+    route each train step's scan in its forward, and nothing in the
+    backward or the update."""
     from repro_torch.core.autodiff import build_train_graphs
     from repro_torch.core.compiler import codo_opt
     monkeypatch.setenv("CODO_BACKEND", "cuda")
