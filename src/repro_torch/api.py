@@ -151,6 +151,7 @@ class CompiledProgram:
         self._provenance: dict | None = None  # as loaded from an artifact
         self._bindings: dict[str, Any] = {}
         self._lowered = None
+        self._lowered_key: bool | None = None
 
     # ---- introspection ---------------------------------------------------
     @property
@@ -214,11 +215,14 @@ class CompiledProgram:
         return self
 
     # ---- execution -------------------------------------------------------
-    def lower(self):
-        """The lowered step runner (memoized)."""
-        if self._lowered is None:
+    def lower(self, jit: bool = True):
+        """The lowered step runner (memoized per ``jit`` flag): captured
+        into a CUDA graph per input signature on the card when ``jit``,
+        eager otherwise (:func:`~repro_torch.core.lowering.lower`)."""
+        if self._lowered is None or self._lowered_key != bool(jit):
             from repro_torch.core.lowering import lower
-            self._lowered = lower(self.compiled, device=self.device)
+            self._lowered = lower(self.compiled, jit=jit, device=self.device)
+            self._lowered_key = bool(jit)
         return self._lowered
 
     def make_env(self, *values, **named) -> dict[str, Any]:
@@ -245,10 +249,10 @@ class CompiledProgram:
                     b, frontend.weight_init(b.shape, b.dtype), self.device)
         return env
 
-    def __call__(self, *values, **named):
+    def __call__(self, *values, jit: bool = True, **named):
         """Run the compiled design.  Returns one tensor per traced output
         (a bare tensor for single-output programs, a tuple otherwise)."""
-        out = self.lower()(self.make_env(*values, **named))
+        out = self.lower(jit=jit)(self.make_env(*values, **named))
         vals = tuple(out[n] for n in self.output_names)
         return vals[0] if len(vals) == 1 else vals
 
@@ -260,7 +264,8 @@ class CompiledProgram:
         states its own where the kernels sum in another order."""
         from repro_torch.core.lowering import assert_outputs_close
         env = self.make_env(*values, **named)
-        assert_outputs_close(self.lower()(env), self.source.execute(env),
+        assert_outputs_close(self.lower(jit=False)(env),
+                             self.source.execute(env),
                              rtol=rtol, atol=atol,
                              what="diverged after lowering")
 
@@ -392,29 +397,32 @@ class CompiledTrainStep:
                 "step": torch.zeros((), dtype=torch.int32, device=self.device)}
 
     # ---- execution -------------------------------------------------------
-    def value_and_grad(self, *arrays, params: dict | None = None, **named):
+    def value_and_grad(self, *arrays, params: dict | None = None,
+                       jit: bool = True, **named):
         """Run the compiled forward and backward graphs; returns ``(loss,
         grads)``: the (1, 1) loss tensor and the gradients keyed by
-        parameter name."""
+        parameter name.  ``jit`` as for :meth:`CompiledProgram.lower`."""
         import torch
         g = self.graphs
         params = dict(params) if params is not None else self.init_params()
         fenv = self.forward.make_env(*arrays, **params, **named)
-        fouts = self.forward.lower()(fenv)
+        fouts = self.forward.lower(jit=jit)(fenv)
         benv = {g.seeds[g.loss]: torch.ones((1, 1), dtype=torch.float32,
                                             device=self.device)}
         for r in g.residuals:
             benv[r] = fouts[r] if r in fouts else fenv[r]
-        bouts = self.backward.lower()(self.backward.make_env(**benv))
+        bouts = self.backward.lower(jit=jit)(self.backward.make_env(**benv))
         grads = {w: bouts[g.grads[w]] for w in self.param_names}
         return fouts[g.loss], grads
 
-    def step(self, params: dict, opt_state: dict, *arrays, **named):
+    def step(self, params: dict, opt_state: dict, *arrays,
+             jit: bool = True, **named):
         """One full training step: forward, backward, AdamW update.
         Returns ``(new_params, new_opt_state, metrics)``; metrics carries
         0-d tensors ``loss``, ``grad_norm`` and ``lr``.  No host sync."""
         import torch
-        loss, grads = self.value_and_grad(*arrays, params=params, **named)
+        loss, grads = self.value_and_grad(*arrays, params=params, jit=jit,
+                                          **named)
         step = torch.as_tensor(opt_state["step"], device=self.device)
         uenv = {"step": step.to(torch.float32).reshape(1, 1)}
         for w in self.param_names:
@@ -422,7 +430,7 @@ class CompiledTrainStep:
             uenv[f"grad_{w}"] = grads[w]
             uenv[f"m_{w}"] = opt_state["m"][w]
             uenv[f"v_{w}"] = opt_state["v"][w]
-        uouts = self.update.lower()(self.update.make_env(**uenv))
+        uouts = self.update.lower(jit=jit)(self.update.make_env(**uenv))
         new_params = {w: uouts[f"new_{w}"] for w in self.param_names}
         new_state = {"m": {w: uouts[f"new_m_{w}"] for w in self.param_names},
                      "v": {w: uouts[f"new_v_{w}"] for w in self.param_names},

@@ -1,0 +1,21 @@
+"""qwen1.5-110b [dense] — GQA kv=8, QKV bias. [hf:Qwen/Qwen1.5; hf]"""
+
+from .base import ArchConfig
+
+ARCH = ArchConfig(
+    name="qwen1.5-110b",
+    family="dense",
+    n_layers=80,
+    d_model=8192,
+    n_heads=64,
+    n_kv_heads=8,
+    d_ff=49152,
+    vocab=152064,
+    act="silu",
+    glu=True,
+    norm="rmsnorm",
+    pos="rope",
+    qkv_bias=True,
+    subquadratic=False,
+    source="hf:Qwen/Qwen1.5-0.5B (scaled family config)",
+)

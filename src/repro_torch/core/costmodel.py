@@ -344,21 +344,22 @@ DEFAULT_ROUTING_PARAMS: dict[str, RoutingCostParams] = {
                              efficiency=_CPU_PARAMS.efficiency),
     # Hand-written Hopper kernels: each efficiency is
     # calibrate_routing_params of the autotune records (generic/routed
-    # walls, host time included) of every chain chip_smoke.py's paths
-    # match, on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6).  The
-    # scans clamp at 2.0 (their generic bodies loop over time) and the
-    # conv and the backward epilogues win; flash, the chain and the tail
-    # lose to cuBLAS and eager elementwise at these shapes, so the gate
-    # declines them.  No record shows a spill or an overlap the walls do
-    # not hold.
+    # walls of each chain's two forms captured into CUDA graphs, as a
+    # jit=True program runs them) of every chain chip_smoke.py's paths
+    # match, on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6).  rglru's
+    # clamps at 2.0 (its generic body loops over time); ssd, the conv and
+    # the backward epilogues win; the softmax tail is at parity; flash
+    # and the chain lose to cuBLAS and fused elementwise at these shapes,
+    # so the gate declines them.  No record shows a spill or an overlap
+    # the walls do not hold.
     "cuda": RoutingCostParams(
         backend="cuda",
-        efficiency=(("flashattn.mha", 0.6595476106271205),
-                    ("rglru.scan", 2.0), ("ssd.scan", 2.0),
-                    ("streamfuse.conv", 1.7143326629894324),
-                    ("streamfuse.mmchain", 0.7434056413496987),
-                    ("streamfuse.mmgrad", 1.4360230773709262),
-                    ("streamfuse.softmaxmm", 0.7092238587226014))),
+        efficiency=(("flashattn.mha", 0.7781331485414269),
+                    ("rglru.scan", 2.0), ("ssd.scan", 1.7444168734491312),
+                    ("streamfuse.conv", 1.3358906325023219),
+                    ("streamfuse.mmchain", 0.864513985522059),
+                    ("streamfuse.mmgrad", 1.2131556927122453),
+                    ("streamfuse.softmaxmm", 1.0258204971181324))),
     # On TPU the kernel is the real Pallas implementation: stages pipeline
     # through VMEM (overlap=1) and the generic path pays the interior HBM
     # round-trips (spill=1) — the paper's §VII-C win.  The attention and

@@ -12,13 +12,18 @@ through the op registry.  Group strings keep the reference's
 ``pallas:<pattern>`` / ``xla-fused`` names so routing tables compare like
 for like.  ``CODO_DISABLE_PALLAS=1`` turns all routing off.
 
-PyTorch runs eagerly, so there is no ``jit`` step; the program is the
-step list itself.  Sharded lowering is not ported yet.
+``jit=True`` (the default, as in the reference) wraps the step list where
+the reference wraps it in ``jax.jit``: in a
+:class:`~repro_torch.core.capture.CapturedProgram`, which captures it into
+a CUDA graph per input signature on the card and runs it as it is on the
+CPU.  ``jit=False`` runs the step list eagerly everywhere.  Sharded
+lowering is not ported yet.
 
 Lowering results are memoized like compiles: keyed on the compiled graph's
-``structural_hash()`` (which covers the fusion decisions), the routing
-switches of :func:`~repro_torch.core.routing.routing_state_key` for the
-program's backend, and the op-registry epoch.
+``structural_hash()`` (which covers the fusion decisions), the lowering
+flags, the routing switches of
+:func:`~repro_torch.core.routing.routing_state_key` for the program's
+backend, and the op-registry epoch.
 """
 
 from __future__ import annotations
@@ -31,13 +36,34 @@ from typing import Any, Callable
 
 import numpy as np
 
+from .capture import CapturedProgram, clear_graphs, run_steps
 from .compiler import CompiledDataflow
 from .costmodel import routing_backend
 from .graph import DataflowGraph, GraphError
 from .ops import registry_epoch as _ops_epoch
-from .routing import (XLA_FUSED, RoutedKernel, ensure_kernel_patterns,
-                      fifo_groups, registered_patterns, route_groups,
-                      routing_state_key)
+from .routing import (XLA_FUSED, KernelPattern, RoutedKernel,
+                      ensure_kernel_patterns, fifo_groups,
+                      register_kernel_pattern, registered_patterns,
+                      route_groups, routing_state_key)
+
+
+def register_group_kernel(pattern: tuple[str, ...],
+                          factory: Callable[..., Callable]) -> None:
+    """Legacy exact-op registration (pre-routing API): ``pattern`` is the
+    full op tuple of a group and ``factory(graph, group)`` builds the
+    step.  Kept as a shim over :func:`repro_torch.core.routing.
+    register_kernel_pattern`; new kernels should register a
+    :class:`~repro_torch.core.routing.KernelPattern` directly."""
+    def adapter(graph, group, tasks):
+        # Old factories index group.tasks positionally, assuming the match
+        # covers the whole group; hand them a group view of just the chain.
+        chain = FusionGroup(group.gid, [t.name for t in tasks],
+                            tuple(t.op for t in tasks))
+        return factory(graph, chain)
+
+    register_kernel_pattern(KernelPattern(
+        name="+".join(pattern), pattern=tuple(pattern), factory=adapter,
+        description="legacy exact-op registration"))
 
 
 @dataclass
@@ -101,9 +127,11 @@ def _lower_cache_size() -> int:
 
 
 def clear_lower_cache() -> None:
+    """Drop every memoized lowering and release every captured graph."""
     with _LOWER_LOCK:
         _LOWER_CACHE.clear()
         LOWER_CACHE_STATS.update(hits=0, misses=0)
+    clear_graphs()
 
 
 def _build_steps(graph: DataflowGraph, groups: list[FusionGroup],
@@ -155,12 +183,15 @@ def _build_steps(graph: DataflowGraph, groups: list[FusionGroup],
     return steps
 
 
-def lower(compiled: CompiledDataflow, use_registered_kernels: bool = True, *,
-          memo: bool = True, device=None) -> LoweredProgram:
+def lower(compiled: CompiledDataflow, jit: bool = True,
+          use_registered_kernels: bool = True, *, memo: bool = True,
+          device=None) -> LoweredProgram:
     """Lower ``compiled`` for a program on ``device`` (a ``torch.device``
     or its string; it selects the backend the routing gate prices, see
     :func:`~repro_torch.core.costmodel.routing_backend`).  The returned
-    program runs on whatever device its env tensors lie on."""
+    program runs on whatever device its env tensors lie on: captured into
+    a CUDA graph on the card when ``jit`` (see
+    :mod:`repro_torch.core.capture`), eagerly otherwise."""
     # The compiler — not the user — wires the kernels in.
     ensure_kernel_patterns()
     graph = compiled.graph
@@ -174,7 +205,7 @@ def lower(compiled: CompiledDataflow, use_registered_kernels: bool = True, *,
             "(repro_torch.core.ops) for executable cache entries, or recompile "
             "with an in-memory cache / cache=None before lowering.")
     backend = routing_backend(device)
-    key = (graph.structural_hash(), bool(use_registered_kernels),
+    key = (graph.structural_hash(), bool(jit), bool(use_registered_kernels),
            *routing_state_key(backend), _ops_epoch())
     if memo:
         with _LOWER_LOCK:
@@ -208,11 +239,11 @@ def lower(compiled: CompiledDataflow, use_registered_kernels: bool = True, *,
                     if impl.get(b.name) == "pingpong"
                     and b.name not in swallowed]
 
-    def program(env: dict) -> dict:
-        scope = dict(env)
-        for _name, f in steps:
-            scope.update(f(scope))
-        return {k: scope[k] for k in outputs}
+    if jit:
+        program = CapturedProgram(steps, outputs)
+    else:
+        def program(env: dict) -> dict:
+            return run_steps(steps, outputs, env)
 
     out = LoweredProgram(graph, groups, program, materialized)
     _record_routing(compiled, groups)
@@ -266,6 +297,20 @@ def _host(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def lower_artifact(source, *, jit: bool = True,
+                   use_registered_kernels: bool = True, memo: bool = True,
+                   check_integrity: bool = True, device=None) -> LoweredProgram:
+    """One-step path from an exported JSON artifact (a file path or parsed
+    document, written by either package) to an executable program:
+    ``import_artifact`` + :func:`lower` for ``device``.  Op kinds resolve
+    against this package's registry."""
+    from .artifact import import_artifact
+    return lower(import_artifact(source, check_integrity=check_integrity,
+                                 backend=routing_backend(device)),
+                 jit=jit, use_registered_kernels=use_registered_kernels,
+                 memo=memo, device=device)
+
+
 def oracle_outputs(source_graph: DataflowGraph, env: dict) -> dict:
     """Run the *un-optimized* program — the golden reference the paper's
     auto-generated testbench compares against (§VII-C)."""
@@ -276,7 +321,7 @@ def verify_lowering(source_graph: DataflowGraph, compiled: CompiledDataflow,
                     env: dict, rtol: float = 1e-5, atol: float = 1e-5,
                     device=None) -> None:
     """Lowered outputs must match the un-optimized oracle."""
-    got = lower(compiled, device=device)(env)
+    got = lower(compiled, jit=False, device=device)(env)
     assert_outputs_close(got, oracle_outputs(source_graph, env), rtol=rtol,
                          atol=atol, what="diverged after lowering")
 
@@ -286,8 +331,10 @@ def verify_routing(compiled: CompiledDataflow, env: dict,
                    device=None) -> LoweredProgram:
     """Assert the pattern-routed lowering matches the un-routed generic
     lowering on ``env``.  Returns the routed program."""
-    generic = lower(compiled, use_registered_kernels=False, device=device)
-    routed = lower(compiled, use_registered_kernels=True, device=device)
+    generic = lower(compiled, jit=False, use_registered_kernels=False,
+                    device=device)
+    routed = lower(compiled, jit=False, use_registered_kernels=True,
+                   device=device)
     assert_outputs_close(routed(env), generic(env), rtol=rtol, atol=atol,
                          what="from the kernel-routed path diverged from "
                               "the generic path")
@@ -296,4 +343,5 @@ def verify_routing(compiled: CompiledDataflow, env: dict,
 
 __all__ = ["FusionGroup", "LOWER_CACHE_STATS", "LoweredProgram",
            "assert_outputs_close", "clear_lower_cache", "fusion_groups",
-           "lower", "oracle_outputs", "verify_lowering", "verify_routing"]
+           "lower", "lower_artifact", "oracle_outputs",
+           "register_group_kernel", "verify_lowering", "verify_routing"]

@@ -449,15 +449,27 @@ def _mul(spec: OpSpec, env: dict) -> dict:
     return {spec.outs[0]: env[spec.ins[0]] * env[spec.ins[1]]}
 
 
+# (dtype, value, device) -> the constant's tensor, made once: a host copy
+# on every call would be a pageable copy inside a captured CUDA graph.
+_CONSTS: dict = {}
+
+
 @register_op("const")
 def _const(spec: OpSpec, env: dict) -> dict:
     """A compile-time constant array (an array-left operand lifted into a
-    trace), its value plain data in ``attrs``."""
+    trace), its value plain data in ``attrs``.  The tensor is made on its
+    device once per value and shared by every call (no body writes in
+    place)."""
     import numpy as np
     import torch
-    value = np.array(spec.attrs["value"],
-                     dtype=np.dtype(spec.attrs.get("dtype", "float32")))
-    return {spec.outs[0]: torch.as_tensor(value, device=_env_device(env))}
+    dtype = spec.attrs.get("dtype", "float32")
+    device = _env_device(env)
+    key = (dtype, spec.attrs["value"], str(device))
+    out = _CONSTS.get(key)
+    if out is None:
+        value = np.array(spec.attrs["value"], dtype=np.dtype(dtype))
+        out = _CONSTS[key] = torch.as_tensor(value, device=device)
+    return {spec.outs[0]: out}
 
 
 @register_op("mv")

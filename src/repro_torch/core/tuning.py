@@ -16,8 +16,9 @@ section) and in the disk compile cache (``tuning.json``).
 This module replaces prediction with measurement on demand:
 :func:`autotune_compiled` runs every structurally matched chain of a
 compiled design both ways on the program's device — the routed kernel
-against the generic task-by-task composition — and persists the winner in
-a :class:`TuningDB`.
+against the generic task-by-task composition, each captured into a CUDA
+graph on the card as a lowered program runs by default — and persists the
+winner in a :class:`TuningDB`.
 
 Everything except :func:`autotune_compiled` is importable without torch.
 """
@@ -242,6 +243,7 @@ def autotune_compiled(compiled, *, device="cpu", db: TuningDB | None = None,
     import torch
 
     from . import routing
+    from .capture import CapturedProgram
     from .costmodel import routing_backend
     from .lowering import FusionGroup
 
@@ -278,21 +280,23 @@ def autotune_compiled(compiled, *, device="cpu", db: TuningDB | None = None,
                           if a.buffer not in interior})
             env = {b: scope[b] for b in ext}
             out_buf = tasks[-1].writes[0].buffer
-            fns = [t.fn for t in tasks]
-
-            # The port's generic path: the chain's task fns composed
-            # eagerly, as the lowering runs an unrouted group.
-            def generic(e, _fns=fns, _out=out_buf):
-                s = dict(e)
-                for f in _fns:
-                    s.update(f(s))
-                return {_out: s[_out]}
-
             step = pat.factory(graph, group_view, tasks)
             if step is None:
                 continue
-            generic_ms, routed_ms = _best_of([generic, step], env, block,
-                                             warmup, repeats)
+            # Both ways as a lowered program runs them by default
+            # (jit=True): the chain's task fns composed as the lowering
+            # runs an unrouted group, and the kernel step, each captured
+            # into a CUDA graph on the card (the reference times
+            # jax.jit(generic)); eagerly on the CPU.
+            fns = [CapturedProgram([(t.name, t.fn) for t in tasks],
+                                   [out_buf]),
+                   CapturedProgram([(tasks[-1].name, step)], [out_buf])]
+            try:
+                generic_ms, routed_ms = _best_of(fns, env, block, warmup,
+                                                 repeats)
+            finally:
+                for fn in fns:
+                    fn.release()
             choice = ("pallas" if routed_ms <= generic_ms
                       else routing.XLA_FUSED)
             rec = TuningRecord(

@@ -13,16 +13,21 @@ and loaded with :mod:`ctypes`.  The library file name carries a hash of
 the sources and flags, so a stale build is never loaded.  Every C entry
 point launches exactly one kernel on the stream it is given and returns
 ``cudaGetLastError()``; :meth:`CudaLibrary.launch` raises on a non-zero
-code and counts the launch.
+code and counts the launch.  A launch made while the calling thread
+captures a CUDA graph (:mod:`repro_torch.core.capture`) only enqueues the
+kernel into the graph: it goes to the capture's record instead, and each
+replay of the graph counts it (:func:`recording_launches`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from collections import Counter
 from pathlib import Path
@@ -42,6 +47,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SMEM_PER_BLOCK = 232448
 SMEM_PER_SM = 233472
 NUM_SMS = 132
+
+# Launches the calling thread records into a CUDA graph it is capturing:
+# ``_RECORDING.record`` is a Counter of (library, entry point) while a
+# capture runs on this thread, else absent.
+_RECORDING = threading.local()
 
 # ctypes shorthands for C entry-point signatures.
 PTR, INT, INT64, FLOAT = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -174,12 +184,34 @@ class CudaLibrary:
             msg = lib.codo_cuda_error_string(code).decode()
             raise RuntimeError(f"{self.source.name}:{name} failed to launch: "
                                f"CUDA error {code} ({msg})")
-        self.launches += 1
-        self.entry_launches[name] += 1
+        record = getattr(_RECORDING, "record", None)
+        if record is not None:
+            record[(self, name)] += 1
+        else:
+            self.count(name)
+
+    def count(self, name: str, n: int = 1) -> None:
+        """Count ``n`` executed launches of entry point ``name``."""
+        self.launches += n
+        self.entry_launches[name] += n
 
     def reset_counts(self) -> None:
         self.launches = 0
         self.entry_launches.clear()
+
+
+@contextlib.contextmanager
+def recording_launches(record: Counter):
+    """Within this context the calling thread's launches are recorded into
+    ``record`` (a Counter of (library, entry point)) instead of counted:
+    the thread is capturing a CUDA graph, so the kernels are enqueued, not
+    run.  Each replay of the graph then counts them
+    (:meth:`CudaLibrary.count`)."""
+    _RECORDING.record = record
+    try:
+        yield record
+    finally:
+        del _RECORDING.record
 
 
 def build_all(libraries: Sequence[CudaLibrary]) -> float:

@@ -253,8 +253,10 @@ def fused_matmul_chain(a, w1, w2, *,
                          f"strides {a.stride()}, {w1.stride()}, {w2.stride()}")
     M, N2 = a.shape[0], w2.shape[1]
     out = torch.empty((M, N2), dtype=a.dtype, device=a.device)
-    part = torch.empty(scratch, dtype=torch.float32,
-                       device=a.device).data_ptr()
+    # The scratch stays referenced until both launches are issued, so no
+    # allocation between them (a captured graph's pool) takes its block.
+    scratch_t = torch.empty(scratch, dtype=torch.float32, device=a.device)
+    part = scratch_t.data_ptr()
     ew_arg, stream = ctypes.byref(tail.struct), stream_of(a)
     with torch.cuda.device(a.device):
         if rows:

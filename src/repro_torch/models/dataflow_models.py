@@ -357,6 +357,86 @@ def ssd_block(nc: int = 8, BH: int = 8, P: int = 32, N: int = 32) -> DataflowGra
 
 
 # --------------------------------------------------------------------------
+# Architecture configs -> dataflow graphs (the batch-compile grid)
+# --------------------------------------------------------------------------
+
+
+def _attn_block(b: GB, x: str, D: int, hd: int, enc: str | None = None) -> str:
+    """Self- (or, given ``enc``, cross-) attention + projection + residual."""
+    q = b.fc(x, D)
+    kv_src = enc if enc is not None else x
+    k = b.fc(kv_src, D)
+    v = b.fc(kv_src, D)
+    kt = b.transpose(k)
+    s = b.scale(b.matmul(q, kt), 1.0 / math.sqrt(max(hd, 1)))
+    p = b.softmax(s)
+    att = b.matmul(p, v)
+    proj = b.fc(att, D)
+    return b.add(proj, x)                  # residual: SPMC on x
+
+
+def _ffn_block(b: GB, x: str, cfg) -> str:
+    """(Gated) FFN + residual; MoE adds the router dispatch/combine
+    side-chain so expert traffic shows up in the dataflow."""
+    D = cfg.d_model
+    if cfg.glu:
+        gate = b.gelu(b.fc(x, cfg.d_ff))
+        up = b.fc(x, cfg.d_ff)
+        mixed = b.add(gate, up)            # gating proxy (same dataflow shape)
+    else:
+        mixed = b.gelu(b.fc(x, cfg.d_ff))
+    down = b.fc(mixed, D)
+    out = b.add(down, x)
+    if cfg.moe is not None:
+        router = b.softmax(b.fc(x, cfg.moe.num_experts))
+        combined = b.fc(router, D)         # combine back into the stream
+        out = b.add(out, combined)
+    return out
+
+
+def _recurrent_block(b: GB, x: str, D: int, expand: int = 2) -> str:
+    """SSM / RG-LRU style block: in-proj + gate, state mixing, out-proj,
+    residual.  The chunked recurrence appears as a dense state-mix task —
+    the dataflow (streams, reuse, reductions) is what the compiler sees."""
+    d_in = D * max(expand, 1)
+    u = b.fc(x, d_in)
+    gate = b.gelu(b.fc(x, d_in))
+    mix = b.fc(u, d_in)
+    gated = b.add(mix, gate)
+    out = b.fc(gated, D)
+    return b.add(out, x)
+
+
+def arch_block_graph(cfg, S: int = 64) -> DataflowGraph:
+    """One representative backbone block of ``cfg`` (an
+    :class:`repro_torch.configs.base.ArchConfig`) as a CODO dataflow graph.
+
+    This is the unit the batch compiler drives across the opt1..opt5 grid:
+    real model dims (d_model/d_ff/experts), one block per distinct kind in
+    the architecture's pattern.  Multimodal prefixes are folded into ``S``
+    upstream — the dataflow structure is identical.
+    """
+    b = GB(cfg.name.replace("-", "_").replace(".", "_"))
+    D = cfg.d_model
+    x = b.load(b.input("x", (S, D)))
+    h = x
+    if cfg.ssm is not None:
+        h = _recurrent_block(b, h, D, cfg.ssm.expand)
+    elif "rglru" in cfg.block_pattern:      # hybrid: recurrent + local attn
+        h = _recurrent_block(b, h, D)
+        h = _attn_block(b, h, D, cfg.hd)
+    else:
+        h = _attn_block(b, h, D, cfg.hd)
+    if cfg.enc_dec:                         # whisper-style cross attention
+        enc = b.load(b.input("enc_out", (min(cfg.enc_frames, 128), D)))
+        h = _attn_block(b, h, D, cfg.hd, enc=enc)
+    if cfg.ssm is None:
+        h = _ffn_block(b, h, cfg)
+    b.mark_output(h)
+    return b.g
+
+
+# --------------------------------------------------------------------------
 # Registry
 # --------------------------------------------------------------------------
 

@@ -202,7 +202,7 @@ class _ModelHandle:
         warms the new design *before* the flip)."""
         from repro_torch.models.dataflow_models import random_inputs
         env = self.program.make_env(**random_inputs(self.program.graph))
-        self.program.lower()(env)
+        self.program.lower(jit=True)(env)
         _synchronize(self.program.device)
 
 
@@ -586,7 +586,7 @@ def _run_batch(handle: _ModelHandle, batch: list[_Request], cache,
         bp = _batched_program(handle, len(batch), cache)
         stacked = {n: _stack(program.graph, n, [r.env[n] for r in batch],
                              program.device) for n in inputs}
-        out = bp.lower()(bp.make_env(**stacked))
+        out = bp.lower(jit=True)(bp.make_env(**stacked))
         # One copy to the host; each answer is a view of its row, as the
         # reference's numpy answers are (a copy a row cost more than the
         # batch's device time on the card).
@@ -595,7 +595,7 @@ def _run_batch(handle: _ModelHandle, batch: list[_Request], cache,
                    for i in range(len(batch))]
     else:
         results = []
-        low = program.lower()
+        low = program.lower(jit=True)
         for r in batch:
             out = low(program.make_env(**r.env))
             results.append({n: out[n].cpu() for n in program.output_names})

@@ -310,3 +310,48 @@ def test_params_from_numpy_carries_conv_weights_unchanged():
         np.float32)
     np.testing.assert_allclose(ours(x).numpy(), np.asarray(theirs(x)),
                                rtol=1e-5, atol=1e-5)
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+class _Doubled:
+    """A lowered program whose every answer is twice the right one: an
+    error as large as the answer."""
+
+    def __init__(self, low):
+        self.low, self.groups = low, low.groups
+
+    def __call__(self, env):
+        return {k: 2 * v for k, v in self.low(env).items()}
+
+
+@pytest.mark.parametrize("broken", [False, True])
+def test_first_run_holds_mobilenet_to_its_output_scale(broken, monkeypatch):
+    """``chip_smoke.py: first_run`` on the CPU: mobilenet at 224 on its
+    seed answers at ~1.3e-4, so the absolute verify band of 1e-4 covers
+    most of any answer and only an error held to the output's scale can
+    fail; an answer twice the right one must fail it."""
+    cs = _chip_smoke()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    program = codo_torch.compile(dm.mobilenet_fn, (1, 3, 224, 224),
+                                 device="cpu")
+    if broken:
+        real = program.lower
+        monkeypatch.setattr(program, "lower",
+                            lambda jit=True: _Doubled(real(jit=jit)))
+        with pytest.raises(SystemExit):
+            cs.first_run("mobilenet N=1", program)
+        return
+    got = cs.first_run("mobilenet N=1", program)
+    assert got["verify_scale"] < 2 * cs.VERIFY_BAND
+    assert got["routed_groups"] == []               # nothing routes at 224
+    assert got["verify_rel_err"] == got["verify_max_abs_err"] \
+        / got["verify_scale"] <= cs.VERIFY_BAND
