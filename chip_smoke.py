@@ -122,12 +122,35 @@ failing (non-zero exit, no result line) at the first problem:
     gpt2-medium arch block at seq 128 in spawned workers, the grid
     printed, each cell lowered with ``jit=True`` on the card and held
     against its oracle relative to the output's scale;
-14. no fallback: a step that reads a device value on the host raises
+14. the sharding phase: gpt2_block at (S, 1024), S=128 and 1024, on
+    ``make_debug_mesh((4, 2), ("data", "model"))`` — eight positions on
+    the card, driven in lockstep from this process (the single-controller
+    design of ``repro_torch.core.lowering``; one card runs the positions
+    one after another, so its times are the cost of the split, not a
+    scaling figure).  For ``replicate``, ``dp``, ``tp``, ``dp_tp`` and
+    ``auto``: the plan and its digest, the routed and ``"sharded"``
+    chains (flash routes under ``replicate`` only), one request with
+    every kernel launch held against its plain version at its local
+    shape, four requests with the launch counters zeroed just before and
+    read just after, ``verify_sharding`` against the single-device
+    program and the error relative to the output's scale, request walls
+    and device times beside the single-device program's; the ring and
+    ``rs_ag`` vias forced (``CODO_COLLECTIVE_*_BYTES=0``): they verify and
+    are bit for bit their direct forms; the chain kernel timed at each new
+    local shape; the API path (``compile(..., mesh=)``, ``verify``,
+    ``lower(jit=True)`` memoized and captured bit for bit eager and within
+    5e-4 of the single-device ``jit=True`` answer, export and load with
+    equal digests, the loaded plan re-sharded onto the debug mesh bit for
+    bit); no fallback (``mesh_from_spec`` of the 4 x 2 spec raises on one
+    card, ``grad=True`` with ``mesh=`` raises ``TraceError``); and
+    ``pipeline_fn`` over four stages of ``tanh(x·w + b)`` at D=1024, eight
+    microbatches of 128 rows, bit for bit ``reference_serial``;
+15. no fallback: a step that reads a device value on the host raises
     ``CaptureError`` naming the step;
-15. prints the card line, the ``kernels`` JSON line (the scans' entries
+16. prints the card line, the ``kernels`` JSON line (the scans' entries
     twice: their serving and their train-path launches; flash's also at
-    the serving batch) and, last, the ``{"ok": true, "device": ...}``
-    line.
+    the serving batch; the chain's also at the sharded phase's local
+    shapes) and, last, the ``{"ok": true, "device": ...}`` line.
 
 The full record (every check, every timing) goes to
 ``chiprun_out/chip_smoke.json``.  Imports nothing of JAX or the JAX
@@ -2816,36 +2839,42 @@ def counts() -> dict:
     return {k: lib.launches for k, lib in all_libraries().items()}
 
 
-def both_ways(label: str, eager, captured, iters: int = REQUESTS) -> dict:
-    """``iters`` calls each way (host clock, each ending in synchronize)
+def wall_and_device(fn, iters: int = REQUESTS) -> dict:
+    """``iters`` calls of ``fn`` (host clock, each ending in synchronize)
     after a warm call, and the profiled device time of one more: the
-    device's idle share is 1 - device / median wall.  Eager first."""
+    device's idle share is 1 - device / median wall."""
     import numpy as np
     import torch
-    out = {}
-    for how, fn in (("eager", eager), ("captured", captured)):
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(iters):
+        t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        walls = []
-        for _ in range(iters):
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            walls.append(1e3 * (time.perf_counter() - t))
-        rows = device_rows(fn)
-        dev = sum(r["device_us"] for r in rows) / 1e3 if rows else None
-        wall = float(np.median(walls))
-        out[how] = {"wall_ms": walls, "median_ms": wall, "device_ms": dev,
-                    "idle": None if dev is None else 1.0 - dev / wall,
-                    "profile": rows[:8]}
+        walls.append(1e3 * (time.perf_counter() - t))
+    rows = device_rows(fn)
+    dev = sum(r["device_us"] for r in rows) / 1e3 if rows else None
+    wall = float(np.median(walls))
+    return {"wall_ms": walls, "median_ms": wall, "device_ms": dev,
+            "idle": None if dev is None else 1.0 - dev / wall,
+            "profile": rows[:8]}
 
-    def text(m):
-        dev = ("device not measured" if m["device_ms"] is None else
-               f"device {m['device_ms']:.3f} ms, idle {100 * m['idle']:.0f} %")
-        return (f"{m['median_ms']:.3f} ms [{min(m['wall_ms']):.3f}-"
-                f"{max(m['wall_ms']):.3f}] ({dev})")
-    print(f"    {label}: eager {text(out['eager'])}; captured "
-          f"{text(out['captured'])}")
+
+def wall_text(m: dict) -> str:
+    dev = ("device not measured" if m["device_ms"] is None else
+           f"device {m['device_ms']:.3f} ms, idle {100 * m['idle']:.0f} %")
+    return (f"{m['median_ms']:.3f} ms [{min(m['wall_ms']):.3f}-"
+            f"{max(m['wall_ms']):.3f}] ({dev})")
+
+
+def both_ways(label: str, eager, captured, iters: int = REQUESTS) -> dict:
+    """:func:`wall_and_device` of the eager and the captured form, eager
+    first."""
+    out = {"eager": wall_and_device(eager, iters),
+           "captured": wall_and_device(captured, iters)}
+    print(f"    {label}: eager {wall_text(out['eager'])}; captured "
+          f"{wall_text(out['captured'])}")
     return out
 
 
@@ -3302,6 +3331,419 @@ def compiler_phase() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# the sharding phase: gpt2_block on a 4 x 2 mesh of positions on one card
+# --------------------------------------------------------------------------
+
+SHARD_MESH = ((4, 2), ("data", "model"))
+SHARD_STRATEGIES = ("replicate", "dp", "tp", "dp_tp", "auto")
+# The reference's bound on a sharded jit=True answer against the
+# single-device one (tests/test_sharding.py, jit_max_abs_err < 5e-4).
+SHARD_JIT_TOL = 5e-4
+VIA_VARS = ("CODO_COLLECTIVE_RING_BYTES", "CODO_COLLECTIVE_RSAG_BYTES")
+PIPE_STAGES, PIPE_MICRO, PIPE_ROWS = 4, 8, 128
+
+
+@contextlib.contextmanager
+def collective_thresholds(nbytes: int):
+    """Both decomposition thresholds at ``nbytes`` for the plans made
+    within: 0 forces the ring and rs_ag vias, a huge value the direct
+    forms."""
+    old = {k: os.environ.get(k) for k in VIA_VARS}
+    for k in VIA_VARS:
+        os.environ[k] = str(nbytes)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def held_against_plain(record: list, label: str):
+    """Within, every call a routed step makes to fused_matmul_chain or
+    flash_attention (the kernel launch, at the local shape its position
+    gives it) also computes the plain version on the same operands, and
+    the kernel's answer is held to it (TOL["f32_wide"]·(1 + scale)).
+    Yields {(kernel, shape): [calls, max error, scale]}; one check line
+    per kernel and shape goes to ``record``."""
+    from repro_torch.kernels.flashattn import flash_attention_plain
+    from repro_torch.kernels.flashattn import patterns as flash_routes
+    from repro_torch.kernels.streamfuse import matmul_chain_plain
+    from repro_torch.kernels.streamfuse import ops as chain_routes
+    seen: dict = {}
+    chain, flash = chain_routes.fused_matmul_chain, flash_routes.flash_attention
+
+    def hold(kernel, shape, got, want):
+        err = max_err(got, want)
+        scale = float(want.float().abs().max())
+        entry = seen.setdefault((kernel, shape), [0, 0.0, 0.0])
+        entry[0] += 1
+        entry[1], entry[2] = max(entry[1], err), max(entry[2], scale)
+        if not err <= TOL["f32_wide"] * (1.0 + scale):
+            fail(f"{label}: {kernel} at {shape} disagrees with its plain "
+                 f"version ({err:.3e}, scale {scale:.3f})")
+
+    def held_chain(a, w1, w2, *, ew=()):
+        got = chain(a, w1, w2, ew=ew)
+        hold("mmchain", (a.shape[0], a.shape[1], w1.shape[1], w2.shape[1]),
+             got, matmul_chain_plain(a, w1, w2, ew=getattr(ew, "ew", ew)))
+        return got
+
+    def held_flash(q, k, v, **kw):
+        got = flash(q, k, v, **kw)
+        hold("flash", tuple(q.shape), got,
+             flash_attention_plain(q, k, v, **kw))
+        return got
+
+    chain_routes.fused_matmul_chain = held_chain
+    flash_routes.flash_attention = held_flash
+    try:
+        yield seen
+    finally:
+        chain_routes.fused_matmul_chain = chain
+        flash_routes.flash_attention = flash
+    for (kernel, shape), (n, err, scale) in sorted(seen.items()):
+        record.append({"case": f"{label} {kernel} {shape}", "calls": n,
+                       "max_abs_err": err, "max_abs_ref": scale,
+                       "tol": TOL["f32_wide"], "ok": True})
+
+
+def sharding_path(S: int, card: str, record: dict) -> dict:
+    """gpt2_block at (S, 1024) on make_debug_mesh((4, 2)): eight positions
+    on the card.  For each strategy: the plan and its digest, the routed
+    and "sharded" chains, one request with every kernel launch held
+    against its plain version at its local shape, REQUESTS requests with
+    the launch counters zeroed just before and read just after,
+    verify_sharding against the single-device program and the error
+    relative to the output's scale, and walls and device times beside the
+    single-device program's.  Then the ring and rs_ag vias forced: they
+    verify and are bit for bit their direct forms."""
+    import numpy as np
+    import torch
+
+    import codo_torch
+    from repro_torch.core.lowering import lower, verify_sharding
+    from repro_torch.distributed.partition import partition
+    from repro_torch.kernels.flashattn.flashattn import flash_launches
+    from repro_torch.kernels.streamfuse.chain import chain_launches
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.dataflow_models import gpt2_block_fn
+    rng = np.random.default_rng(SEED + 300 + S)
+    program = codo_torch.compile(gpt2_block_fn, (S, D_MODEL))
+    program.bind(**{k: torch.as_tensor(v, device="cuda") for k, v in
+                    seeded_weights(program.graph, rng).items()})
+    x = torch.as_tensor(rng.standard_normal((S, D_MODEL)).astype(np.float32),
+                        device="cuda")
+    env = program.make_env(x)
+    mesh = make_debug_mesh(*SHARD_MESH)
+    positions = mesh.size
+    single_run = lower(program.compiled, jit=False, device="cuda")
+    single = single_run(env)
+    single_ms = wall_and_device(lambda: single_run(env))
+    print(f"  S={S}: {mesh!r}; {card}; single-device request "
+          f"{wall_text(single_ms)}")
+    out = {"S": S, "single": single_ms, "strategies": {}}
+    answers = {}
+    for strategy in SHARD_STRATEGIES:
+        plan = partition(program.compiled, mesh, strategy)
+        run = lower(program.compiled, jit=False, sharding=plan, mesh=mesh)
+        routed = [r.kernel for g in run.groups for r in g.routes]
+        sharded = [r.kernel for g in run.groups for r in g.rejected
+                   if r.decision == "sharded"]
+        want_routed = (["flashattn.mha", "streamfuse.mmchain"]
+                       if plan.strategy == "replicate"
+                       else ["streamfuse.mmchain"])
+        if routed != want_routed or sharded != [
+                k for k in ("flashattn.mha",) if k not in routed]:
+            fail(f"sharding S={S} {strategy}: routed {routed}, sharded "
+                 f"{sharded}; expected {want_routed}")
+        label = f"sharded S={S} {strategy}"
+        with held_against_plain(record["checks"], label) as held:
+            y = run(env)
+        torch.cuda.synchronize()
+        zero_counts()
+        for _ in range(REQUESTS):
+            run(env)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in counts().items() if v}
+        chain_shapes = sorted(s for k, s in held if k == "mmchain")
+        want = {"mmchain": REQUESTS * sum(
+            chain_launches(*s) * held[("mmchain", s)][0]
+            for s in chain_shapes)}
+        if plan.strategy == "replicate":
+            want["flash"] = REQUESTS * positions * flash_launches(
+                S, S, 1, D_MODEL)
+        if launches != want or sum(held[("mmchain", s)][0]
+                                   for s in chain_shapes) != positions:
+            fail(f"{label}: launches {launches}, expected {want} (one "
+                 f"chain call a position)")
+        verify_sharding(program.compiled, plan, env, mesh=mesh)
+        rel = max(_rel(y[k], single[k]) for k in single)
+        if not all(bool(torch.isfinite(v).all()) for v in y.values()):
+            fail(f"{label}: non-finite output")
+        timing = wall_and_device(lambda: run(env))
+        kinds = sorted({(s.kind, s.via) for s in plan.steps})
+        print(f"    {strategy:<9s} -> {plan.strategy:<9s} digest "
+              f"{plan.digest()}, {len(plan.steps)} collectives {kinds}; "
+              f"routed {routed}, sharded {sharded}; launches per "
+              f"{REQUESTS} requests {launches}; chain local shapes "
+              f"{chain_shapes} max err "
+              f"{max(held[('mmchain', s)][1] for s in chain_shapes):.2e}; "
+              f"verify_sharding ok, {rel:.2e} of scale; request "
+              f"{wall_text(timing)}")
+        answers[plan.strategy] = y
+        out["strategies"][strategy] = {
+            "resolved": plan.strategy, "digest": plan.digest(),
+            "estimated_cycles": plan.estimated_cycles,
+            "collectives": [list(k) for k in kinds],
+            "routed": routed, "sharded": sharded, "launches": launches,
+            "chain_shapes": [list(s) for s in chain_shapes],
+            "held": {f"{k} {s}": v for (k, s), v in held.items()},
+            "rel_err": rel, "request": timing}
+    if not all(torch.equal(answers["replicate"][k], single[k])
+               for k in single):
+        fail(f"sharding S={S}: replicate is not bit for bit the "
+             f"single-device program")
+    # The vias: every collective direct, then the ring and rs_ag forced.
+    vias = {}
+    for name, nbytes in (("direct", 1 << 62), ("forced", 0)):
+        with collective_thresholds(nbytes):
+            plan = partition(program.compiled, mesh, "dp_tp")
+        run = lower(program.compiled, jit=False, sharding=plan, mesh=mesh)
+        verify_sharding(program.compiled, plan, env, mesh=mesh)
+        vias[name] = (plan, run(env))
+    forced_kinds = {(s.kind, s.via) for s in vias["forced"][0].steps}
+    if not {("all_gather", "ring"), ("psum", "rs_ag")} <= forced_kinds or \
+            {s.via for s in vias["direct"][0].steps} != {"direct"}:
+        fail(f"sharding S={S}: vias {forced_kinds}")
+    bits = all(torch.equal(vias["forced"][1][k], vias["direct"][1][k])
+               for k in single)
+    print(f"    dp_tp forced vias {sorted(forced_kinds)} (digest "
+          f"{vias['forced'][0].digest()}): verify_sharding ok, bit for bit "
+          f"the direct forms {bits}")
+    if not bits:
+        fail(f"sharding S={S}: the ring / rs_ag vias differ from direct")
+    out["forced_vias"] = {"digest": vias["forced"][0].digest(),
+                          "vias": sorted(forced_kinds),
+                          "bit_identical_to_direct": bits}
+    return out
+
+
+def measure_chain_local(paths: dict, record: dict) -> dict:
+    """The chain kernel at each local shape the sharded phase launched it
+    at (the unsplit shape, timed in phase 3, left out): held against its
+    plain version, timed beside it and mm -> gelu -> mm, with its bound
+    and profiled device time."""
+    import torch
+    from repro_torch.kernels.streamfuse import (fused_matmul_chain,
+                                                matmul_chain_plain)
+    from repro_torch.kernels.streamfuse.chain import ChainTail
+    g = torch.Generator(device="cuda").manual_seed(SEED + 310)
+    gelu = ChainTail(GELU)
+    out = {}
+    for S, path in paths.items():
+        for strategy, r in path["strategies"].items():
+            for M, K, N1, N2 in r["chain_shapes"]:
+                key = f"{M}x{K}x{N1}x{N2}"
+                if (M, N1) == (S, 4 * D_MODEL):
+                    continue
+                if key in out:
+                    out[key]["strategies"].append(f"{strategy} S={S}")
+                    continue
+                a = torch.randn(M, K, generator=g, device="cuda")
+                w1 = torch.randn(K, N1, generator=g,
+                                 device="cuda") / math.sqrt(K)
+                w2 = torch.randn(N1, N2, generator=g,
+                                 device="cuda") / math.sqrt(N1)
+                err = check(record["checks"], f"mmchain local {key} gelu",
+                            fused_matmul_chain(a, w1, w2, ew=gelu),
+                            matmul_chain_plain(a, w1, w2, ew=GELU),
+                            TOL["f32_wide"])
+                iters = 20 if M * N1 <= 128 * 4096 else 5
+                ms, plain = in_turns(
+                    lambda: matmul_chain_plain(a, w1, w2, ew=GELU),
+                    lambda: fused_matmul_chain(a, w1, w2, ew=gelu), iters)
+
+                def library_chain():
+                    h = torch.nn.functional.gelu(a @ w1, approximate="tanh")
+                    return h @ w2
+
+                library = time_ms(library_chain, iters)
+                work = (2.0 * M * N1 * (K + N2),
+                        4.0 * (M * K + K * N1 + N1 * N2 + M * N2))
+                out[key] = dict(
+                    shape=[M, K, N1, N2], strategies=[f"{strategy} S={S}"],
+                    max_abs_err=err, ms=ms, plain_ms=plain,
+                    library_ms=library, **tf32x3_bound(*work),
+                    device_ms=device_ms(lambda: fused_matmul_chain(
+                        a, w1, w2, ew=gelu), iters))
+                m = out[key]
+                print(f"  mmchain local {key:<20s} kernel {m['ms']:.4f} ms "
+                      f"(device {m['device_ms']:.4f})  plain "
+                      f"{m['plain_ms']:.4f} ms  mm->gelu->mm "
+                      f"{m['library_ms']:.4f} ms  {bound_text(m)}")
+    return out
+
+
+def sharding_api(S: int) -> dict:
+    """The API path on the debug mesh: codo_torch.compile(..., mesh=) ->
+    verify; lower(jit=True) memoized, its captured answer bit for bit
+    jit=False and within SHARD_JIT_TOL of the single-device jit=True
+    answer; export -> load with equal digests; the loaded program placed
+    by mesh_from_spec raises on one card, then shard onto the debug mesh
+    with its recorded strategy: the same digest, and an answer bit for
+    bit the exported program's."""
+    import numpy as np
+    import torch
+
+    import codo_torch
+    from repro_torch.core import capture
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.dataflow_models import gpt2_block_fn
+    rng = np.random.default_rng(SEED + 320)
+    mesh = make_debug_mesh(*SHARD_MESH)
+    sharded = codo_torch.compile(gpt2_block_fn, (S, D_MODEL), mesh=mesh)
+    single = codo_torch.compile(gpt2_block_fn, (S, D_MODEL))
+    weights = {k: torch.as_tensor(v, device="cuda") for k, v in
+               seeded_weights(sharded.graph, rng).items()}
+    sharded.bind(**weights)
+    single.bind(**weights)
+    x = torch.as_tensor(rng.standard_normal((S, D_MODEL)).astype(np.float32),
+                        device="cuda")
+    sharded.verify(x)
+    low = sharded.lower(jit=True)
+    memoized = low is sharded.lower(jit=True)
+    eager = sharded(x, jit=False)
+    captures = capture.CAPTURE_STATS["captures"]
+    first, replay = sharded(x), sharded(x)
+    torch.cuda.synchronize()
+    captured = capture.CAPTURE_STATS["captures"] - captures
+    jit_err = max_err(replay, single(x))
+    checks = {"lower memoized": memoized, "one graph captured": captured == 1,
+              "first call bit for bit eager": torch.equal(first, eager),
+              "replay bit for bit eager": torch.equal(replay, eager),
+              f"within {SHARD_JIT_TOL:.0e} of single-device jit=True":
+                  jit_err < SHARD_JIT_TOL}
+    art_dir = ROOT / "build" / "artifacts"
+    art_dir.mkdir(parents=True, exist_ok=True)
+    path = art_dir / "gpt2_block_sharded.json"
+    sharded.export(str(path), weights=True)
+    loaded = codo_torch.load(str(path))
+    checks["loaded digest equal"] = (loaded.sharding.digest()
+                                     == sharded.sharding.digest())
+    try:
+        loaded(x, jit=False)
+    except RuntimeError as e:
+        placed = str(e)
+    else:
+        fail("sharding: a loaded 4x2 plan ran on one card without a mesh")
+    loaded.shard(make_debug_mesh(*SHARD_MESH), loaded.sharding.strategy)
+    checks["re-sharded digest equal"] = (loaded.sharding.digest()
+                                         == sharded.sharding.digest())
+    checks["re-sharded answer bit for bit"] = torch.equal(
+        loaded(x, jit=False), eager)
+    timing = {"eager": wall_and_device(lambda: sharded(x, jit=False)),
+              "captured": wall_and_device(lambda: sharded(x)),
+              "single captured": wall_and_device(lambda: single(x))}
+    print(f"  compile(gpt2_block_fn, ({S}, {D_MODEL}), mesh=...): "
+          f"{sharded.sharding.summary()}; digest "
+          f"{sharded.sharding.digest()}; "
+          + ", ".join(f"{k} {v}" for k, v in checks.items())
+          + f"; jit=True against single-device jit=True {jit_err:.2e}")
+    print(f"    loaded on one card without a mesh: {placed[:120]}")
+    print("    request: " + "; ".join(f"{k} {wall_text(v)}"
+                                      for k, v in timing.items()))
+    if not all(checks.values()):
+        fail(f"sharding api: {checks}")
+    return {"strategy": sharded.sharding.strategy,
+            "digest": sharded.sharding.digest(), "checks": checks,
+            "jit_max_abs_err": jit_err, "placement_error": placed,
+            "request": timing}
+
+
+def pipeline_phase() -> dict:
+    """pipeline_fn over four stages of tanh(x·w + b) at D=1024, eight
+    microbatches of 128 rows, on a ("stage", 4) debug mesh on the card:
+    bit for bit reference_serial."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.pipeline import (PipelineSchedule, pipeline_fn,
+                                           reference_serial)
+    from repro_torch.launch.mesh import make_debug_mesh
+    rng = np.random.default_rng(SEED + 330)
+    params = {"w": torch.as_tensor((rng.standard_normal(
+        (PIPE_STAGES, D_MODEL, D_MODEL)) / math.sqrt(D_MODEL)).astype(
+        np.float32), device="cuda"),
+        "b": torch.as_tensor((rng.standard_normal((PIPE_STAGES, D_MODEL))
+                              * 0.1).astype(np.float32), device="cuda")}
+    x = torch.as_tensor(rng.standard_normal(
+        (PIPE_MICRO, PIPE_ROWS, D_MODEL)).astype(np.float32), device="cuda")
+
+    def stage(p, h):
+        return torch.tanh(h @ p["w"] + p["b"])
+
+    mesh = make_debug_mesh((PIPE_STAGES,), ("stage",))
+    run = pipeline_fn([stage] * PIPE_STAGES, mesh)
+    y = run(params, x)
+    want = reference_serial([stage] * PIPE_STAGES, params, x)
+    err = max_err(y, want)
+    sched = PipelineSchedule(PIPE_STAGES, PIPE_MICRO)
+    timing = {"pipeline": wall_and_device(lambda: run(params, x)),
+              "serial": wall_and_device(lambda: reference_serial(
+                  [stage] * PIPE_STAGES, params, x))}
+    print(f"  pipeline_fn {PIPE_STAGES} stages x {PIPE_MICRO} microbatches "
+          f"of ({PIPE_ROWS}, {D_MODEL}) on {mesh!r}: vs serial max err "
+          f"{err:.2e}, bit for bit {torch.equal(y, want)}; ticks "
+          f"{sched.ticks}, bubble {sched.bubble_fraction:.1%}; "
+          + "; ".join(f"{k} {wall_text(v)}" for k, v in timing.items()))
+    if not torch.equal(y, want) or not bool(torch.isfinite(y).all()):
+        fail(f"pipeline: not bit for bit the serial run ({err:.3e})")
+    return {"max_abs_err": err, "ticks": sched.ticks,
+            "bubble": sched.bubble_fraction, "timing": timing}
+
+
+def sharding_phase(card: str, record: dict) -> dict:
+    """The sharding phase (see the module docstring): each strategy at
+    both S, the chain at its local shapes, the API path, no fallback, and
+    the pipeline."""
+    import codo_torch
+    from repro_torch.distributed.plan import MeshSpec
+    from repro_torch.launch.mesh import mesh_from_spec
+    from repro_torch.models.dataflow_models import gpt2_block_loss_fn
+    t0 = time.perf_counter()
+    paths = {S: sharding_path(S, card, record) for S in SEQS}
+    chain_local = measure_chain_local(paths, record)
+    api = sharding_api(SEQS[0])
+    spec = MeshSpec(tuple(zip(SHARD_MESH[1], SHARD_MESH[0])))
+    try:
+        mesh_from_spec(spec)
+    except RuntimeError as e:
+        no_cards = str(e)
+    else:
+        fail("sharding: mesh_from_spec placed a 4x2 mesh on one card")
+    try:
+        codo_torch.compile(gpt2_block_loss_fn, (SEQS[0], D_MODEL),
+                           (SEQS[0], D_MODEL), grad=True, mesh=spec)
+    except codo_torch.TraceError as e:
+        no_grad = str(e)
+    else:
+        fail("sharding: grad=True with mesh= did not raise")
+    print(f"  no fallback: mesh_from_spec(4x2) raised ({no_cards[:80]}...); "
+          f"grad=True with mesh= raised TraceError ({no_grad})")
+    pipe = pipeline_phase()
+    seconds = time.perf_counter() - t0
+    print(f"  sharding phase {seconds:.1f} s")
+    return {"paths": {str(S): p for S, p in paths.items()},
+            "chain_local": chain_local, "api": api,
+            "no_fallback": {"mesh_from_spec": no_cards, "grad": no_grad},
+            "pipeline": pipe, "seconds": seconds}
+
+
 def no_fallback() -> dict:
     """A step that reads a device value on the host cannot be captured:
     the first jit=True call raises CaptureError naming the step, and no
@@ -3446,6 +3888,10 @@ def main() -> int:
     print("the batch driver: codo_opt_batch, then each cell on the card "
           "with jit=True:")
     record["compiler_phase"] = compiler_phase()
+    print("sharding: gpt2_block on a 4x2 mesh of positions on the card "
+          "(forced routing):")
+    sharding = sharding_phase(card, record)
+    record["sharding_phase"] = sharding
     print("no fallback:")
     record["no_fallback"] = no_fallback()
 
@@ -3523,6 +3969,14 @@ def main() -> int:
         f"flash_attention[serving batch {SERVE_BATCH}x{SERVE_S}x{D_MODEL}]",
         *source["flash"][1:], serving_flash,
         serving["batched"]["flash_launches"]))
+    # The chain at the local shapes of the sharded phase: its launches in
+    # the REQUESTS counted requests of the first strategy that gave it.
+    for key, m in sharding["chain_local"].items():
+        strategy, S = m["strategies"][0].split(" S=")
+        launches = sharding["paths"][S]["strategies"][strategy]["launches"]
+        cnn_entries.append((
+            f"fused_matmul_chain[sharded {m['strategies'][0]} {key}]",
+            *source["mmchain"][1:], m, launches["mmchain"]))
     cnn_entries.append((
         "matmul[ops.mm " + "x".join(map(str, MM_SHAPE)) + "]",
         "src/repro_torch/csrc/matmul.cu",

@@ -53,9 +53,16 @@ chain routed and generic on the program's device and records the winners
 in the tuning database, which the routing gate then prefers to its
 prediction (:mod:`repro_torch.core.tuning`).
 
-Not ported yet, raising :class:`NotImplementedError` with its
-``ROADMAP.md`` item: ``mesh=`` and sharded artifacts (Queue 1 item 6,
-"Sharding").
+``compile(..., mesh=)`` (or :meth:`CompiledProgram.shard`) partitions the
+design across a mesh (:mod:`repro_torch.distributed.partition`); calls
+then run the sharded lowering, one process driving every position in
+lockstep as the reference's ``shard_map`` does (README, "PyTorch / H100
+port").
+A :class:`~repro_torch.launch.mesh.Mesh` names the positions' devices
+(``make_debug_mesh`` puts them all on one device); a pure-data
+:class:`~repro_torch.distributed.plan.MeshSpec` is placed at the first
+lowering, on the CPU for a CPU program and on one card a position
+otherwise.
 """
 
 from __future__ import annotations
@@ -77,11 +84,6 @@ ShapedBuffer = frontend.ShapedBuffer
 buffer = frontend.buffer
 trace = frontend.trace
 TraceError = frontend.TraceError
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to the PyTorch package "
-                               f"yet (ROADMAP.md, Queue 1 {item})")
 
 
 def resolve_device(device=None):
@@ -150,8 +152,10 @@ class CompiledProgram:
         self.origin: str | None = None        # trace provenance (v1.5)
         self._provenance: dict | None = None  # as loaded from an artifact
         self._bindings: dict[str, Any] = {}
+        self._sharding = None                 # ShardingPlan | None
+        self._mesh = None                     # the plan's Mesh, once placed
         self._lowered = None
-        self._lowered_key: bool | None = None
+        self._lowered_key: tuple | None = None
 
     # ---- introspection ---------------------------------------------------
     @property
@@ -214,15 +218,63 @@ class CompiledProgram:
             self._bindings[name] = self._tensor(self._bindable(name), value)
         return self
 
+    # ---- sharding --------------------------------------------------------
+    @property
+    def sharding(self):
+        """The :class:`~repro_torch.distributed.plan.ShardingPlan`, or None
+        for a single-device program."""
+        return self._sharding
+
+    @property
+    def mesh(self):
+        """The :class:`~repro_torch.launch.mesh.Mesh` a sharded program
+        runs on (placed at the first lowering when the plan came with a
+        pure-data mesh), or None."""
+        return self._mesh
+
+    def shard(self, mesh, strategy: str = "auto") -> "CompiledProgram":
+        """Partition this design across ``mesh`` — a
+        :class:`~repro_torch.launch.mesh.Mesh`, whose devices must be of
+        the program's device type, or a pure-data
+        :class:`~repro_torch.distributed.plan.MeshSpec`, placed at the
+        first lowering (every position on the CPU for a CPU program, one
+        card a position otherwise).  The plan enters the lowering memo key
+        and travels in the v1.4 artifact; later calls run the sharded
+        lowering.  ``shard(None)`` reverts to the single-device program."""
+        from repro_torch.distributed.partition import partition
+        from repro_torch.launch.mesh import Mesh
+        if mesh is None:
+            self._sharding = self._mesh = None
+        else:
+            placed = mesh if isinstance(mesh, Mesh) else None
+            if placed is not None:
+                wrong = [str(d) for d in placed.distinct_devices
+                         if d.type != self.device.type]
+                if wrong:
+                    raise ValueError(
+                        f"mesh positions on {wrong} differ from the "
+                        f"program's device {self.device}: compile on that "
+                        f"device, or build the mesh on {self.device}")
+            self._sharding = partition(self.compiled, mesh, strategy)
+            self._mesh = placed
+        self._lowered = None
+        return self
+
     # ---- execution -------------------------------------------------------
     def lower(self, jit: bool = True):
-        """The lowered step runner (memoized per ``jit`` flag): captured
-        into a CUDA graph per input signature on the card when ``jit``,
-        eager otherwise (:func:`~repro_torch.core.lowering.lower`)."""
-        if self._lowered is None or self._lowered_key != bool(jit):
-            from repro_torch.core.lowering import lower
-            self._lowered = lower(self.compiled, jit=jit, device=self.device)
-            self._lowered_key = bool(jit)
+        """The lowered step runner (memoized per ``jit`` flag and sharding
+        plan): captured into a CUDA graph per input signature on the card
+        when ``jit``, eager otherwise (:func:`~repro_torch.core.lowering.
+        lower`)."""
+        plan = self._sharding
+        key = (bool(jit), plan.digest() if plan is not None else "")
+        if self._lowered is None or self._lowered_key != key:
+            from repro_torch.core.lowering import lower, place_sharding
+            if plan is not None and self._mesh is None:
+                self._mesh = place_sharding(plan, device=self.device)
+            self._lowered = lower(self.compiled, jit=jit, device=self.device,
+                                  sharding=plan, mesh=self._mesh)
+            self._lowered_key = key
         return self._lowered
 
     def make_env(self, *values, **named) -> dict[str, Any]:
@@ -256,13 +308,19 @@ class CompiledProgram:
         vals = tuple(out[n] for n in self.output_names)
         return vals[0] if len(vals) == 1 else vals
 
-    def verify(self, *values, rtol: float = 1e-5, atol: float = 1e-5,
-               **named) -> None:
+    def verify(self, *values, rtol: float | None = None,
+               atol: float | None = None, **named) -> None:
         """Check the lowered design against the un-optimized oracle (the
         source graph executed task by task, on the same device) on these
-        inputs.  The default band is the reference's; a caller on the card
-        states its own where the kernels sum in another order."""
+        inputs.  The default band is the reference's: 1e-5, widened for a
+        sharded program (verified through its multi-device lowering) to
+        the fp-reassociation band of ``lowering.verify_sharding``, rtol
+        1e-4 / atol 5e-5.  A caller on the card states its own where the
+        kernels sum in another order."""
         from repro_torch.core.lowering import assert_outputs_close
+        sharded = self._sharding is not None
+        rtol = (1e-4 if sharded else 1e-5) if rtol is None else rtol
+        atol = (5e-5 if sharded else 1e-5) if atol is None else atol
         env = self.make_env(*values, **named)
         assert_outputs_close(self.lower(jit=False)(env),
                              self.source.execute(env),
@@ -288,7 +346,9 @@ class CompiledProgram:
         the artifact is a self-contained served model; a dict ships
         specific values, and ``sidecar=True`` writes them to
         ``<path>.weights.npz`` instead of base64 in the JSON.  A design
-        not lowered yet records the routing its device's gate decides."""
+        not lowered yet records the routing its device's gate decides.  A
+        sharded program also writes its plan into the v1.4 ``sharding``
+        section (the mesh's shape, never its devices)."""
         from repro_torch.core.artifact import export_artifact
         from repro_torch.core.costmodel import routing_backend
         if weights is True:
@@ -298,6 +358,7 @@ class CompiledProgram:
                        for b in self.graph.weights()}
         return export_artifact(self.compiled, path, weights=weights,
                                weights_sidecar=sidecar,
+                               sharding=self._sharding,
                                provenance=self.provenance(),
                                backend=routing_backend(self.device))
 
@@ -594,7 +655,8 @@ def train_state_from_numpy(params: dict[str, Any], opt_state: dict,
 def compile(fn: Callable | DataflowGraph, *specs,  # noqa: A001 — the API name
             device=None, options: CodoOptions | None = None,
             name: str | None = None, cache=_UNSET, autotune: bool = False,
-            mesh=None, grad: bool = False, opt=None, wrt=None,
+            mesh=None, sharding_strategy: str = "auto", grad: bool = False,
+            opt=None, wrt=None,
             **codo_kwargs) -> "CompiledProgram | CompiledTrainStep":
     """Trace ``fn`` over ``specs`` (shape tuples / :func:`buffer` protos)
     and compile it through the ``codo_opt`` pipeline for ``device``
@@ -606,9 +668,14 @@ def compile(fn: Callable | DataflowGraph, *specs,  # noqa: A001 — the API name
     measures the design's matched chains on the device before returning
     (:meth:`CompiledProgram.autotune`).  Extra keyword arguments are
     forwarded to :func:`~repro_torch.core.compiler.codo_opt`.
+
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh` or a
+    :class:`~repro_torch.distributed.plan.MeshSpec`) makes the result a
+    multi-device program (:meth:`CompiledProgram.shard`): the partitioner
+    runs after the single-device pipeline, and ``sharding_strategy``
+    picks the placement — ``"auto"`` prices every feasible candidate, or
+    force one of ``replicate``/``dp``/``tp``/``dp_tp``.
     """
-    if mesh is not None:
-        raise _not_ported("mesh= (sharded programs)", "item 6 (Sharding)")
     device = resolve_device(device)
     if isinstance(fn, DataflowGraph):
         if specs:
@@ -623,6 +690,9 @@ def compile(fn: Callable | DataflowGraph, *specs,  # noqa: A001 — the API name
         source, ins, outs = frontend.trace_io(fn, *specs, name=name)
         origin = _trace_origin(fn, source)
     if grad:
+        if mesh is not None:
+            raise TraceError("grad=True does not compose with mesh= yet — "
+                             "shard the phases individually")
         step = _compile_train_step(source, device, options=options,
                                    cache=cache, opt=opt, wrt=wrt,
                                    origin=origin, **codo_kwargs)
@@ -634,6 +704,8 @@ def compile(fn: Callable | DataflowGraph, *specs,  # noqa: A001 — the API name
     compiled = codo_opt(source, options, cache=cache, **codo_kwargs)
     program = CompiledProgram(source, compiled, ins, outs, device)
     program.origin = origin
+    if mesh is not None:
+        program.shard(mesh, sharding_strategy)
     if autotune:
         program.autotune()
     return program
@@ -647,7 +719,11 @@ def load(path, *, device=None) -> "CompiledProgram | CompiledTrainStep":
     are hash-checked and bound as tensors on the device.  A train-step
     artifact (``kind: "train_step"``) gives a :class:`CompiledTrainStep`
     whose ``init_params`` are the weights it carries.  An artifact with a
-    ``sharding`` section raises :class:`NotImplementedError`."""
+    v1.4 ``sharding`` section restores its plan as it was; the plan is
+    placed at the first lowering (``mesh_from_spec`` on the card, which
+    raises on a host with too few cards: re-shard onto a debug mesh with
+    ``program.shard(make_debug_mesh(...), program.sharding.strategy)``,
+    which gives the same plan and digest)."""
     from repro_torch.core.artifact import (TRAIN_STEP_KIND, artifact_weights,
                                            import_artifact, load_artifact)
     from repro_torch.core.costmodel import routing_backend
@@ -662,6 +738,7 @@ def load(path, *, device=None) -> "CompiledProgram | CompiledTrainStep":
     # The stored provenance (the post-pass graph's hash is not the pre-pass
     # source's) travels on, so a re-export round-trips the section.
     program._provenance = doc.get("provenance")
+    program._sharding = getattr(compiled, "sharding_plan", None)
     base_dir = None if isinstance(path, dict) else Path(path).parent
     bound = artifact_weights(doc, base_dir=base_dir)
     if bound:

@@ -3,7 +3,8 @@
 The passes, cost model, cache and routing are the reference's
 framework-free code; the op bodies and the lowering run on torch tensors.
 Re-exports the reference ``repro.core``'s public names, plus the port's
-own (``H100``, ``routing_backend``, the captured step runner).
+own (``H100``, ``routing_backend``, the captured step runner) and the
+sharding slice's (``verify_sharding``, the pipeline executor).
 
     from repro_torch.core import (DataflowGraph, codo_opt, CodoOptions,
                                   lower, graph_latency, autoschedule)
@@ -32,7 +33,7 @@ from .graph import (FIFO, PINGPONG, Access, Buffer, DataflowGraph, Loop, Task,
 from .lowering import (LOWER_CACHE_STATS, FusionGroup, LoweredProgram,
                        clear_lower_cache, fusion_groups, lower,
                        lower_artifact, register_group_kernel,
-                       verify_lowering, verify_routing)
+                       verify_lowering, verify_routing, verify_sharding)
 from .offchip import TransferPlan, host_manifest, plan_offchip
 from .ops import (OpSpec, UnknownOpError, materialize, op_impl, register_op,
                   registered_ops)
@@ -41,6 +42,7 @@ from .passes import (ABLATION_PRESETS, DEFAULT_PASS_BUDGETS,
                      PassRecord, default_passes)
 from .patterns import (access_sig, arrival_order, coarse_violations,
                        fine_violations, violation_report)
+from .pipeline import PipelineSchedule, pipeline_fn, reference_serial
 from .reuse import generate_reuse_buffers, parallel_safety
 from .routing import (XLA_FUSED, KernelPattern, RoutedKernel,
                       pallas_disabled, register_kernel_pattern,
@@ -55,7 +57,8 @@ __all__ = [
     "DataflowGraph", "FIFO", "FusionGroup", "GB", "GraphCost", "H100",
     "HwParams", "KernelPattern", "LOWER_CACHE_STATS", "Loop",
     "LoweredProgram", "OpSpec", "PASS_RUN_COUNTS", "PINGPONG", "Pass",
-    "PassBudgetError", "PassManager", "PassRecord", "RoutedKernel",
+    "PassBudgetError", "PassManager", "PassRecord", "PipelineSchedule",
+    "RoutedKernel",
     "SCHEMA_VERSION", "ShapedBuffer", "Task", "TraceError", "Tracer",
     "TransferPlan", "UnknownOpError", "V5E", "XLA_FUSED", "ablation_jobs",
     "access_sig", "arrival_order", "artifact_summary", "artifact_weights",
@@ -68,10 +71,12 @@ __all__ = [
     "generate_reuse_buffers", "graph_latency", "host_manifest", "idx",
     "import_artifact", "kernel_workloads", "lower", "lower_artifact",
     "materialize", "matmul_task", "op_impl", "pad_task", "pallas_disabled",
-    "parallel_safety", "plan_offchip", "pool_task", "reduce_task",
+    "parallel_safety", "pipeline_fn", "plan_offchip", "pool_task",
+    "reduce_task", "reference_serial",
     "register_group_kernel", "register_kernel_pattern", "register_op",
     "registered_ops", "registered_patterns", "retarget_fn", "route_plan",
     "routing_backend", "sequential_latency", "task_cost", "trace",
     "trace_io", "validate_artifact", "verify_lowering", "verify_routing",
-    "verify_violation_free", "violation_report", "weight_init",
+    "verify_sharding", "verify_violation_free", "violation_report",
+    "weight_init",
 ]

@@ -10,10 +10,9 @@ the other.  Differences from the reference, each kept small:
 * Routed groups are recorded as ``pallas:<pattern>``, the reference's
   spelling, so both packages read each other's routing tables; the kernel
   behind a pattern here is the Hopper one.
-* A v1.4 ``sharding`` section validates (against this module's copy of
-  the collective vocabulary), but importing it raises
-  :class:`NotImplementedError`: sharded programs are not ported yet
-  (``ROADMAP.md``, Queue 1 item 6).  It is never dropped silently.
+* A v1.4 ``sharding`` section is written and read as the reference does:
+  the plan is pure data (:mod:`repro_torch.distributed.plan`), with the
+  same digest in both packages.
 * Weight payloads may be given as tensors (on any device); they are
   written from their host copy.
 
@@ -111,7 +110,7 @@ SCHEMA_VERSION = "1.5"
 #      FIFO-depth buffer sizing and decomposition choices), plus a
 #      content digest that is re-checked on import.  ``codo.load``
 #      restores the plan so a sharded design round-trips to the same
-#      ``shard_map`` execution; devices are only touched at run time.
+#      sharded execution; devices are only touched at run time.
 #      Older readers ignore the section (unknown-field policy) and this
 #      reader accepts v1.0–v1.3 documents without it.
 # 1.3  `weights`: bound weight payloads — content-hashed arrays either
@@ -140,12 +139,6 @@ SCHEMA_VERSION = "1.5"
 # Tool identifier recorded in `generator`; consumers should key behaviour
 # on `schema_version`, never on this string.
 GENERATOR = "codo-repro-torch"
-
-# The typed collective vocabulary of a v1.4 ``sharding`` section (the
-# reference's ``repro.distributed.plan.COLLECTIVE_KINDS``, as plain data:
-# the port has no distributed package yet).
-COLLECTIVE_KINDS = ("all_gather", "reduce_scatter", "psum", "ppermute")
-
 
 class ArtifactError(ValueError):
     """A document failed validation, version, or integrity checks.  The
@@ -295,7 +288,7 @@ def export_artifact(compiled: CompiledDataflow,
                     path: str | Path | None = None, *,
                     weights: dict | None = None,
                     weights_sidecar: bool = False,
-                    provenance: dict | None = None,
+                    sharding=None, provenance: dict | None = None,
                     backend: str | None = None) -> dict:
     """Serialize a compiled design to the versioned JSON artifact format.
 
@@ -311,8 +304,10 @@ def export_artifact(compiled: CompiledDataflow,
     ``codo.load`` binds them back, so a weight-carrying artifact serves
     with no model code and no initializer in reach.
 
-    The port writes no v1.4 ``sharding`` section: sharded programs are
-    not ported yet.
+    ``sharding`` (v1.4) records the design's
+    :class:`~repro_torch.distributed.plan.ShardingPlan` — placements +
+    collective schedule — so the importer reconstructs the same
+    multi-device program without re-partitioning.
 
     ``provenance`` (v1.5) records where the design came from: the
     *pre-pass* source graph's structural hash and the trace origin.  The
@@ -374,6 +369,8 @@ def export_artifact(compiled: CompiledDataflow,
     }
     if weights is not None:
         doc["weights"] = _weights_section(g, weights, path, weights_sidecar)
+    if sharding is not None:
+        doc["sharding"] = sharding.to_dict()
     if provenance is not None:
         doc["provenance"] = dict(provenance)
     if path is not None:
@@ -777,6 +774,7 @@ def validate_artifact(doc: Any) -> list[str]:
                 errors.append(f"{p}.data: required for embedded format")
     shard = doc.get("sharding")
     if isinstance(shard, dict):
+        from repro_torch.distributed.plan import COLLECTIVE_KINDS
         _check_fields(shard, "sharding", _SHARDING_FIELDS, errors, notes)
         mesh = shard.get("mesh")
         axes = mesh.get("axes") if isinstance(mesh, dict) else None
@@ -1014,14 +1012,18 @@ def import_artifact(source: str | Path | dict, *,
                 f"tuning does not reconstruct ({type(e).__name__}: {e}) — "
                 "corrupted values?") from e
 
-    # v1.4 sharding section: a sharded program cannot run here yet, and
-    # dropping the plan would run the design on one device as if it had
-    # none, so the import stops.
+    # v1.4 sharding section: reconstruct the pure-data plan (its stored
+    # digest is re-checked by from_dict) and attach it to the design —
+    # ``codo_torch.load`` turns it back into a multi-device program.  No
+    # device is touched here.
     if doc.get("sharding"):
-        raise NotImplementedError(
-            "the artifact carries a v1.4 sharding section; sharded programs "
-            "are not ported to the PyTorch package yet (ROADMAP.md, Queue 1 "
-            "item 6 (Sharding))")
+        from repro_torch.distributed.plan import ShardingPlan
+        try:
+            out.sharding_plan = ShardingPlan.from_dict(doc["sharding"])
+        except (KeyError, TypeError, ValueError) as e:
+            raise ArtifactError(
+                f"sharding does not reconstruct ({type(e).__name__}: {e}) "
+                "— corrupted values?") from e
 
     # The final cost is recomputed (the model is deterministic pure Python
     # over the stored graph); the recorded summary cross-checks for
@@ -1420,7 +1422,7 @@ if __name__ == "__main__":  # pragma: no cover - exercised via subprocess
     sys.exit(main())
 
 
-__all__ = ["COLLECTIVE_KINDS", "SCHEMA_VERSION", "TRAIN_STEP_KIND",
+__all__ = ["SCHEMA_VERSION", "TRAIN_STEP_KIND",
            "ArtifactError",
            "ArtifactWarning", "artifact_summary", "artifact_weights",
            "diff_artifacts", "dumps", "export_artifact",

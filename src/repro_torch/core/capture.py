@@ -19,6 +19,11 @@ instead of one launch and its Python for every task:
   train step's new parameters are seen by the next call.
 * **CPU tensors** run the step list as it is; there is no graph to
   capture there.
+* **A sharded program** (``lower(..., sharding=)``) is a step list too:
+  the split of the env onto the mesh's positions, each task's lockstep
+  step over the positions with its collectives, and the reassembly of
+  the outputs.  When every position sits on the card of the env, the
+  whole lockstep run is one graph.
 * **No fallback.**  A step that cannot be captured (one that reads a
   device value on the host, say) raises :class:`CaptureError` naming the
   step; the call never runs eagerly instead.

@@ -16,14 +16,31 @@ for like.  ``CODO_DISABLE_PALLAS=1`` turns all routing off.
 the reference wraps it in ``jax.jit``: in a
 :class:`~repro_torch.core.capture.CapturedProgram`, which captures it into
 a CUDA graph per input signature on the card and runs it as it is on the
-CPU.  ``jit=False`` runs the step list eagerly everywhere.  Sharded
-lowering is not ported yet.
+CPU.  ``jit=False`` runs the step list eagerly everywhere.
+
+``sharding=`` (a :class:`~repro_torch.distributed.plan.ShardingPlan`)
+lowers the multi-device program.  The reference wraps the step list in
+``shard_map`` under ``jax.jit``: one process drives every position of the
+mesh.  The port does the same as a lockstep interpreter over the mesh's
+positions (:class:`~repro_torch.launch.mesh.Mesh`, a device for each):
+each input and weight is split by its
+:class:`~repro_torch.distributed.plan.ShardSpec` onto its position's
+device, every step runs on every position at its local shapes (a routed
+chain launches its kernel once a position), the plan's collectives run
+before and after their anchor tasks across each group of positions along
+their axis (:mod:`repro_torch.distributed.collectives`), and the outputs
+are reassembled by their specs on the mesh's first device.  With ``jit``
+the whole lockstep run is captured as one CUDA graph per input signature
+when every position sits on one card; a mesh over several cards raises
+:class:`~repro_torch.core.capture.CaptureError` there (collectives
+between cards are not ported yet).
 
 Lowering results are memoized like compiles: keyed on the compiled graph's
 ``structural_hash()`` (which covers the fusion decisions), the lowering
 flags, the routing switches of
 :func:`~repro_torch.core.routing.routing_state_key` for the program's
-backend, and the op-registry epoch.
+backend, the op-registry epoch and, for a sharded program, the plan's
+digest and the mesh's devices.
 """
 
 from __future__ import annotations
@@ -36,7 +53,7 @@ from typing import Any, Callable
 
 import numpy as np
 
-from .capture import CapturedProgram, clear_graphs, run_steps
+from .capture import CaptureError, CapturedProgram, clear_graphs, run_steps
 from .compiler import CompiledDataflow
 from .costmodel import routing_backend
 from .graph import DataflowGraph, GraphError
@@ -183,15 +200,182 @@ def _build_steps(graph: DataflowGraph, groups: list[FusionGroup],
     return steps
 
 
+def _drop_sharded_routes(groups: list[FusionGroup], sharding) -> None:
+    """Un-route any chain a collective lands inside.  A routed kernel step
+    runs at the chain's *last* task with the interiors skipped, so the
+    only anchor the sharded executor can honor is "after the last task"
+    (the psum on a row-parallel matmul's output).  A gather before any
+    chain task, or a reduction after an interior, would silently never
+    run — fall back to the generic per-task path for that chain."""
+    from repro_torch.distributed import collectives as _coll
+    before, after = _coll.attach(sharding.steps)
+    for g in groups:
+        kept = []
+        for r in g.routes:
+            bad = any(t in before for t in r.tasks) or \
+                any(t in after for t in r.tasks[:-1])
+            if bad:
+                r.decision = "sharded"      # collective inside the chain
+                g.rejected.append(r)
+            else:
+                kept.append(r)
+        if len(kept) != len(g.routes):
+            g.routes = kept
+            g.kernel = ("pallas:" + "+".join(r.kernel for r in kept)
+                        if kept else XLA_FUSED)
+            g.decision = "routed" if kept else "generic"
+
+
+def place_sharding(sharding, mesh=None, device=None):
+    """The :class:`~repro_torch.launch.mesh.Mesh` a sharded program runs
+    on: ``mesh`` when given (its shape must be the plan's); else every
+    position on the CPU for a CPU ``device``, and otherwise the first
+    cards, one a position (``mesh_from_spec``, which raises on a host with
+    fewer cards — there is no fallback to the CPU)."""
+    import torch
+
+    from repro_torch.launch.mesh import Mesh, mesh_from_spec
+    if mesh is not None:
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh= takes a repro_torch.launch.mesh.Mesh, "
+                            f"got {type(mesh).__name__}")
+        if mesh.spec != sharding.mesh:
+            raise ValueError(f"the plan is for mesh {sharding.mesh.axes}, "
+                             f"got a mesh of {mesh.spec.axes}")
+        return mesh
+    if device is not None and torch.device(device).type == "cpu":
+        return Mesh(sharding.mesh, ["cpu"] * sharding.mesh.size)
+    return mesh_from_spec(sharding.mesh)
+
+
+# The scope entry of a sharded run that holds one buffer dict per mesh
+# position (a key no buffer name can take).
+_POSITIONS = object()
+
+
+def _shard(value, spec, mesh, coords: dict, device):
+    """The local block of ``value`` that the position at ``coords`` holds
+    under ``spec``, dense, on ``device``."""
+    for d, axis in enumerate(spec.dims):
+        if axis is not None:
+            size = value.shape[d] // mesh.shape[axis]
+            value = value.narrow(d, coords[axis] * size, size)
+    return value.contiguous().to(device)
+
+
+def _assemble(name: str, spec, mesh, coords: list, scopes: list, device):
+    """The global value of an output from its positions' local blocks (the
+    positions at coordinate 0 of every axis the spec does not use)."""
+    import torch
+    if spec.is_replicated:
+        return scopes[0][name].to(device)
+    local = scopes[0][name]
+    shape = [n * (1 if axis is None else mesh.shape[axis])
+             for n, axis in zip(local.shape, spec.dims)]
+    out = torch.empty(shape, dtype=local.dtype, device=device)
+    used = {axis for axis in spec.dims if axis is not None}
+    for c, scope in zip(coords, scopes):
+        if any(c[a] for a in c if a not in used):
+            continue
+        block = out
+        for d, axis in enumerate(spec.dims):
+            if axis is not None:
+                n = local.shape[d]
+                block = block.narrow(d, c[axis] * n, n)
+        block.copy_(scope[name])
+    return out
+
+
+def _sharded_steps(graph: DataflowGraph, steps, outputs: list[str],
+                   sharding, mesh) -> list[tuple[str, Callable]]:
+    """The step list as a lockstep run over ``mesh``'s positions.
+
+    A first step splits the env onto the positions (each entry the *local
+    shard* its :class:`ShardSpec` dictates); each task's step then applies
+    the plan's collectives anchored "before" it across every group of
+    positions along their axis, runs on every position, and applies those
+    anchored "after" it (psum, reduce_scatter + all_gather, the ring); a
+    last step reassembles the outputs by their specs on the mesh's first
+    device.  The reference's ``_sharded_program`` over ``shard_map``."""
+    from repro_torch.distributed import collectives as _coll
+
+    before, after = _coll.attach(sharding.steps)
+    emitted = {name for name, _f in steps}
+    missing = [s.task for s in sharding.steps if s.task not in emitted]
+    if missing:        # _drop_sharded_routes guarantees this never fires
+        raise GraphError(
+            f"collective anchored on skipped task(s) {missing}")
+    fns = {id(s): _coll.make_collective(s, mesh) for s in sharding.steps}
+    groups = {axis: mesh.groups(axis) for axis in mesh.axis_names}
+    in_specs, out_specs = _coll.env_partition_specs(graph, sharding)
+    coords = [mesh.coords(p) for p in range(mesh.size)]
+    home = mesh.devices[0]
+
+    def split(scope: dict) -> dict:
+        extra = set(scope) - set(in_specs)
+        if extra:
+            raise GraphError(f"sharded program got unexpected env keys "
+                             f"{sorted(extra)}")
+        absent = set(in_specs) - set(scope)
+        if absent:
+            raise GraphError(f"sharded program is missing env keys "
+                             f"{sorted(absent)}")
+        scopes = [{} for _ in range(mesh.size)]
+        for name, spec in in_specs.items():
+            blocks: dict = {}           # positions holding the same block
+            for c, device, local in zip(coords, mesh.devices, scopes):
+                key = (device,
+                       tuple(None if a is None else c[a] for a in spec.dims))
+                if key not in blocks:
+                    blocks[key] = _shard(scope[name], spec, mesh, c, device)
+                local[name] = blocks[key]
+        return {_POSITIONS: scopes}
+
+    def collective(s, scopes: list) -> None:
+        fn = fns[id(s)]
+        for group in groups[s.axis]:
+            got = fn([scopes[p][s.buffer] for p in group])
+            for p, value in zip(group, got):
+                scopes[p][s.buffer] = value
+
+    def lockstep(name: str, f: Callable) -> Callable:
+        pre, post = before.get(name, ()), after.get(name, ())
+
+        def run(scope: dict) -> dict:
+            scopes = scope[_POSITIONS]
+            for s in pre:
+                collective(s, scopes)
+            for local in scopes:
+                local.update(f(local))
+            for s in post:
+                collective(s, scopes)
+            return {}
+
+        return run
+
+    def assemble(scope: dict) -> dict:
+        scopes = scope.pop(_POSITIONS)
+        return {k: _assemble(k, out_specs[k], mesh, coords, scopes, home)
+                for k in outputs}
+
+    return ([("shard inputs", split)]
+            + [(name, lockstep(name, f)) for name, f in steps]
+            + [("assemble outputs", assemble)])
+
+
 def lower(compiled: CompiledDataflow, jit: bool = True,
           use_registered_kernels: bool = True, *, memo: bool = True,
-          device=None) -> LoweredProgram:
+          device=None, sharding=None, mesh=None) -> LoweredProgram:
     """Lower ``compiled`` for a program on ``device`` (a ``torch.device``
     or its string; it selects the backend the routing gate prices, see
     :func:`~repro_torch.core.costmodel.routing_backend`).  The returned
     program runs on whatever device its env tensors lie on: captured into
     a CUDA graph on the card when ``jit`` (see
-    :mod:`repro_torch.core.capture`), eagerly otherwise."""
+    :mod:`repro_torch.core.capture`), eagerly otherwise.
+
+    ``sharding`` lowers the plan's multi-device program on ``mesh`` (a
+    :class:`~repro_torch.launch.mesh.Mesh`; placed by
+    :func:`place_sharding` when not given): see the module docstring."""
     # The compiler — not the user — wires the kernels in.
     ensure_kernel_patterns()
     graph = compiled.graph
@@ -204,9 +388,21 @@ def lower(compiled: CompiledDataflow, jit: bool = True,
             "is structural-only; build graphs with declarative OpSpecs "
             "(repro_torch.core.ops) for executable cache entries, or recompile "
             "with an in-memory cache / cache=None before lowering.")
+    placed = ()
+    if sharding is not None:
+        mesh = place_sharding(sharding, mesh, device)
+        if device is None:
+            device = mesh.devices[0]
+        if jit and len(mesh.distinct_devices) > 1:
+            raise CaptureError(
+                f"jit=True on {mesh!r}: capturing a sharded program whose "
+                f"positions sit on several devices is not ported yet "
+                f"(ROADMAP.md, Queue 1 item 10 (Multi-card meshes)); lower "
+                f"it with jit=False, or place every position on one card")
+        placed = (sharding.digest(), tuple(str(d) for d in mesh.devices))
     backend = routing_backend(device)
     key = (graph.structural_hash(), bool(jit), bool(use_registered_kernels),
-           *routing_state_key(backend), _ops_epoch())
+           *routing_state_key(backend), _ops_epoch(), placed)
     if memo:
         with _LOWER_LOCK:
             hit = _LOWER_CACHE.get(key)
@@ -228,6 +424,8 @@ def lower(compiled: CompiledDataflow, jit: bool = True,
     if use_registered_kernels:
         route_groups(graph, groups, impl, hw=compiled.options.hw,
                      backend=backend)
+    if sharding is not None:
+        _drop_sharded_routes(groups, sharding)
     steps = _build_steps(graph, groups, use_registered_kernels)
 
     outputs = [b.name for b in graph.outputs()]
@@ -239,6 +437,8 @@ def lower(compiled: CompiledDataflow, jit: bool = True,
                     if impl.get(b.name) == "pingpong"
                     and b.name not in swallowed]
 
+    if sharding is not None:
+        steps = _sharded_steps(graph, steps, outputs, sharding, mesh)
     if jit:
         program = CapturedProgram(steps, outputs)
     else:
@@ -319,11 +519,35 @@ def oracle_outputs(source_graph: DataflowGraph, env: dict) -> dict:
 
 def verify_lowering(source_graph: DataflowGraph, compiled: CompiledDataflow,
                     env: dict, rtol: float = 1e-5, atol: float = 1e-5,
-                    device=None) -> None:
-    """Lowered outputs must match the un-optimized oracle."""
-    got = lower(compiled, jit=False, device=device)(env)
+                    sharding=None, *, device=None, mesh=None) -> None:
+    """Lowered outputs must match the un-optimized oracle.  With a
+    ``sharding`` plan the multi-device lowering is checked instead (on
+    ``mesh``; see :func:`lower`)."""
+    got = lower(compiled, jit=False, device=device, sharding=sharding,
+                mesh=mesh)(env)
     assert_outputs_close(got, oracle_outputs(source_graph, env), rtol=rtol,
                          atol=atol, what="diverged after lowering")
+
+
+def verify_sharding(compiled: CompiledDataflow, sharding, env: dict,
+                    rtol: float = 1e-4, atol: float = 5e-5, *, device=None,
+                    mesh=None) -> None:
+    """Assert the sharded lowering (on ``mesh``) matches the single-device
+    lowering on ``env`` within the reference's fp tolerance.  Two
+    reassociations are expected and bounded, nothing else may differ: a
+    psum sums device partials where the serial contraction sums in one
+    pass, and even gather-only plans run matmuls at *local* shapes, where
+    cuBLAS (or a kernel's split) may pick a different, equally valid,
+    contraction order.  Genuine sharding bugs (wrong shard, missing
+    collective) produce O(1) errors, orders of magnitude past the gate."""
+    if device is None and mesh is not None:
+        device = mesh.devices[0]
+    single = lower(compiled, jit=False, device=device)(env)
+    shard = lower(compiled, jit=False, device=device, sharding=sharding,
+                  mesh=mesh)(env)
+    assert_outputs_close(shard, single, rtol=rtol, atol=atol,
+                         what="of the sharded lowering diverged beyond the "
+                              "fp-reassociation tolerance")
 
 
 def verify_routing(compiled: CompiledDataflow, env: dict,
@@ -343,5 +567,6 @@ def verify_routing(compiled: CompiledDataflow, env: dict,
 
 __all__ = ["FusionGroup", "LOWER_CACHE_STATS", "LoweredProgram",
            "assert_outputs_close", "clear_lower_cache", "fusion_groups",
-           "lower", "lower_artifact", "oracle_outputs",
-           "register_group_kernel", "verify_lowering", "verify_routing"]
+           "lower", "lower_artifact", "oracle_outputs", "place_sharding",
+           "register_group_kernel", "verify_lowering", "verify_routing",
+           "verify_sharding"]

@@ -225,13 +225,16 @@ def _best_of(fns: list, env: dict, block, warmup: int,
     return [b * 1e3 for b in best]
 
 
-def autotune_compiled(compiled, *, device="cpu", db: TuningDB | None = None,
+def autotune_compiled(compiled, *, device=None, db: TuningDB | None = None,
                       repeats: int = 5, warmup: int = 2, seed: int = 0,
                       save_path: str | Path | None = None,
                       ) -> list[TuningRecord]:
     """Measure every structurally matched chain of ``compiled`` routed vs
     generic on ``device`` and record the winners in ``db`` (the process
     default when ``None``), keyed for the device's routing backend.
+    ``device`` resolves as every entry point's does
+    (:func:`repro_torch.api.resolve_device`): the card when ``None``, and
+    then one must be present; the CPU only when the caller asks for it.
 
     Matching is gate-free — the whole point is to replace the predictor's
     verdict with a measurement — and honors only the hard
@@ -242,15 +245,17 @@ def autotune_compiled(compiled, *, device="cpu", db: TuningDB | None = None,
     """
     import torch
 
+    from repro_torch.api import resolve_device
+
     from . import routing
     from .capture import CapturedProgram
     from .costmodel import routing_backend
     from .lowering import FusionGroup
 
+    device = resolve_device(device)
     routing.ensure_kernel_patterns()
     if db is None:
         db = default_tuning_db()
-    device = torch.device(device)
     graph = compiled.graph
     impl = compiled.buffer_plan.impl if compiled.buffer_plan else {}
     backend = routing_backend(device)

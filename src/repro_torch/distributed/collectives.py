@@ -1,0 +1,191 @@
+"""Lower inter-device edges to typed collectives and execute them.
+
+The PyTorch port of ``repro/distributed/collectives.py``.  Two halves:
+
+* **Plan construction** (pure data, the reference's code):
+  :func:`build_steps` turns the raw events the partitioner emitted into
+  sized :class:`~repro_torch.distributed.plan.CollectiveStep` records.
+  Buffer sizing reuses the single-device FIFO machinery — a collective
+  stages ``depth`` slots (the buffer's FIFO depth) of one ``chunk_bytes``
+  chunk each, and inherits the HBM channel the off-chip pass balanced the
+  buffer onto.  Decomposition choices are made *here*, from byte counts,
+  so an exported plan replays identically:
+
+  - a psum at or above ``CODO_COLLECTIVE_RSAG_BYTES`` becomes
+    reduce_scatter + all_gather (``via="rs_ag"``, the bandwidth-optimal
+    2(n-1)/n bytes-per-link form) when the leading dim splits evenly;
+  - an all_gather at or above ``CODO_COLLECTIVE_RING_BYTES`` becomes a
+    ring (``via="ring"``): n-1 neighbour hops of one chunk each instead
+    of one n·chunk broadcast.
+
+* **Execution**: :func:`make_collective` turns a step into a function
+  from the list of the local shards along ``step.axis`` (one per mesh
+  position of the group, in position order) to the list after the
+  collective, each result on its own position's device.  The sharded
+  lowering (:func:`repro_torch.core.lowering.lower` with ``sharding=``)
+  drives every position in lockstep from one process, as ``shard_map``
+  under ``jax.jit`` does in the reference, and applies the functions
+  :func:`attach` anchors before and after their tasks.  Every form sums
+  in position order, so ``rs_ag`` is bit for bit ``direct`` and the ring
+  bit for bit the direct all-gather.
+"""
+
+from __future__ import annotations
+
+import os
+from collections import defaultdict
+
+from repro_torch.distributed.plan import CollectiveStep, MeshSpec, ShardingPlan
+
+__all__ = ["build_steps", "make_collective", "attach",
+           "env_partition_specs"]
+
+_MIB = 1 << 20
+
+
+def _threshold(env: str, default: int) -> int:
+    try:
+        return int(os.environ.get(env, default))
+    except ValueError:
+        return default
+
+
+def _depth(graph, name: str, buffer_plan) -> int:
+    if buffer_plan is not None:
+        d = getattr(buffer_plan, "fifo_depth", {}).get(name)
+        if d:
+            return int(d)
+    from repro_torch.core import buffers as _b
+    return int(_b._fifo_depth(graph, graph.buffers[name]))
+
+
+def build_steps(graph, mesh: MeshSpec, events, *, buffer_plan=None,
+                transfer_plan=None) -> tuple[CollectiveStep, ...]:
+    """Size and type the raw partitioner events into the plan schedule."""
+    ring_at = _threshold("CODO_COLLECTIVE_RING_BYTES", _MIB)
+    rsag_at = _threshold("CODO_COLLECTIVE_RSAG_BYTES", _MIB)
+    channels = getattr(transfer_plan, "channel_of", None) or {}
+    steps = []
+    for ev in events:
+        buf = graph.buffers[ev["buffer"]]
+        n = mesh.axis_size(ev["axis"])
+        if ev["kind"] == "all_gather":
+            # each device contributes its local shard once per link
+            payload = buf.nbytes // n
+            chunk = payload
+            via = "ring" if (payload * (n - 1) >= ring_at and n > 1) \
+                else "direct"
+        elif ev["kind"] == "psum":
+            payload = buf.nbytes
+            chunk = buf.nbytes // n
+            via = "rs_ag" if (payload >= rsag_at and n > 1
+                              and buf.shape and buf.shape[0] % n == 0) \
+                else "direct"
+        else:  # pragma: no cover - partitioner only emits the two above
+            payload = buf.nbytes
+            chunk = buf.nbytes // max(n, 1)
+            via = "direct"
+        steps.append(CollectiveStep(
+            kind=ev["kind"], buffer=ev["buffer"], axis=ev["axis"],
+            task=ev["task"], where=ev["where"], dim=int(ev.get("dim", 0)),
+            bytes=int(payload), chunk_bytes=int(chunk),
+            depth=_depth(graph, ev["buffer"], buffer_plan),
+            channel=int(channels.get(ev["buffer"], -1)), via=via))
+    return tuple(steps)
+
+
+# --------------------------------------------------------------------------
+# execution: one function over the local shards of a group of positions
+# --------------------------------------------------------------------------
+
+
+def _sum_on(xs: list, device):
+    """``xs[0] + xs[1] + ...`` in position order, on ``device``."""
+    acc = xs[0].to(device)
+    for x in xs[1:]:
+        acc = acc + x.to(device)
+    return acc
+
+
+def _psum(xs: list) -> list:
+    total = _sum_on(xs, xs[0].device)
+    return [total.to(x.device) for x in xs]
+
+
+def _reduce_scatter(xs: list) -> list:
+    """Position j's result: chunk j of dim 0, summed over the positions in
+    order on position j's device."""
+    n = len(xs)
+    c = xs[0].shape[0] // n
+    return [_sum_on([x.narrow(0, j * c, c) for x in xs], xs[j].device)
+            for j in range(n)]
+
+
+def _all_gather(xs: list, dim: int) -> list:
+    """Every position's shard concatenated along ``dim`` in position order,
+    once for each device the positions sit on."""
+    import torch
+    full: dict = {}
+    for x in xs:
+        if x.device not in full:
+            full[x.device] = torch.cat([y.to(x.device) for y in xs], dim)
+    return [full[x.device] for x in xs]
+
+
+def _ring_all_gather(xs: list, dim: int) -> list:
+    """All-gather as n-1 neighbour hops.
+
+    Each hop moves every position's current chunk to the next position's
+    device, so after hop j position i holds the shard of position ``(i -
+    j) mod n``; reindexing its slots by ``(i - m) mod n`` restores position
+    order before the concatenation, so the result is bit for bit the
+    direct all-gather (the reference's ``_ring_all_gather``)."""
+    import torch
+    n = len(xs)
+    slots = [[x] for x in xs]
+    cur = list(xs)
+    for _ in range(n - 1):
+        cur = [cur[(i - 1) % n].to(xs[i].device) for i in range(n)]
+        for i in range(n):
+            slots[i].append(cur[i])
+    return [torch.cat([slots[i][(i - m) % n] for m in range(n)], dim)
+            for i in range(n)]
+
+
+def make_collective(step: CollectiveStep, mesh):
+    """One plan step as a function from the list of local shards along
+    ``step.axis`` (one group of positions, in position order) to the list
+    after the collective."""
+    n = MeshSpec.of(mesh).axis_size(step.axis)
+    if step.kind == "psum":
+        if step.via == "rs_ag" and n > 1:
+            return lambda xs: _all_gather(_reduce_scatter(xs), 0)
+        return _psum
+    if step.kind == "all_gather":
+        dim = step.dim
+        if step.via == "ring" and n > 1:
+            return lambda xs: _ring_all_gather(xs, dim)
+        return lambda xs: _all_gather(xs, dim)
+    raise ValueError(f"cannot execute collective kind {step.kind!r}")
+
+
+def attach(steps):
+    """Index plan steps by schedule anchor: (before[task], after[task])."""
+    before: dict[str, list] = defaultdict(list)
+    after: dict[str, list] = defaultdict(list)
+    for s in steps:
+        (before if s.where == "before" else after)[s.task].append(s)
+    return before, after
+
+
+def env_partition_specs(graph, plan: ShardingPlan):
+    """:class:`~repro_torch.distributed.plan.ShardSpec` dicts for the env:
+    (inputs+weights, outputs) — how the sharded lowering splits the env
+    onto the positions and reassembles the outputs (the reference's
+    ``shard_map`` in_specs/out_specs)."""
+    def spec(buf):
+        return plan.spec_of(buf.name, len(buf.shape))
+
+    ins = {b.name: spec(b) for b in graph.inputs() + graph.weights()}
+    outs = {b.name: spec(b) for b in graph.outputs()}
+    return ins, outs

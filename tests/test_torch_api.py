@@ -5,12 +5,14 @@ shape-keyed ``weight_init`` would make wq, wk, wv and wproj equal and hide
 a swapped operand), and the outputs must agree within the reference's
 own ``verify`` band, 1e-5, on the generic path and with both kernel
 chains routed.  Also: the port's own ``verify``, device resolution, the
-entry points not ported yet, and the rule that the port imports neither
-jax nor the JAX package.  The train step (``grad=True``) is held against
+sharding entry points (``compile(mesh=)``, ``shard``, a sharded ``load``
+and ``export``), the entry points not ported yet, and the rule that the
+port imports neither jax nor the JAX package.  The train step (``grad=True``) is held against
 the reference in ``tests/test_torch_train.py``.
 """
 
 import ast
+import json
 from pathlib import Path
 
 import numpy as np
@@ -171,14 +173,68 @@ def _serve_lm():
 
 
 UNPORTED = [
-    (lambda: codo_torch.load(_sharded_artifact(), device="cpu"), "Sharding"),
-    (lambda: codo_torch.compile(dm.gpt2_block_fn, (16, 64), device="cpu",
-                                mesh=object()), "Sharding"),
-    (lambda: codo_torch.compile(dm.gpt2_block_loss_fn, (8, 16), (8, 16),
-                                device="cpu", grad=True, mesh=object()),
-     "Sharding"),
     (_serve_lm, "LM"),
 ]
+
+
+# The sharding entry points (ROADMAP.md Queue 1 item 6), ported.
+def _mesh_spec():
+    from repro_torch.distributed.plan import MeshSpec
+    return MeshSpec((("data", 2),))
+
+
+def test_sharded_load_restores_the_plans_digest():
+    doc = _sharded_artifact()
+    program = codo_torch.load(doc, device="cpu")
+    assert program.sharding is not None
+    assert program.sharding.digest() == doc["sharding"]["digest"]
+    assert program.sharding.strategy == "dp"
+
+
+def test_compile_with_a_mesh_spec_returns_a_sharded_program():
+    program = codo_torch.compile(dm.gpt2_block_fn, (16, 64), device="cpu",
+                                 mesh=_mesh_spec(), sharding_strategy="dp")
+    assert program.sharding.strategy == "dp"
+    assert program.sharding.mesh == _mesh_spec()
+    x = np.random.default_rng(5).standard_normal((16, 64)).astype(np.float32)
+    y = program(x)
+    assert program.mesh.devices == (torch.device("cpu"),) * 2
+    assert tuple(y.shape) == (16, 64)
+    program.verify(x)
+
+
+def test_grad_with_a_mesh_raises_trace_error():
+    with pytest.raises(codo_torch.TraceError, match="mesh"):
+        codo_torch.compile(dm.gpt2_block_loss_fn, (8, 16), (8, 16),
+                           device="cpu", grad=True, mesh=_mesh_spec())
+
+
+def test_a_mesh_that_is_not_one_raises_clearly():
+    with pytest.raises(TypeError, match="cannot build MeshSpec from object"):
+        codo_torch.compile(dm.gpt2_block_fn, (16, 64), device="cpu",
+                           mesh=object())
+
+
+def test_shard_none_reverts_to_the_single_device_program():
+    program = codo_torch.compile(dm.gpt2_block_fn, (16, 64), device="cpu")
+    x = np.random.default_rng(6).standard_normal((16, 64)).astype(np.float32)
+    single = program(x)
+    single_run = program.lower()
+    program.shard(_mesh_spec(), "dp")
+    assert program.sharding is not None and program.lower() is not single_run
+    program.shard(None)
+    assert program.sharding is None and program.mesh is None
+    assert torch.equal(program(x), single)
+
+
+def test_export_of_a_sharded_program_writes_its_section():
+    program = codo_torch.compile(dm.gpt2_block_fn, (16, 64), device="cpu",
+                                 mesh=_mesh_spec(), sharding_strategy="dp")
+    doc = program.export()
+    assert doc["schema_version"] == "1.5"
+    assert doc["sharding"] == program.sharding.to_dict()
+    assert doc["sharding"]["digest"] == program.sharding.digest()
+    assert "devices" not in json.dumps(doc["sharding"])
 
 
 @pytest.mark.parametrize("call", [c for c, _ in UNPORTED])

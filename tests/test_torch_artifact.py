@@ -17,7 +17,8 @@ reference's own ``verify`` band, 1e-5, as in
 ``tests/test_torch_train.py``.  Also: v1.3 weights embedded and in a
 ``.npz`` sidecar, the failures the compatibility policy promises (a
 content-hash mismatch, a newer major version, a corrupted document,
-each naming its JSON path), a ``sharding`` document raising at load, and
+each naming its JSON path), a ``sharding`` document loading with its
+plan and raising at load once its digest no longer matches, and
 the compile cache's JSON mirror.
 """
 
@@ -243,8 +244,14 @@ def test_sharding_document_raises_at_load():
     doc = theirs.export()
     assert doc["sharding"]["steps"]
     assert art.validate_artifact(doc) == []
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        codo_torch.load(doc, device="cpu")
+    # The plan loads as it was; a section whose plan no longer matches
+    # its digest raises at load.
+    loaded = codo_torch.load(doc, device="cpu")
+    assert loaded.sharding.digest() == theirs.sharding.digest()
+    tampered = json.loads(art.dumps(doc))
+    tampered["sharding"]["strategy"] = "tp"
+    with pytest.raises(art.ArtifactError, match="digest mismatch"):
+        codo_torch.load(tampered, device="cpu")
     bad = json.loads(art.dumps(doc))
     bad["sharding"]["steps"][0]["kind"] = "all_to_all"
     with pytest.raises(art.ArtifactError, match=r"sharding.steps\[0\].kind"):

@@ -167,12 +167,24 @@ def test_autotune_times_the_same_chains_as_the_reference():
     """Both packages' sweeps key the same chains: same signatures, patterns
     and tasks, in the same order, for the GPT-2 block."""
     ours = autotune_compiled(codo_opt(dm.gpt2_block(16, 64), cache=None),
-                             db=TuningDB(), **FAST)
+                             device="cpu", db=TuningDB(), **FAST)
     theirs = ref_autotune(ref_codo_opt(ref_dm.gpt2_block(16, 64), cache=None),
                           db=RefDB(), **FAST)
     assert [(r.signature, r.pattern, r.tasks, r.hw, r.workload)
             for r in ours] == [(r.signature, r.pattern, r.tasks, r.hw,
                                 r.workload) for r in theirs]
+
+
+def test_autotune_compiled_with_no_device_needs_a_card(monkeypatch):
+    """Like every entry point of the port, ``autotune_compiled`` measures
+    on the card unless the caller asks for the CPU: with no card it
+    raises, and times nothing on the CPU instead."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    db = TuningDB()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        autotune_compiled(codo_opt(dm.feed_forward(16, 32), cache=None),
+                          db=db, **FAST)
+    assert len(db) == 0
 
 
 def test_reference_records_cross_into_the_port_db_unchanged():
