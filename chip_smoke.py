@@ -145,12 +145,36 @@ failing (non-zero exit, no result line) at the first problem:
     card, ``grad=True`` with ``mesh=`` raises ``TraceError``); and
     ``pipeline_fn`` over four stages of ``tanh(x·w + b)`` at D=1024, eight
     microbatches of 128 rows, bit for bit ``reference_serial``;
-15. no fallback: a step that reads a device value on the host raises
+15. the LM phase: the port's LM serving stack (``repro_torch.models``,
+    the ``Generator`` with its captured decode step, ``serve --arch``),
+    the card line printed first.  (a) GPT-2 medium at full width and
+    depth in float32: ``forward`` / ``prefill`` of a seeded (2, 32) batch
+    on the card against the port on the CPU, and teacher-forced
+    ``decode_step`` over all 32 positions against ``forward`` on the card,
+    each within 1e-4 of the output's scale; (b) GPT-2 medium in its
+    published bfloat16: ``serve --arch gpt2-medium`` with the CLI's
+    defaults (4 slots, cache 128, six requests of 8 + 8 tokens), the
+    captured decode step bit for bit eager ``decode_step`` over 16 steps
+    (logits, next tokens, every cache leaf), the decode step's wall both
+    ways with device time and idle share, a (4, 128) ``prefill`` wall and
+    tokens a second; (c) every catalog arch at ``smoke()``: ``forward``
+    (one scan launch a recurrent block, no other kernel) and three decode
+    steps, card against CPU within 1e-4 of scale, every cache leaf too,
+    and the same steps through the captured serve step (``ServeStep``)
+    bit for bit the eager steps on the card;
+    (d) mamba2-780m and recurrentgemma-9b at full width, one block-pattern
+    group deep (1 and 3 layers), float32: each ``ssd_chunk_scan`` /
+    ``rglru_scan`` launch of a (1, 512) prefill held at the model's shape
+    against its plain version and timed beside its byte bound, the counted
+    prefill launching one scan a recurrent block, and its logits against
+    teacher-forced decode on the card within 1e-4 of scale;
+16. no fallback: a step that reads a device value on the host raises
     ``CaptureError`` naming the step;
-16. prints the card line, the ``kernels`` JSON line (the scans' entries
-    twice: their serving and their train-path launches; flash's also at
-    the serving batch; the chain's also at the sharded phase's local
-    shapes) and, last, the ``{"ok": true, "device": ...}`` line.
+17. prints the card line, the ``kernels`` JSON line (the scans' entries
+    three times: their serving, their train-path and the LM prefills'
+    launches; flash's also at the serving batch; the chain's also at the
+    sharded phase's local shapes) and, last, the ``{"ok": true,
+    "device": ...}`` line.
 
 The full record (every check, every timing) goes to
 ``chiprun_out/chip_smoke.json``.  Imports nothing of JAX or the JAX
@@ -3744,6 +3768,434 @@ def sharding_phase(card: str, record: dict) -> dict:
             "pipeline": pipe, "seconds": seconds}
 
 
+# --------------------------------------------------------------------------
+# The LM phase: the port's LM serving stack (repro_torch.models,
+# repro_torch.serving.generator, serve --arch) on the card.
+# --------------------------------------------------------------------------
+
+# (a) GPT-2 medium at full width and depth in float32: a seeded (2, 32)
+# batch.  Card against CPU, and teacher-forced decode against forward,
+# within LM_TOL of the output's scale: float32 sums in other orders
+# (cuBLAS against MKL; a softmax over the cache's slots against one over
+# the causal mask) read ~1e-6 of the scale.
+LM_ARCH = "gpt2-medium"
+LM_SHAPE = (2, 32)
+LM_TOL = 1e-4
+# (b) GPT-2 medium in its published bfloat16: the serving CLI's defaults
+# (4 slots, cache 128), the captured decode step against eager over
+# LM_CAPTURE_STEPS steps, and a (4, 128) prefill.
+LM_SLOTS, LM_CACHE = 4, 128
+LM_CAPTURE_STEPS = 16
+LM_PREFILL = (4, 128)
+LM_WALLS = 16
+# (c) every catalog arch at smoke(): forward and LM_SMOKE_STEPS decode
+# steps, card against CPU, then the captured serve step against eager.
+LM_SMOKE_STEPS = 3
+# (d) the two recurrent archs at full width, one block-pattern group deep,
+# float32: a (1, LM_WIDE_SEQ) prefill against teacher-forced decode, and
+# each scan launch at the model's shape against its plain version.
+LM_WIDE = ("mamba2-780m", "recurrentgemma-9b")
+LM_WIDE_SEQ = 512
+
+
+def _tree_to(tree, device):
+    from repro_torch.models.layers import tree_map
+    return tree_map(lambda t: t.to(device), tree)
+
+
+def _tree_paths(tree, pre=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_tree_paths(v, f"{pre}/{k}"))
+        return out
+    return {pre: tree}
+
+
+def _scan_blocks(cfg) -> dict:
+    """The forward's expected launches: one rglru_scan a RG-LRU block,
+    one ssd_chunk_scan an SSM block."""
+    n_groups, leftover = divmod(cfg.n_layers, len(cfg.block_pattern))
+    kinds = list(cfg.block_pattern) * n_groups + list(
+        cfg.block_pattern[:leftover])
+    return {"rglru": kinds.count("rglru"), "ssd": kinds.count("ssm")}
+
+
+def _held_launches(name: str, expected: dict) -> dict:
+    """The launch counters after a forward: ``expected``'s and no other
+    kernel's."""
+    got = {k: v for k, v in counts().items() if v}
+    want = {k: v for k, v in expected.items() if v}
+    if got != want:
+        fail(f"{name}: kernel launches {got}, expected {want}")
+    return got
+
+
+def _scaled_pair(record: list, name: str, got, want) -> float:
+    """``got`` against ``want`` (either device) relative to ``want``'s
+    scale, within LM_TOL; returns that relative error."""
+    check_scaled(record, name, got.detach().float().cpu(),
+                 want.detach().float().cpu(), LM_TOL)
+    return record[-1]["rel_err"]
+
+
+def _caches_close(record: list, name: str, got: dict, want: dict) -> None:
+    """Every leaf of two decode caches within LM_TOL of its own scale;
+    ``pos`` exactly."""
+    import torch
+    g, w = _tree_paths(got), _tree_paths(want)
+    if g.keys() != w.keys():
+        fail(f"{name}: cache paths differ")
+    for path in w:
+        a, b = g[path].cpu(), w[path].cpu()
+        if path == "/pos" or not bool(b.abs().max() > 0):
+            if not torch.equal(a, b):
+                fail(f"{name}: cache {path} differs")
+            continue
+        _scaled_pair(record, f"{name} cache {path}", a, b)
+
+
+def lm_gpt2_f32(record: list) -> dict:
+    """(a) GPT-2 medium, full width and depth, float32: prefill / forward
+    on the card against the port on the CPU, then teacher-forced
+    decode_step for every position against forward on the card."""
+    import dataclasses
+
+    import torch
+    from repro_torch import models as M
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    B, S = LM_SHAPE
+    t0 = time.perf_counter()
+    p_cpu = M.init_params(cfg, torch.Generator().manual_seed(SEED),
+                          device="cpu")
+    params = _tree_to(p_cpu, "cuda")
+    b_cpu = M.make_batch(cfg, batch=B, seq=S, kind="prefill", seed=SEED,
+                         device="cpu")
+    batch = _tree_to(b_cpu, "cuda")
+    zero_counts()
+    logits = M.forward(params, batch, cfg)
+    torch.cuda.synchronize()
+    _held_launches("gpt2-medium forward", {})
+    want = M.forward(p_cpu, b_cpu, cfg)
+    out = {"params": M.param_count(params), "shape": [B, S],
+           "logits": list(logits.shape)}
+    out["forward_rel"] = _scaled_pair(
+        record, "gpt2-medium f32 forward card vs CPU", logits, want)
+    out["prefill_rel"] = _scaled_pair(
+        record, "gpt2-medium f32 prefill card vs CPU",
+        M.prefill(params, batch, cfg), want[:, -1])
+    cache = M.init_cache(cfg, B, S, device="cuda")
+    steps = []
+    for t in range(S):
+        step_logits, cache = M.decode_step(
+            params, batch["tokens"][:, t].contiguous(), cache, cfg)
+        steps.append(step_logits)
+    out["decode_rel"] = _scaled_pair(
+        record, "gpt2-medium f32 decode vs forward (card)",
+        torch.stack(steps, dim=1), logits)
+    if int(cache["pos"]) != S:
+        fail(f"gpt2-medium decode: pos {int(cache['pos'])} after {S} steps")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def lm_gpt2_bf16(record: list) -> dict:
+    """(b) GPT-2 medium in bfloat16: ``serve --arch gpt2-medium`` with
+    the CLI's defaults; the captured decode step bit for bit eager
+    decode_step over LM_CAPTURE_STEPS steps (logits and every cache leaf);
+    the decode step's wall both ways with device time and idle share; a
+    (4, 128) prefill wall."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from repro_torch import models as M
+    from repro_torch.configs import get_config
+    from repro_torch.core import capture
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.serving import cli
+    from repro_torch.serving.generator import ServeStep
+    out: dict = {}
+    text = io.StringIO()
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        rc = cli.main(["--arch", LM_ARCH])
+    out["serve_s"] = time.perf_counter() - t0
+    lines = text.getvalue().strip().splitlines()
+    for line in lines:
+        print(f"    serve: {line}")
+    m = re.search(r"(\d+)/(\d+) finished; (\d+) decode steps, (\d+) tokens, "
+                  r"([\d.]+) tok/s on (.+)$", lines[-1] if lines else "")
+    if rc != 0 or not m or m.group(1) != m.group(2):
+        fail(f"serve --arch {LM_ARCH}: exit {rc}, last line "
+             f"{lines[-1] if lines else None!r}")
+    out["serve"] = {"finished": int(m.group(1)), "steps": int(m.group(3)),
+                    "tokens": int(m.group(4)), "tok_s": float(m.group(5)),
+                    "device": m.group(6), "launches": counts()}
+
+    cfg = get_config(LM_ARCH)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED))
+    eager_cache = M.init_cache(cfg, LM_SLOTS, LM_CACHE, device="cuda")
+    capture_s0 = capture.CAPTURE_STATS["capture_s"]
+    step = ServeStep(cfg, params,
+                     M.init_cache(cfg, LM_SLOTS, LM_CACHE, device="cuda"),
+                     LM_SLOTS)
+    rng = np.random.default_rng(SEED)
+    toks = rng.integers(0, cfg.vocab, (LM_CAPTURE_STEPS, LM_SLOTS)).astype(
+        np.int32)
+    for t in range(LM_CAPTURE_STEPS):
+        want, eager_cache = M.decode_step(
+            params, torch.from_numpy(toks[t]).cuda(), eager_cache, cfg)
+        nxt, got = step(toks[t])
+        if not (torch.equal(got, want) and torch.equal(
+                nxt, torch.argmax(want, -1).to(torch.int32))):
+            fail(f"gpt2-medium bf16: captured decode step {t} is not eager's "
+                 f"bit for bit (max err {max_err(got, want):.3e})")
+    same_cache = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(step.cache), tree_leaves(eager_cache)))
+    if step.program.graphs() != 1 or not same_cache:
+        fail("gpt2-medium bf16: no graph captured, or the captured cache is "
+             "not eager's bit for bit")
+    out["captured_bit_for_bit_steps"] = LM_CAPTURE_STEPS
+    out["capture_s"] = capture.CAPTURE_STATS["capture_s"] - capture_s0
+    record.append({"case": f"gpt2-medium bf16 captured decode x"
+                           f"{LM_CAPTURE_STEPS}", "bit_identical": True,
+                   "ok": True})
+    print(f"  gpt2-medium bf16: captured decode step bit for bit eager over "
+          f"{LM_CAPTURE_STEPS} steps (logits, next tokens, every cache "
+          f"leaf); capture {out['capture_s']:.3f} s")
+
+    tok = toks[0]
+    timing_cache = M.init_cache(cfg, LM_SLOTS, LM_CACHE, device="cuda")
+
+    def eager():
+        logits, _ = M.decode_step(params, torch.from_numpy(tok).cuda(),
+                                  timing_cache, cfg)
+        return torch.argmax(logits, -1).to(torch.int32).cpu()
+
+    def captured():
+        return step(tok)[0].cpu()
+
+    out["decode_step"] = both_ways(
+        f"gpt2-medium bf16 decode step ({LM_SLOTS} slots, cache {LM_CACHE}, "
+        f"next tokens to the host)", eager, captured, iters=LM_WALLS)
+    cap = out["decode_step"]["captured"]["median_ms"]
+    out["captured_tok_s"] = LM_SLOTS / cap * 1e3
+    # A decode step reads every weight and the whole cache once: its byte
+    # bound (the operations, 2 per weight and token, are far below).
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in tree_leaves(params) + tree_leaves(timing_cache))
+    out["decode_bound_ms"], out["decode_bound_by"] = bound_ms(
+        2.0 * LM_SLOTS * M.param_count(params), nbytes)
+    print(f"    decode step bound {out['decode_bound_ms']:.4f} ms "
+          f"({out['decode_bound_by']}: {nbytes / 1e9:.3f} GB read once)")
+    B, S = LM_PREFILL
+    batch = M.make_batch(cfg, batch=B, seq=S, kind="prefill", seed=SEED)
+    out["prefill"] = wall_and_device(lambda: M.prefill(params, batch, cfg))
+    print(f"    gpt2-medium bf16 prefill ({B}, {S}): "
+          f"{wall_text(out['prefill'])}")
+    print(f"    tokens a second: serve --arch {out['serve']['tok_s']:.1f} "
+          f"(capture included); captured step {out['captured_tok_s']:.1f}")
+    return out
+
+
+def lm_smoke_archs(record: list) -> dict:
+    """(c) Every catalog arch at its smoke() config: forward (the scan
+    kernels' launches counted) and LM_SMOKE_STEPS decode steps, card
+    against the port on the CPU, every cache leaf too; then the same
+    steps through the captured serve step (``ServeStep``: its first call
+    eager, the rest replays), bit for bit the eager steps on the card."""
+    import numpy as np
+    import torch
+    from repro_torch import models as M
+    from repro_torch.configs import CONFIGS, get_config
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.serving.generator import ServeStep
+    out = {}
+    for arch in sorted(CONFIGS):
+        cfg = get_config(arch).smoke()
+        p_cpu = M.init_params(cfg, torch.Generator().manual_seed(SEED),
+                              device="cpu")
+        params = _tree_to(p_cpu, "cuda")
+        b_cpu = M.make_batch(cfg, batch=2, seq=64, kind="prefill",
+                             seed=SEED, device="cpu")
+        zero_counts()
+        got = M.forward(params, _tree_to(b_cpu, "cuda"), cfg)
+        torch.cuda.synchronize()
+        launches = _held_launches(f"{arch} smoke forward", _scan_blocks(cfg))
+        rel = {"forward": _scaled_pair(record, f"{arch} smoke forward",
+                                       got, M.forward(p_cpu, b_cpu, cfg))}
+        c_cpu = M.init_cache(cfg, 2, 64, device="cpu")
+        c_card = M.init_cache(cfg, 2, 64, device="cuda")
+        toks = np.random.default_rng(SEED).integers(
+            0, cfg.vocab, (LM_SMOKE_STEPS, 2)).astype(np.int32)
+        eager = []
+        for t in range(LM_SMOKE_STEPS):
+            want, c_cpu = M.decode_step(p_cpu, torch.from_numpy(toks[t]),
+                                        c_cpu, cfg)
+            got, c_card = M.decode_step(
+                params, torch.from_numpy(toks[t]).cuda(), c_card, cfg)
+            eager.append(got)
+            rel[f"decode {t}"] = _scaled_pair(
+                record, f"{arch} smoke decode {t}", got, want)
+        _caches_close(record, f"{arch} smoke", c_card, c_cpu)
+        step = ServeStep(cfg, params, M.init_cache(cfg, 2, 64, device="cuda"),
+                         2)
+        for t in range(LM_SMOKE_STEPS):
+            nxt, got = step(toks[t])
+            if not (torch.equal(got, eager[t]) and torch.equal(
+                    nxt, torch.argmax(eager[t], -1).to(torch.int32))):
+                fail(f"{arch} smoke: captured decode step {t} is not eager's "
+                     f"bit for bit (max err {max_err(got, eager[t]):.3e})")
+        if step.program.graphs() != 1 or not all(
+                torch.equal(a, b) for a, b in zip(tree_leaves(step.cache),
+                                                  tree_leaves(c_card))):
+            fail(f"{arch} smoke: no graph captured, or the captured cache is "
+                 f"not eager's bit for bit")
+        step.program.release()
+        record.append({"case": f"{arch} smoke captured decode x"
+                               f"{LM_SMOKE_STEPS}", "bit_identical": True,
+                       "ok": True})
+        out[arch] = {"rel": rel, "launches": launches,
+                     "captured_bit_for_bit_steps": LM_SMOKE_STEPS}
+        print(f"  {arch} smoke: forward, {LM_SMOKE_STEPS} decode steps card "
+              f"vs CPU; captured serve step bit for bit eager")
+    return out
+
+
+def _measure_scan(name: str, kernel, plain, flops: float,
+                  nbytes: float, err: float) -> dict:
+    ms, plain_ms = in_turns(plain, kernel, 10)
+    b, by = bound_ms(flops, nbytes)
+    m = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+             bound_by=by, flops=flops, bytes=nbytes, library_ms=None,
+             device_ms=device_ms(kernel, 10))
+    print(f"  {name:<44s} kernel {ms:.4f} ms (device {m['device_ms']:.4f})"
+          f"  plain {plain_ms:.4f}  library none  bound {b:.4f} ({by})")
+    return m
+
+
+def lm_wide(record: list) -> dict:
+    """(d) mamba2-780m and recurrentgemma-9b at full width, one block-
+    pattern group deep, float32: each scan launch of a (1, LM_WIDE_SEQ)
+    prefill held at its shape against its plain version and timed; the
+    counted prefill launching exactly one scan a recurrent block; its
+    logits against teacher-forced decode_step on the card."""
+    import dataclasses
+
+    import torch
+    import repro_torch.kernels.rglru.ops as rglru_ops
+    import repro_torch.kernels.ssd.ops as ssd_ops
+    from repro_torch import models as M
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rglru import rglru_scan, rglru_scan_plain
+    from repro_torch.kernels.ssd import ssd_chunk_scan, ssd_chunk_scan_plain
+    out = {}
+    for arch in LM_WIDE:
+        base = get_config(arch)
+        cfg = dataclasses.replace(base, n_layers=len(base.block_pattern),
+                                  dtype="float32")
+        t0 = time.perf_counter()
+        params = M.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(SEED))
+        batch = M.make_batch(cfg, batch=1, seq=LM_WIDE_SEQ, kind="prefill",
+                             seed=SEED)
+        seen = []
+        real = (rglru_ops.rglru, ssd_ops.ssd_states)
+
+        def rec_rglru(a, b, **kw):
+            seen.append(("rglru", a.clone(), b.clone(), kw))
+            return real[0](a, b, **kw)
+
+        def rec_ssd(states, decay, **kw):
+            seen.append(("ssd", states.clone(), decay.clone(), kw))
+            return real[1](states, decay, **kw)
+
+        rglru_ops.rglru, ssd_ops.ssd_states = rec_rglru, rec_ssd
+        try:
+            M.forward(params, batch, cfg)
+        finally:
+            rglru_ops.rglru, ssd_ops.ssd_states = real
+        zero_counts()
+        logits = M.forward(params, batch, cfg)
+        torch.cuda.synchronize()
+        launches = _held_launches(f"{arch} prefill", _scan_blocks(cfg))
+        if len(seen) != sum(launches.values()):
+            fail(f"{arch}: {len(seen)} scan calls recorded, {launches} "
+                 f"launched")
+        kernels = {}
+        for i, (kind, x, y, kw) in enumerate(seen):
+            if kind == "rglru":
+                ch = kw["chunk"]
+                got = rglru_scan(x, y, chunk=ch)
+                want = rglru_scan_plain(x, y, chunk=ch)
+                name = f"{arch} rglru_scan {i} " + "x".join(map(str, x.shape))
+                err = check(record, name, got, want, RGLRU_TOL)
+                n = x.numel()
+                m = _measure_scan(name, lambda: rglru_scan(x, y, chunk=ch),
+                                  lambda: rglru_scan_plain(x, y, chunk=ch),
+                                  2.0 * n, 4.0 * 3 * n, err)
+            else:
+                got, want = ssd_chunk_scan(x, y), ssd_chunk_scan_plain(x, y)
+                name = f"{arch} ssd_chunk_scan {i} " + "x".join(
+                    map(str, x.shape))
+                err = check(record, name, got, want, SSD_TOL)
+                n = x.numel()
+                m = _measure_scan(name, lambda: ssd_chunk_scan(x, y),
+                                  lambda: ssd_chunk_scan_plain(x, y),
+                                  2.0 * n, 4.0 * (2 * n + y.numel()), err)
+            m["kind"], m["shape"] = kind, list(x.shape)
+            kernels[name] = m
+        cache = M.init_cache(cfg, 1, LM_WIDE_SEQ, device="cuda")
+        steps = []
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for t in range(LM_WIDE_SEQ):
+            step_logits, cache = M.decode_step(
+                params, batch["tokens"][:, t].contiguous(), cache, cfg)
+            steps.append(step_logits)
+        torch.cuda.synchronize()
+        decode_ms = 1e3 * (time.perf_counter() - t1) / LM_WIDE_SEQ
+        rel = _scaled_pair(record, f"{arch} x{cfg.n_layers} f32 decode vs "
+                                   f"prefill", torch.stack(steps, dim=1),
+                           logits)
+        out[arch] = {"layers": cfg.n_layers, "params": M.param_count(params),
+                     "launches": launches, "kernels": kernels,
+                     "decode_rel": rel, "eager_decode_step_ms": decode_ms,
+                     "seconds": time.perf_counter() - t0}
+        print(f"  {arch} x{cfg.n_layers} (d_model {cfg.d_model}): launches "
+              f"{launches}, eager decode step {decode_ms:.3f} ms")
+        del params, logits, steps, cache, seen
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_phase(card: str, record: dict) -> dict:
+    """The LM serving stack on the card: (a) GPT-2 medium in float32, (b)
+    in bfloat16 through ``serve --arch`` and the captured decode step,
+    (c) every catalog arch at smoke(), (d) the recurrent archs at full
+    width."""
+    print(f"card: {card}")
+    checks = record["checks"]
+    out = {}
+    print(f"  (a) {LM_ARCH} float32, full width and depth, {LM_SHAPE}:")
+    out["gpt2_f32"] = lm_gpt2_f32(checks)
+    print(f"  (b) {LM_ARCH} bfloat16: serve --arch, the captured decode "
+          f"step, walls:")
+    out["gpt2_bf16"] = lm_gpt2_bf16(checks)
+    print("  (c) every catalog arch at smoke(), card against CPU, captured "
+          "against eager:")
+    out["smoke"] = lm_smoke_archs(checks)
+    print(f"  (d) {', '.join(LM_WIDE)} at full width, one group deep, "
+          f"float32, (1, {LM_WIDE_SEQ}):")
+    out["wide"] = lm_wide(checks)
+    return out
+
+
 def no_fallback() -> dict:
     """A step that reads a device value on the host cannot be captured:
     the first jit=True call raises CaptureError naming the step, and no
@@ -3892,6 +4344,10 @@ def main() -> int:
           "(forced routing):")
     sharding = sharding_phase(card, record)
     record["sharding_phase"] = sharding
+    print("the LM serving stack: repro_torch.models, the Generator's "
+          "captured decode step, serve --arch:")
+    lm = lm_phase(card, record)
+    record["lm_phase"] = lm
     print("no fallback:")
     record["no_fallback"] = no_fallback()
 
@@ -3977,6 +4433,20 @@ def main() -> int:
         cnn_entries.append((
             f"fused_matmul_chain[sharded {m['strategies'][0]} {key}]",
             *source["mmchain"][1:], m, launches["mmchain"]))
+    # The LM phase's scans at the full-width models' shapes: the first
+    # launch of each kind measured (a model's launches share one shape),
+    # the launches of its counted prefill.
+    scan_src = {"rglru": ("rglru_scan", "src/repro_torch/csrc/rglru_scan.cu",
+                          "src/repro/kernels/rglru/rglru.py:49"),
+                "ssd": ("ssd_chunk_scan", "src/repro_torch/csrc/ssd_scan.cu",
+                        "src/repro/kernels/ssd/ssd.py:45")}
+    for arch, run in lm["wide"].items():
+        for kind, n in run["launches"].items():
+            m = next(v for v in run["kernels"].values() if v["kind"] == kind)
+            fn, src, replaces = scan_src[kind]
+            cnn_entries.append((
+                f"{fn}[{arch} prefill " + "x".join(map(str, m["shape"]))
+                + "]", src, replaces, m, n))
     cnn_entries.append((
         "matmul[ops.mm " + "x".join(map(str, MM_SHAPE)) + "]",
         "src/repro_torch/csrc/matmul.cu",

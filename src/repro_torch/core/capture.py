@@ -17,6 +17,11 @@ instead of one launch and its Python for every task:
   overwrites an answer an earlier call returned.  Every entry is copied on
   every call, weights too, so an in-place change to a bound weight and a
   train step's new parameters are seen by the next call.
+* **Bound entries** (``CapturedProgram(..., bound=names)``) are captured
+  where they lie and never copied: the graph reads and writes those very
+  tensors, so a step that writes one in place (a decode step's cache)
+  writes it on every replay.  Their data pointers join the signature, so
+  a bound entry replaced by another tensor is captured anew.
 * **CPU tensors** run the step list as it is; there is no graph to
   capture there.
 * **A sharded program** (``lower(..., sharding=)``) is a step list too:
@@ -34,7 +39,9 @@ recorded, not counted, and every replay counts them.
 
 Captured graphs live in one LRU bounded like the lowering memo
 (``CODO_LOWER_CACHE_SIZE``); :func:`clear_graphs` (called by
-``lowering.clear_lower_cache``) releases them with their memory pools.
+``lowering.clear_lower_cache``) releases them with their memory pools,
+and a program's graphs go when the program is collected (no one can
+replay them then, and a graph pins its bound entries).
 Captures take a process-wide lock and use ``thread_local`` capture mode,
 so a thread may capture a new design while others replay theirs.
 """
@@ -44,6 +51,7 @@ from __future__ import annotations
 import itertools
 import threading
 import time
+import weakref
 from collections import Counter, OrderedDict
 from typing import Any
 
@@ -67,6 +75,7 @@ _GRAPHS: OrderedDict[tuple, "_Graph"] = OrderedDict()
 _GRAPHS_LOCK = threading.Lock()
 _CAPTURE_LOCK = threading.Lock()          # one capture at a time
 _SERIALS = itertools.count()
+_DEAD: list[int] = []                     # serials of collected programs
 _STREAMS: dict = {}                       # device -> capture stream
 # Captures made, host seconds spent capturing, replays run.
 CAPTURE_STATS = {"captures": 0, "capture_s": 0.0, "replays": 0}
@@ -86,7 +95,25 @@ def clear_graphs() -> None:
 
 def graph_count() -> int:
     with _GRAPHS_LOCK:
+        _purge()
         return len(_GRAPHS)
+
+
+def _forget(serial: int) -> None:
+    """A collected program's finalizer: its graphs go at the next look at
+    the LRU.  It takes no lock, since a collection can run while this
+    thread holds ``_GRAPHS_LOCK``."""
+    _DEAD.append(serial)
+
+
+def _purge(*serials: int) -> None:
+    """Drop the graphs of ``serials`` and of collected programs; the
+    caller holds ``_GRAPHS_LOCK``."""
+    dead = set(serials)
+    while _DEAD:
+        dead.add(_DEAD.pop())
+    for key in [k for k in _GRAPHS if k[0] in dead]:
+        del _GRAPHS[key]
 
 
 def _card_device(env: dict):
@@ -104,9 +131,10 @@ def _card_device(env: dict):
     return device if device.type == "cuda" else None
 
 
-def _signature(device, env: dict) -> tuple:
+def _signature(device, env: dict, bound: frozenset = frozenset()) -> tuple:
     return (str(device), tuple(sorted(
-        (k, tuple(v.shape), v.dtype, tuple(v.stride()))
+        (k, tuple(v.shape), v.dtype, tuple(v.stride()),
+         v.data_ptr() if k in bound else None)
         for k, v in env.items())))
 
 
@@ -134,10 +162,10 @@ class _Graph:
     and the kernel launches one replay executes."""
 
     def __init__(self, device, graph, static_in: dict, static_out: dict,
-                 launches: Counter):
+                 launches: Counter, bound: frozenset):
         self.device = device
         self.graph = graph
-        self.names = sorted(static_in)
+        self.names = sorted(k for k in static_in if k not in bound)
         self.static_in = static_in
         self.static_out = static_out
         self.launches = launches
@@ -153,8 +181,9 @@ class _Graph:
             # A replay from another stream waits for the last one's clones
             # before it writes the static inputs.
             stream.wait_event(self.done)
-            torch._foreach_copy_([self.static_in[k] for k in self.names],
-                                 [env[k] for k in self.names])
+            if self.names:
+                torch._foreach_copy_([self.static_in[k] for k in self.names],
+                                     [env[k] for k in self.names])
             self.graph.replay()
             out = {k: v.clone() for k, v in self.static_out.items()}
             self.done.record(stream)
@@ -167,19 +196,23 @@ class _Graph:
 class CapturedProgram:
     """A lowered step list that captures itself into a CUDA graph per
     input signature on the card and runs eagerly on the CPU (see the
-    module docstring).  ``steps`` are ``(task name, fn)`` pairs."""
+    module docstring).  ``steps`` are ``(task name, fn)`` pairs; the env
+    entries named in ``bound`` are captured in place, never copied."""
 
-    def __init__(self, steps: list, outputs: list[str]):
+    def __init__(self, steps: list, outputs: list[str], bound=()):
         self.steps = list(steps)
         self.outputs = list(outputs)
+        self.bound = frozenset(bound)
         self.serial = next(_SERIALS)
+        weakref.finalize(self, _forget, self.serial).atexit = False
 
     def __call__(self, env: dict[str, Any]) -> dict[str, Any]:
         device = _card_device(env)
         if device is None:
             return run_steps(self.steps, self.outputs, env)
-        key = (self.serial, _signature(device, env))
+        key = (self.serial, _signature(device, env, self.bound))
         with _GRAPHS_LOCK:
+            _purge()
             entry = _GRAPHS.get(key)
             if entry is not None:
                 _GRAPHS.move_to_end(key)
@@ -187,11 +220,16 @@ class CapturedProgram:
             return entry.replay(env)
         return self._first_call(key, device, env)
 
+    def graphs(self) -> int:
+        """The graphs this program holds (one a signature captured)."""
+        with _GRAPHS_LOCK:
+            _purge()
+            return sum(k[0] == self.serial for k in _GRAPHS)
+
     def release(self) -> None:
         """Drop this program's captured graphs."""
         with _GRAPHS_LOCK:
-            for key in [k for k in _GRAPHS if k[0] == self.serial]:
-                del _GRAPHS[key]
+            _purge(self.serial)
 
     def _first_call(self, key: tuple, device, env: dict) -> dict:
         import torch
@@ -205,13 +243,15 @@ class CapturedProgram:
             with torch.cuda.device(device):
                 # Static inputs belong to the caller's stream: freed with
                 # the graph, their blocks go back behind its replays.
-                static_in = {k: _static_like(v) for k, v in env.items()}
+                static_in = {k: v if k in self.bound else _static_like(v)
+                             for k, v in env.items()}
                 side.wait_stream(caller)
                 try:
                     with torch.cuda.stream(side):
                         out = run_steps(self.steps, self.outputs, env)
                         for k, v in env.items():
-                            static_in[k].copy_(v)
+                            if k not in self.bound:
+                                static_in[k].copy_(v)
                         t0 = time.perf_counter()
                         graph, static_out, launches = self._capture(
                             static_in)
@@ -220,7 +260,8 @@ class CapturedProgram:
                     caller.wait_stream(side)    # when a capture fails
             for v in out.values():          # answers made on the side stream
                 v.record_stream(caller)
-            entry = _Graph(device, graph, static_in, static_out, launches)
+            entry = _Graph(device, graph, static_in, static_out, launches,
+                           self.bound)
             with _GRAPHS_LOCK:
                 _GRAPHS[key] = entry
                 while len(_GRAPHS) > _cache_size():

@@ -23,7 +23,9 @@ exist to prove (tests/test_frontend.py).  Each task carries a declarative
 :class:`~repro_torch.core.ops.OpSpec`, so compiled designs stay portable
 artifacts: graphs built here survive the disk compile cache and
 process-pool batch compiles fully executable.  Building graphs does not
-import torch; only executing them does.
+import torch, except the three whose bodies live beside the LM stack
+(``mha_batched``, ``rglru_block``, ``ssd_block``: their modules are torch
+code); executing any graph does.
 
 * Table II kernels: atax, gesummv, gemm, mvt, 3mm, residual-mlp,
   autoencoder, residual-block, dws-conv block, 3-layer conv, feed-forward,

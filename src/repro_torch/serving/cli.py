@@ -14,8 +14,14 @@ against the artifact's buffer table):
         --artifact design.json --requests 8 --inputs batch.npz \\
         [--device cpu]
 
-LM token generation (``--arch``) is not ported yet and raises
-:class:`NotImplementedError` naming its ``ROADMAP.md`` item.
+LM token generation: ``--arch`` serves a catalog architecture
+(``repro_torch.configs``) with seeded random weights through the
+:class:`~repro_torch.serving.generator.Generator` (its decode step
+captured into a CUDA graph on the card), ``--smoke`` at its reduced
+config:
+
+    PYTHONPATH=src python -m repro_torch.serving.cli --arch gpt2-medium \\
+        [--smoke] [--device cpu]
 """
 
 from __future__ import annotations
@@ -145,9 +151,44 @@ def serve_artifact(args) -> int:
 
 
 def serve_lm(args) -> int:
-    raise NotImplementedError(
-        "LM token generation (--arch) is not ported to the PyTorch package "
-        "yet (ROADMAP.md, Queue 1 item 7 (LM))")
+    """Generate tokens for ``args.requests`` seeded prompts with the
+    weights drawn from ``args.seed`` on ``args.device`` (the card unless
+    it says otherwise); prints each request's tokens, then the decode
+    steps, the tokens a second and the device."""
+    import torch
+
+    from repro_torch.api import resolve_device
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+
+    from .generator import Generator, Request
+
+    device = resolve_device(args.device or None)
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = cfg.smoke()
+    params = tf.init_params(
+        cfg, torch.Generator(device=device).manual_seed(args.seed),
+        device=device)
+    gen = Generator(cfg, params, batch=args.batch, cache_len=args.cache_len)
+
+    rng = np.random.default_rng(args.seed)
+    for rid in range(args.requests):
+        gen.submit(Request(rid, prompt=list(
+            rng.integers(1, cfg.vocab, size=args.prompt_len)),
+            max_new=args.max_new))
+
+    t0 = time.time()
+    finished = gen.run(max_steps=args.cache_len - 1)
+    dt = time.time() - t0
+    for r in sorted(finished, key=lambda r: r.rid):
+        print(f"req {r.rid}: {len(r.out)} tokens -> {r.out[:8]}...")
+    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
+             else str(device))
+    print(f"{len(finished)}/{args.requests} finished; {gen.steps} decode "
+          f"steps, {gen.tokens_out} tokens, "
+          f"{gen.tokens_out / max(dt, 1e-9):.1f} tok/s on {where}")
+    return 0
 
 
 def main(argv=None) -> int:
@@ -155,8 +196,7 @@ def main(argv=None) -> int:
     env = ServeConfig.from_env()
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="",
-                    help="LM architecture to serve (token generation; not "
-                         "ported yet)")
+                    help="LM architecture to serve (token generation)")
     ap.add_argument("--artifact", default="",
                     help="serve a compiled-design JSON artifact "
                          "(see docs/artifact_format.md)")

@@ -6,8 +6,8 @@ a swapped operand), and the outputs must agree within the reference's
 own ``verify`` band, 1e-5, on the generic path and with both kernel
 chains routed.  Also: the port's own ``verify``, device resolution, the
 sharding entry points (``compile(mesh=)``, ``shard``, a sharded ``load``
-and ``export``), the entry points not ported yet, and the rule that the
-port imports neither jax nor the JAX package.  The train step (``grad=True``) is held against
+and ``export``), ``serve --arch`` through the serving CLI, and the rule
+that the port imports neither jax nor the JAX package.  The train step (``grad=True``) is held against
 the reference in ``tests/test_torch_train.py``.
 """
 
@@ -165,16 +165,13 @@ def _sharded_artifact():
                         sharding_strategy="dp", cache=None).export()
 
 
-# Each entry point not ported yet, and the ROADMAP.md Queue 1 heading its
-# message names.
-def _serve_lm():
+def test_serve_arch_runs_through_the_cli(capsys):
+    """LM token generation (``--arch``), the last entry point of the
+    reference the port lacked, serves through the CLI."""
     from repro_torch.serving import cli
-    return cli.main(["--arch", "gpt2-medium", "--device", "cpu"])
-
-
-UNPORTED = [
-    (_serve_lm, "LM"),
-]
+    assert cli.main(["--arch", "gpt2-medium", "--smoke", "--device", "cpu",
+                     "--requests", "2", "--max-new", "3"]) == 0
+    assert "2/2 finished" in capsys.readouterr().out
 
 
 # The sharding entry points (ROADMAP.md Queue 1 item 6), ported.
@@ -235,28 +232,6 @@ def test_export_of_a_sharded_program_writes_its_section():
     assert doc["sharding"] == program.sharding.to_dict()
     assert doc["sharding"]["digest"] == program.sharding.digest()
     assert "devices" not in json.dumps(doc["sharding"])
-
-
-@pytest.mark.parametrize("call", [c for c, _ in UNPORTED])
-def test_unported_entry_points_name_their_roadmap_item(call):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item"):
-        call()
-
-
-@pytest.mark.parametrize("i", range(len(UNPORTED)))
-def test_roadmap_item_named_is_the_one_that_ports_it(i):
-    """The item number a message names is, in ROADMAP.md's Queue 1, the
-    item whose heading the message names."""
-    import re
-    call, heading = UNPORTED[i]
-    with pytest.raises(NotImplementedError) as err:
-        call()
-    m = re.search(r"Queue 1 item (\d+) \((\w+)\)", str(err.value))
-    assert m and m.group(2) == heading
-    queue = (REPO / "ROADMAP.md").read_text().split("### Queue 1")[1]
-    queue = queue.split("### Queue 2")[0]
-    item = re.search(rf"^{m.group(1)}\. \*\*(.+?)\*\*", queue, re.M)
-    assert item and item.group(1).startswith(heading), item
 
 
 def _imports(path: Path) -> set[str]:

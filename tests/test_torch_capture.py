@@ -242,3 +242,19 @@ def test_clear_lower_cache_releases_graphs():
     assert capture.graph_count() == 1
     lowering.clear_lower_cache()
     assert capture.graph_count() == 0
+
+
+def test_a_collected_program_releases_its_graphs():
+    """A graph pins its bound entries (a generator's weights and cache):
+    it goes with its program."""
+    import gc
+    program = capture.CapturedProgram([], [], bound=("x",))
+    other = capture.CapturedProgram([], [])
+    capture._GRAPHS[(program.serial, "sig")] = object()
+    capture._GRAPHS[(other.serial, "sig")] = object()
+    assert program.graphs() == other.graphs() == 1
+    del program
+    gc.collect()
+    assert other.graphs() == 1 and capture.graph_count() == 1
+    other.release()
+    assert capture.graph_count() == 0
