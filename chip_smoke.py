@@ -76,7 +76,9 @@ failing (non-zero exit, no result line) at the first problem:
    name (exactly one ``rglru.scan`` / ``ssd.scan`` group, in the
    forward) — each with seeded inputs in its model's domain: a warm step,
    four steps with the launch counters zeroed just before and read just
-   after (one scan launch a step, no other kernel), ``verify()`` on the
+   after (three scan launches a step: the forward's, and the backward's
+   scan gradient's two, h and the reverse recurrence; no other kernel),
+   ``verify()`` on the
    card with each gradient held to its own scale, one step against the
    port on the CPU (ResNet-18 at N=1) and one profiled step;
 9. exports gpt2_block at S=128 with its weights (a ``.npz`` sidecar) and
@@ -168,12 +170,36 @@ failing (non-zero exit, no result line) at the first problem:
     against its plain version and timed beside its byte bound, the counted
     prefill launching one scan a recurrent block, and its logits against
     teacher-forced decode on the card within 1e-4 of scale;
-16. no fallback: a step that reads a device value on the host raises
+16. the train phase: the port's LM training (``repro_torch.training``:
+    AdamW, the captured ``TrainStep``, the CLI, checkpoints), the card
+    line printed first.  (a) ``rglru_scan`` at (1, 2048, 4096) and
+    ``ssd_chunk_scan`` at (8, 96, 64, 128) through their autograd
+    Functions: one forward and one backward launch each, the output and
+    both gradients against autograd through the plain version within
+    ``TOL["f32"]`` of scale, the forward and the backward helper timed
+    beside their plain forms and byte bounds; (b) mamba2-780m (one layer)
+    and recurrentgemma-9b (rglru, rglru, attn) at full width in float32:
+    ``loss_fn`` and every gradient of a seeded (1, 512) ``SyntheticLM``
+    batch card against CPU within ``GRAD_TOL`` of each leaf's scale,
+    three scan launches a recurrent block, every recurrent-branch leaf
+    nonzero, one ``adamw_update`` within ``UPDATE_TOL`` in norm; (c)
+    ``training.cli.main`` at mamba2-780m full width and depth (bfloat16,
+    (2, 2048)) and recurrentgemma-9b three layers deep ((1, 2048)), six
+    captured steps each: losses finite, the scan's launches three a block
+    a step and no other kernel, the replays' walls, a step's device time
+    and idle share, peak memory; (d) three ``train`` steps of mamba2-780m
+    one layer deep captured and eager: parameters, m, v and losses bit
+    for bit, the step's wall both ways; (e) ``--fail-at 3`` with a
+    checkpoint every two steps exits 42, ``--resume`` runs steps 3-6 bit
+    for bit the uninterrupted run's; (f) ``--compiled`` at (128, 1024):
+    the backward's mmgrad launches of four steps, no other kernel;
+17. no fallback: a step that reads a device value on the host raises
     ``CaptureError`` naming the step;
-17. prints the card line, the ``kernels`` JSON line (the scans' entries
-    three times: their serving, their train-path and the LM prefills'
-    launches; flash's also at the serving batch; the chain's also at the
-    sharded phase's local shapes) and, last, the ``{"ok": true,
+18. prints the card line, the ``kernels`` JSON line (the scans' entries
+    four times: their serving, their train-path, the LM prefills' and
+    the trainers' launches, the trainers' split into the forward and the
+    backward helper; flash's also at the serving batch; the chain's also
+    at the sharded phase's local shapes) and, last, the ``{"ok": true,
     "device": ...}`` line.
 
 The full record (every check, every timing) goes to
@@ -2166,7 +2192,8 @@ def train_workloads() -> list:
     CPU) of each train path of the slice: ResNet-18 at N = 1 and 8, whose
     phases route nothing (its relu outputs are residuals, so no conv
     chain is exclusive), and the two recurrences, whose forward routes
-    its scan."""
+    its scan and whose backward's scan gradient runs two more launches of
+    the same kernel (h, then the reverse recurrence)."""
     import numpy as np
 
     from repro_torch.kernels.rglru.rglru import launches as rglru_launches
@@ -2199,9 +2226,9 @@ def train_workloads() -> list:
 
     return [resnet(N) for N in CNN_BATCHES] + [
         ("rglru_block", rglru_loss_fn, [RGLRU_SHAPE] * 4, ("a", "gate"),
-         RGLRU, "rglru", rglru_launches(), rglru_make, True),
+         RGLRU, "rglru", 3 * rglru_launches(), rglru_make, True),
         ("ssd_block", ssd_loss_fn, [SSD_SHAPE, (nc, BH, 1, 1), SSD_SHAPE],
-         ("states", "decay"), SSD, "ssd", 1, ssd_make, True)]
+         ("states", "decay"), SSD, "ssd", 3, ssd_make, True)]
 
 
 def slice_train_path(seed, name, fn, specs, wrt, group, lib_name, per_step,
@@ -3051,8 +3078,8 @@ def capture_train() -> dict:
 
 
 def capture_rglru_train() -> dict:
-    """rglru_block's train step at (2, 2048, 4096): the step's ~8200
-    launches (the backward's two loops over time) become three graphs.
+    """rglru_block's train step at (2, 2048, 4096): its three phases
+    (three rglru_scan launches a step) become three graphs.
     One step and the gradients with jit=True against jit=False, each
     tensor within GRAD_TOL of its scale, the bit-for-bit count reported;
     the capture's host seconds and memory; walls both ways."""
@@ -4196,6 +4223,479 @@ def lm_phase(card: str, record: dict) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# The train phase: LM training on the card (repro_torch.training)
+# --------------------------------------------------------------------------
+
+# (a) The scans' backwards at full width: recurrentgemma-9b's recurrence
+# (1, 2048, 4096); mamba2-780m's chunk states at (2, 2048): eight 256-step
+# chunks over 2 x 48 heads of (64, 128).
+TRAIN_RGLRU = (1, 2048, 4096)
+TRAIN_SSD = (8, 96, 64, 128)
+# (b) Float32 at full width, one block-pattern group deep, a (1, 512)
+# SyntheticLM batch: loss_fn's value and every gradient, card against CPU.
+TRAIN_WIDE = {"mamba2-780m": 1, "recurrentgemma-9b": 3}
+TRAIN_WIDE_BATCH = (1, 512)
+# (c) The trainer at full width (published bfloat16 parameters, float32
+# moments, remat on): mamba2-780m at full depth, and recurrentgemma-9b
+# three layers deep (its 9B parameters' AdamW state, ~144 GB, do not fit
+# the card's 80).
+TRAINER_STEPS = 6
+TRAINERS = {"mamba2-780m": ["--arch", "mamba2-780m", "--batch", "2",
+                            "--seq", "2048"],
+            "recurrentgemma-9b x3": ["--arch", "recurrentgemma-9b",
+                                     "--layers", "3", "--batch", "1",
+                                     "--seq", "2048"]}
+# (d) Captured against eager: three steps of mamba2-780m one group deep.
+TRAIN_CAPTURE_STEPS = 3
+TRAIN_CAPTURE_BATCH = (2, 2048)
+# (e) The restart: a failure injected after step 3 with a checkpoint every
+# two steps (exit 42), then --resume to step 6.
+RESTART_ARGS = ["--arch", "mamba2-780m", "--layers", "1", "--batch", "2",
+                "--seq", "2048", "--steps", "6", "--ckpt-every", "2"]
+RESTART_FAIL_AT = 3
+# (f) --compiled: gpt2_block's loss at (128, 1024), four steps.
+COMPILED_ARGS = ["--compiled", "--seq", "128", "--d-model", str(D_MODEL),
+                 "--steps", str(TRAIN_STEPS)]
+
+
+@contextlib.contextmanager
+def plain_scans():
+    """Within this context the scans' helpers call the plain versions in
+    the kernels' place: the plain form of each backward."""
+    import importlib
+    rg = importlib.import_module("repro_torch.kernels.rglru.rglru")
+    sd = importlib.import_module("repro_torch.kernels.ssd.ssd")
+    real = (rg.rglru_scan, sd.ssd_chunk_scan)
+    rg.rglru_scan, sd.ssd_chunk_scan = (rg.rglru_scan_plain,
+                                        sd.ssd_chunk_scan_plain)
+    try:
+        yield
+    finally:
+        rg.rglru_scan, sd.ssd_chunk_scan = real
+
+
+def _scan_entry(name, kernel, plain, flops, nbytes, err) -> dict:
+    ms, plain_ms = in_turns(plain, kernel, 10)
+    b, by = bound_ms(flops, nbytes)
+    m = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+             bound_by=by, flops=flops, bytes=nbytes, library_ms=None,
+             device_ms=device_ms(kernel, 10))
+    print(f"  {name:<48s} {ms:.4f} ms (device {m['device_ms']:.4f})  plain "
+          f"{plain_ms:.4f}  library none  bound {b:.4f} ({by})")
+    return m
+
+
+def train_scans(record: list) -> dict:
+    """(a) Each scan through its autograd Function at full width: one
+    forward launch and one backward launch, the output and both gradients
+    against autograd through the plain version, within TOL["f32"] of each
+    tensor's scale; the forward and the backward helper timed beside the
+    plain forms and their byte bounds."""
+    import importlib
+
+    import torch
+    from repro_torch.kernels.rglru.ops import rglru
+    from repro_torch.kernels.rglru.rglru import chunk_length
+    from repro_torch.kernels.ssd.ops import ssd_states
+    rg = importlib.import_module("repro_torch.kernels.rglru.rglru")
+    sd = importlib.import_module("repro_torch.kernels.ssd.ssd")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 300)
+    out = {}
+
+    B, S, D = TRAIN_RGLRU
+    ch = chunk_length(B, S, D)
+    a = gates(TRAIN_RGLRU, g, 0.5, 0.999).requires_grad_()
+    b = torch.randn(TRAIN_RGLRU, generator=g, device="cuda").requires_grad_()
+    ct = torch.randn(TRAIN_RGLRU, generator=g, device="cuda")
+    # ssd: the states and cotangents at the scale of a chunk's states
+    st = (0.1 * torch.randn(TRAIN_SSD, generator=g, device="cuda")
+          ).requires_grad_()
+    nc, BH = TRAIN_SSD[:2]
+    dec = gates((nc, BH, 1, 1), g, 0.5, 0.99).requires_grad_()
+    cs = 0.1 * torch.randn(TRAIN_SSD, generator=g, device="cuda")
+    cases = {
+        "rglru": ("rglru_scan", (a, b), ct,
+                  lambda x, y: rglru(x, y, chunk=ch),
+                  lambda x, y: rg.rglru_scan_plain(x, y, chunk=ch)),
+        "ssd": ("ssd_chunk_scan", (st, dec), cs, ssd_states,
+                sd.ssd_chunk_scan_plain)}
+    for kind, (fn, ins, cot, diff, plain) in cases.items():
+        shape = "x".join(map(str, ins[0].shape))
+        zero_counts()
+        got = diff(*ins)
+        grads = torch.autograd.grad(got, ins, cot)
+        torch.cuda.synchronize()
+        _held_launches(f"{fn} forward and backward", {kind: 2})
+        want = plain(*ins)
+        want_grads = torch.autograd.grad(want, ins, cot)
+        err = check_scaled(record, f"{fn} {shape} autograd forward",
+                           got.detach(), want.detach(), TOL["f32"])
+        errs = [check_scaled(record, f"{fn} {shape} grad {i}", gi, wi,
+                             TOL["f32"])
+                for i, (gi, wi) in enumerate(zip(grads, want_grads))]
+        x, y = (t.detach() for t in ins)
+        h = got.detach()
+        n = x.numel()
+        if kind == "rglru":
+            fwd = (lambda: rg.rglru_scan(x, y, chunk=ch),
+                   lambda: rg.rglru_scan_plain(x, y, chunk=ch))
+            bwd = lambda: rg.rglru_scan_backward(cot, x, h, chunk=ch)
+            f_bytes, b_bytes, b_flops = 4.0 * 3 * n, 4.0 * 5 * n, 3.0 * n
+        else:
+            fwd = (lambda: sd.ssd_chunk_scan(x, y),
+                   lambda: sd.ssd_chunk_scan_plain(x, y))
+            bwd = lambda: sd.ssd_chunk_scan_backward(cot, y, h)
+            f_bytes = 4.0 * (2 * n + y.numel())
+            b_bytes, b_flops = 4.0 * (3 * n + 2 * y.numel()), 4.0 * n
+
+        def bwd_plain(bwd=bwd):
+            with plain_scans():
+                return bwd()
+
+        forward = _scan_entry(f"{fn} forward {shape}", fwd[0], fwd[1],
+                              2.0 * n, f_bytes, err)
+        backward = _scan_entry(f"{fn}_backward {shape}", bwd, bwd_plain,
+                               b_flops, b_bytes, max(errs))
+        out[kind] = {"shape": list(x.shape), "forward": forward,
+                     "backward": backward, "grad_errs": errs}
+    return out
+
+
+def train_wide(record: list) -> dict:
+    """(b) mamba2-780m (one layer) and recurrentgemma-9b (rglru, rglru,
+    attn) at full width in float32: loss_fn's value and every gradient
+    leaf of a seeded (1, 512) SyntheticLM batch, card against CPU within
+    GRAD_TOL of each leaf's largest value, three scan launches a recurrent
+    block (forward, remat, backward), every leaf of the recurrent branch
+    nonzero; then one adamw_update card against CPU, each update p1 - p0
+    within UPDATE_TOL in norm."""
+    import dataclasses
+
+    import torch
+    from repro_torch import models as M
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import transformer as tf
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import value_and_grad
+    out = {}
+    B, S = TRAIN_WIDE_BATCH
+    for arch, layers in TRAIN_WIDE.items():
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                                  dtype="float32")
+        p_cpu = M.init_params(cfg, torch.Generator().manual_seed(SEED),
+                              device="cpu")
+        params = _tree_to(p_cpu, "cuda")
+        batch = SyntheticLM(cfg, DataConfig(seq_len=S, global_batch=B,
+                                            seed=SEED)).batch(0)
+        b_cpu = {k: torch.from_numpy(v) for k, v in batch.items()}
+
+        def loss_of(p, b):
+            return tf.loss_fn(p, b, cfg)
+
+        zero_counts()
+        loss, grads = value_and_grad(loss_of, params, _tree_to(b_cpu, "cuda"))
+        torch.cuda.synchronize()
+        blocks = _scan_blocks(cfg)
+        launches = _held_launches(f"{arch} x{layers} loss and gradients",
+                                  {k: 3 * n for k, n in blocks.items()})
+        loss_c, grads_c = value_and_grad(loss_of, p_cpu, b_cpu)
+        rel = {"loss": scaled(f"{arch} loss", abs(float(loss) - float(loss_c)),
+                              abs(float(loss_c)), GRAD_TOL)}
+        got, want = _tree_paths(grads), _tree_paths(grads_c)
+        for path in want:
+            rel[path] = scaled(f"{arch} grad {path}",
+                               max_err(got[path].cpu(), want[path]),
+                               float(want[path].abs().max()), GRAD_TOL)
+        branch = [p for p in got if "/rec/" in p or "/ssm/" in p]
+        zeros = [p for p in branch if not bool(got[p].abs().max() > 0)]
+        if not branch or zeros:
+            fail(f"{arch}: recurrent-branch gradients zero on the card: "
+                 f"{zeros or 'no branch leaves'}")
+        st_c = opt.adamw_init(params)
+        st = opt.adamw_init(p_cpu)
+        p1_c, _, _ = opt.adamw_update(grads, st_c, params, opt.OptConfig())
+        p1, _, _ = opt.adamw_update(grads_c, st, p_cpu, opt.OptConfig())
+        upd = {}
+        for path, w0 in _tree_paths(p_cpu).items():
+            d_card = _tree_paths(p1_c)[path].cpu() - _tree_paths(params)[
+                path].cpu()
+            d_cpu = _tree_paths(p1)[path] - w0
+            upd[path] = float((d_card - d_cpu).norm() / d_cpu.norm())
+            if not upd[path] <= UPDATE_TOL:
+                fail(f"{arch}: adamw update of {path} differs by "
+                     f"{upd[path]:.2e} in norm (band {UPDATE_TOL:.0e})")
+        worst = max((v, k) for k, v in rel.items())
+        record.append({"case": f"{arch} x{layers} f32 gradients card vs CPU",
+                       "rel_err": worst[0], "tol": GRAD_TOL, "ok": True})
+        out[arch] = {"layers": layers, "params": M.param_count(params),
+                     "loss": float(loss), "loss_cpu": float(loss_c),
+                     "launches": launches, "grad_rel": rel,
+                     "branch_leaves": len(branch), "update_rel": upd,
+                     "seconds": time.perf_counter() - t0}
+        print(f"  {arch} x{layers} f32 ({M.param_count(params) / 1e9:.2f} B "
+              f"parameters), {TRAIN_WIDE_BATCH}: loss {float(loss):.6f} "
+              f"(CPU {float(loss_c):.6f}); launches {launches}; every "
+              f"gradient within {worst[0]:.2e} of its scale ({worst[1]}), "
+              f"{len(branch)} recurrent-branch leaves nonzero; adamw "
+              f"update within {max(upd.values()):.2e} in norm")
+        del params, grads, p_cpu, grads_c, p1_c, p1, st_c, st
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def watching_steps():
+    """Within this context every ``TrainStep`` call is timed (host clock,
+    ending in the loss read) and its loss kept, and the calls of the scans'
+    backward helpers are counted (an eager step's, and its capture's)."""
+    import importlib
+
+    import torch
+    from repro_torch.training import train_loop as tl
+    rg = importlib.import_module("repro_torch.kernels.rglru.rglru")
+    sd = importlib.import_module("repro_torch.kernels.ssd.ssd")
+    seen = {"walls": [], "losses": [], "step": None, "batch": None,
+            "backward_calls": {"rglru": 0, "ssd": 0}}
+    real = (tl.TrainStep.__call__, rg.rglru_scan_backward,
+            sd.ssd_chunk_scan_backward)
+
+    def call(self, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics = real[0](self, batch)
+        loss = float(metrics["loss"])
+        seen["walls"].append(1e3 * (time.perf_counter() - t))
+        seen["losses"].append(loss)
+        seen["step"], seen["batch"] = self, batch
+        return metrics
+
+    def counted(kind, fn):
+        def wrapper(*args, **kw):
+            seen["backward_calls"][kind] += 1
+            return fn(*args, **kw)
+        return wrapper
+
+    tl.TrainStep.__call__ = call
+    rg.rglru_scan_backward = counted("rglru", real[1])
+    sd.ssd_chunk_scan_backward = counted("ssd", real[2])
+    try:
+        yield seen
+    finally:
+        (tl.TrainStep.__call__, rg.rglru_scan_backward,
+         sd.ssd_chunk_scan_backward) = real
+
+
+def _train_cli(args: list) -> tuple[int, list]:
+    """``repro_torch.training.cli.main(args)`` in process: (exit code,
+    its output lines, printed indented)."""
+    import io
+
+    from repro_torch.training import cli
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = cli.main(list(args))
+    lines = text.getvalue().strip().splitlines()
+    for line in lines:
+        print(f"    train: {line}")
+    return rc, lines
+
+
+def train_trainer(name: str, args: list) -> dict:
+    """(c) ``python -m repro_torch.training.cli`` in process at full width:
+    TRAINER_STEPS captured steps (the first eager, then the capture, the
+    rest replays); the losses finite; the scan's launches three a recurrent
+    block a step (forward, remat, backward) and no other kernel; the
+    replays' walls, one more step's profiled device time and idle share,
+    and peak memory."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    arch = args[args.index("--arch") + 1]
+    cfg = get_config(arch)
+    if "--layers" in args:
+        cfg = dataclasses.replace(cfg, n_layers=int(
+            args[args.index("--layers") + 1]))
+    blocks = _scan_blocks(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    with watching_steps() as seen:
+        rc, lines = _train_cli(args + ["--steps", str(TRAINER_STEPS)])
+    wall_s = time.perf_counter() - t0
+    launches = _held_launches(f"{name} trainer",
+                              {k: 3 * n * TRAINER_STEPS
+                               for k, n in blocks.items()})
+    peak = torch.cuda.max_memory_allocated()
+    losses = seen["losses"]
+    if rc != 0 or len(losses) != TRAINER_STEPS or not all(
+            math.isfinite(v) for v in losses):
+        fail(f"{name} trainer: exit {rc}, losses {losses}")
+    # The eager first step and the capture each call the backward helper
+    # once a recurrent block; the replays run what the capture recorded.
+    calls = {k: v // 2 for k, v in seen["backward_calls"].items() if v}
+    if calls != {k: n for k, n in blocks.items() if n}:
+        fail(f"{name} trainer: backward helper calls a step {calls}, "
+             f"expected one a recurrent block {blocks}")
+    step, batch = seen["step"], seen["batch"]
+    if step.program.graphs() != 1:
+        fail(f"{name} trainer: the step was not captured once")
+    rows = device_rows(lambda: step(batch))
+    dev = sum(r["device_us"] for r in rows) / 1e3
+    replay = float(np.median(seen["walls"][1:]))
+    out = {"args": args, "steps": TRAINER_STEPS, "losses": losses,
+           "walls_ms": seen["walls"], "replay_median_ms": replay,
+           "device_ms": dev, "idle": 1.0 - dev / replay,
+           "peak_memory_gib": peak / 2**30, "launches": launches,
+           "backward_per_step": calls, "total_s": wall_s,
+           "profile": rows[:8], "params": sum(
+               t.numel() for t in _tree_paths(step.params).values())}
+    print(f"  {name} trainer ({out['params'] / 1e9:.3f} B parameters): "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; first step "
+          f"{seen['walls'][0]:.1f} ms (eager, then the capture), replays "
+          f"median {replay:.3f} ms, device {dev:.3f} ms, idle "
+          f"{100 * out['idle']:.1f} %; peak memory {out['peak_memory_gib']:.2f}"
+          f" GiB; launches {launches}; {wall_s:.1f} s in all")
+    del step, batch, seen
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_captured_vs_eager(record: list) -> dict:
+    """(d) TRAIN_CAPTURE_STEPS ``train`` steps of mamba2-780m one group deep
+    (bfloat16 parameters, float32 moments) captured and eager from the same
+    parameters: parameters, m, v and losses bit for bit; then the step's
+    wall both ways (device time and idle share)."""
+    import dataclasses
+
+    import torch
+    from repro_torch import models as M
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models.layers import tree_map
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_loop as tl
+    cfg = dataclasses.replace(get_config("mamba2-780m"), n_layers=1)
+    B, S = TRAIN_CAPTURE_BATCH
+    source = SyntheticLM(cfg, DataConfig(seq_len=S, global_batch=B,
+                                         seed=SEED))
+    p0 = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    runs = {}
+    for jit in (True, False):
+        params = tree_map(torch.clone, p0)
+        _, state, report = tl.train(cfg, steps=TRAIN_CAPTURE_STEPS,
+                                    batch_fn=source.batch, params=params,
+                                    jit=jit)
+        runs[jit] = (params, state, report)
+    (pc, sc, rc), (pe, se, re_) = runs[True], runs[False]
+    a = _tree_paths({"params": pc, "opt": sc})
+    b = _tree_paths({"params": pe, "opt": se})
+    differ = {k: max_err(a[k], b[k]) for k in a if not torch.equal(a[k], b[k])}
+    if differ or rc.losses != re_.losses:
+        fail(f"captured train steps are not eager's bit for bit: losses "
+             f"{rc.losses} / {re_.losses}, leaves {differ}")
+    record.append({"case": f"mamba2-780m x1 train captured vs eager x"
+                           f"{TRAIN_CAPTURE_STEPS}", "bit_identical": True,
+                   "ok": True})
+    batch = source.batch(TRAIN_CAPTURE_STEPS)
+    eager = tl.TrainStep(cfg, pe, se, opt.OptConfig(), jit=False)
+    captured = tl.TrainStep(cfg, pc, sc, opt.OptConfig())
+    walls = both_ways(f"mamba2-780m x1 train step {TRAIN_CAPTURE_BATCH}",
+                      lambda: float(eager(batch)["loss"]),
+                      lambda: float(captured(batch)["loss"]))
+    print(f"  mamba2-780m x1: {TRAIN_CAPTURE_STEPS} train steps captured bit "
+          f"for bit eager (parameters, m, v, losses {rc.losses})")
+    out = {"losses": rc.losses, "walls": walls, "leaves": len(a)}
+    del eager, captured, runs, pc, sc, pe, se, p0
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_restart(record: list) -> dict:
+    """(e) The restart on the card: ``--fail-at 3`` with a checkpoint
+    every two steps exits 42; ``--resume`` continues from step 2 to 6; the
+    losses of steps 3-6 bit for bit those of a run with no failure."""
+    import shutil
+    ckpt = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    with watching_steps() as whole:
+        rc0, _ = _train_cli(RESTART_ARGS)
+    with watching_steps() as failed:
+        rc1, _ = _train_cli(RESTART_ARGS + ["--ckpt", str(ckpt), "--fail-at",
+                                            str(RESTART_FAIL_AT)])
+    with watching_steps() as resumed:
+        rc2, lines = _train_cli(RESTART_ARGS + ["--ckpt", str(ckpt),
+                                                "--resume"])
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if (rc0, rc1, rc2) != (0, 42, 0):
+        fail(f"restart: exit codes {(rc0, rc1, rc2)}, expected (0, 42, 0)")
+    if failed["losses"] != whole["losses"][:RESTART_FAIL_AT]:
+        fail(f"restart: the failing run's losses {failed['losses']} are not "
+             f"the first {RESTART_FAIL_AT} of {whole['losses']}")
+    if resumed["losses"] != whole["losses"][2:]:
+        fail(f"restart: resumed losses {resumed['losses']} are not steps "
+             f"3-6 of the uninterrupted run {whole['losses'][2:]}")
+    record.append({"case": "train restart: steps 3-6 after --resume",
+                   "bit_identical": True, "ok": True})
+    print(f"  restart: exit 42 after step {RESTART_FAIL_AT}, resumed from "
+          f"step 2; steps 3-6 bit for bit the uninterrupted run's "
+          f"({resumed['losses']})")
+    return {"losses": whole["losses"], "resumed": resumed["losses"],
+            "exit_codes": [rc0, rc1, rc2]}
+
+
+def train_compiled_cli(expected_mmgrad: int) -> dict:
+    """(f) ``--compiled``: gpt2_block's loss at (128, 1024) for
+    TRAIN_STEPS steps through ``train_compiled`` (the phases captured):
+    exit 0, losses finite, the backward's mmgrad launches those of the
+    train path's TRAIN_STEPS steps at S = 128, no other kernel."""
+    zero_counts()
+    t0 = time.perf_counter()
+    rc, lines = _train_cli(COMPILED_ARGS)
+    wall_s = time.perf_counter() - t0
+    launches = _held_launches("--compiled trainer",
+                              {"mmgrad": expected_mmgrad})
+    m = re.search(r"steps=(\d+) loss ([-\d.naif]+) -> ([-\d.naif]+)",
+                  lines[-1] if lines else "")
+    if rc != 0 or not m or int(m.group(1)) != TRAIN_STEPS or not all(
+            math.isfinite(float(m.group(i))) for i in (2, 3)):
+        fail(f"--compiled: exit {rc}, last line {lines[-1:]}")
+    print(f"  --compiled: launches {launches}, {wall_s:.1f} s with the "
+          f"compile")
+    return {"launches": launches, "seconds": wall_s,
+            "losses": [float(m.group(2)), float(m.group(3))]}
+
+
+def train_phase(card: str, record: dict, expected_mmgrad: int) -> dict:
+    """LM training on the card: (a) the scans' backwards, (b) float32
+    gradients at full width card against CPU, (c) the trainer at full
+    width, (d) captured against eager, (e) the restart, (f) --compiled."""
+    print(f"card: {card}")
+    checks = record["checks"]
+    out = {}
+    print(f"  (a) the scans through autograd at full width, "
+          f"{TRAIN_RGLRU} and {TRAIN_SSD}:")
+    out["scans"] = train_scans(checks)
+    print(f"  (b) float32 gradients at full width, one group deep, "
+          f"{TRAIN_WIDE_BATCH}, card against CPU:")
+    out["wide"] = train_wide(checks)
+    print(f"  (c) the trainer at full width, {TRAINER_STEPS} captured steps:")
+    out["trainer"] = {name: train_trainer(name, args)
+                      for name, args in TRAINERS.items()}
+    print("  (d) captured against eager:")
+    out["captured"] = train_captured_vs_eager(checks)
+    print("  (e) the restart:")
+    out["restart"] = train_restart(checks)
+    print("  (f) --compiled:")
+    out["compiled"] = train_compiled_cli(expected_mmgrad)
+    return out
+
+
 def no_fallback() -> dict:
     """A step that reads a device value on the host cannot be captured:
     the first jit=True call raises CaptureError naming the step, and no
@@ -4348,6 +4848,11 @@ def main() -> int:
           "captured decode step, serve --arch:")
     lm = lm_phase(card, record)
     record["lm_phase"] = lm
+    print("LM training: repro_torch.training (AdamW, the captured train "
+          "step, the CLI, checkpoints), the scans' backwards:")
+    train = train_phase(card, record, TRAIN_STEPS * trains[SEQS[0]][
+        "launches_per_step"])
+    record["train_phase"] = train
     print("no fallback:")
     record["no_fallback"] = no_fallback()
 
@@ -4447,6 +4952,21 @@ def main() -> int:
             cnn_entries.append((
                 f"{fn}[{arch} prefill " + "x".join(map(str, m["shape"]))
                 + "]", src, replaces, m, n))
+    # The train phase's scans at the trainers' shapes: the forward (its
+    # launches in the trainer's forward and remat passes) and the backward
+    # helper (one reverse launch with its flips and products; its launches
+    # in the backward pass, one a recurrent block a step).
+    for kind, trainer in (("rglru", "recurrentgemma-9b x3"),
+                          ("ssd", "mamba2-780m")):
+        fn, src, replaces = scan_src[kind]
+        run, m = train["trainer"][trainer], train["scans"][kind]
+        bwd = run["backward_per_step"][kind] * run["steps"]
+        shape = "x".join(map(str, m["shape"]))
+        cnn_entries += [
+            (f"{fn}[{trainer} trainer forward {shape}]", src, replaces,
+             m["forward"], run["launches"][kind] - bwd),
+            (f"{fn}_backward[{trainer} trainer {shape}]", src, replaces,
+             m["backward"], bwd)]
     cnn_entries.append((
         "matmul[ops.mm " + "x".join(map(str, MM_SHAPE)) + "]",
         "src/repro_torch/csrc/matmul.cu",

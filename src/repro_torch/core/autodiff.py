@@ -45,8 +45,10 @@ class AutodiffError(RuntimeError):
     """A graph (or one of its tasks) cannot be differentiated."""
 
 
-# The exact field set of the reference's ``training.optimizer.OptConfig``,
-# as plain data (the port has no training package yet).
+# The exact field set of the reference's ``training.optimizer.OptConfig``
+# (and of the port's ``repro_torch.training.optimizer.OptConfig``), as
+# plain data, duplicated as in the reference so the compiler does not
+# import the training package.
 DEFAULT_OPT = {"lr": 3e-4, "b1": 0.9, "b2": 0.95, "eps": 1e-8,
                "weight_decay": 0.1, "clip_norm": 1.0, "warmup_steps": 100,
                "total_steps": 10000, "min_lr_frac": 0.1}

@@ -8,7 +8,9 @@ instead of one launch and its Python for every task:
 
 * **First call of a signature.**  The step list runs eagerly on a side
   stream (this builds and loads the kernels and sets their attributes),
-  and its answers are the call's.  Then the step list is captured over
+  and its answers are the call's.  The blocks that run freed go back to
+  the card (the graph's private memory pool cannot reuse them).  Then
+  the step list is captured over
   static input buffers laid out as the call's tensors are
   (``torch.empty_strided``).  The signature is the device and, for every
   env entry, its name, shape, dtype and strides.
@@ -35,7 +37,8 @@ instead of one launch and its Python for every task:
 
 Kernel launch counters (:class:`~repro_torch.kernels.common.CudaLibrary`)
 count executed launches either way: launches made while capturing are
-recorded, not counted, and every replay counts them.
+recorded, not counted (those of a backward too, which the autograd engine
+enqueues from a thread of its own), and every replay counts them.
 
 Captured graphs live in one LRU bounded like the lowering memo
 (``CODO_LOWER_CACHE_SIZE``); :func:`clear_graphs` (called by
@@ -252,6 +255,10 @@ class CapturedProgram:
                         for k, v in env.items():
                             if k not in self.bound:
                                 static_in[k].copy_(v)
+                        # The eager run's freed blocks back to the card:
+                        # the graph allocates from a private pool, which
+                        # cannot reuse them (a train step's temporaries).
+                        torch.cuda.empty_cache()
                         t0 = time.perf_counter()
                         graph, static_out, launches = self._capture(
                             static_in)
@@ -283,7 +290,8 @@ class CapturedProgram:
         scope = dict(static_in)
         graph.capture_begin(capture_error_mode="thread_local")
         try:
-            with recording_launches(launches):
+            with recording_launches(
+                    launches, torch.cuda.current_stream().cuda_stream):
                 for where, f in self.steps:
                     scope.update(f(scope))
             where = "capture end"

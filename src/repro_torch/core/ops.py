@@ -714,41 +714,38 @@ def _mean_grad(spec: OpSpec, env: dict) -> dict:
 
 @register_op("rglru_scan_grad")
 def _rglru_scan_grad(spec: OpSpec, env: dict) -> dict:
-    """``(da, db)`` of ``h_t = a_t·h_{t−1} + b_t``: ``h`` recomputed by the
-    forward loop, then the reverse recurrence ``λ_t = g_t + a_{t+1}·λ_{t+1}``
-    from ``λ_{S−1} = g_{S−1}``, a loop over time in ``a``'s type (a
-    cumulative product would underflow); ``db = λ``, ``da_t = λ_t·h_{t−1}``
-    with ``h_{−1} = 0``."""
-    import torch
+    """``(da, db)`` of ``h_t = a_t·h_{t−1} + b_t``: ``h`` from one
+    ``rglru_scan`` (the kernel on the card, its plain version on the CPU,
+    at the route's chunk), then the reverse recurrence ``λ_t = g_t +
+    a_{t+1}·λ_{t+1}`` from one more scan of the reversed operands
+    (:func:`~repro_torch.kernels.rglru.rglru.rglru_scan_backward`); ``db =
+    λ``, ``da_t = λ_t·h_{t−1}`` with ``h_{−1} = 0``, in ``a``'s type."""
+    from ..kernels.rglru.rglru import (chunk_length, rglru_scan,
+                                       rglru_scan_backward)
     g, a, b = (env[n] for n in spec.ins)
-    h = _rglru_reference(a, b)
-    lam = g[:, -1]
-    lams = [lam]
-    for t in range(a.shape[1] - 2, -1, -1):
-        lam = g[:, t] + a[:, t + 1] * lam
-        lams.append(lam)
-    db = torch.stack(lams[::-1], dim=1)
-    h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
-    return {spec.outs[0]: db * h_prev, spec.outs[1]: db}
+    a, b = a.contiguous(), b.contiguous()
+    chunk = chunk_length(*a.shape)
+    h = rglru_scan(a, b, chunk=chunk)
+    da, db = rglru_scan_backward(g.contiguous(), a, h, chunk=chunk)
+    return {spec.outs[0]: da, spec.outs[1]: db}
 
 
 @register_op("ssd_scan_grad")
 def _ssd_scan_grad(spec: OpSpec, env: dict) -> dict:
     """``(dstates, ddecay)`` of the carried-in recurrence ``h_{c+1} =
-    h_c·dec_c + st_c`` (outputs ``h_c``): from ``μ_nc = 0`` backwards,
+    h_c·dec_c + st_c`` (outputs ``h_c``): ``h`` from one ``ssd_chunk_scan``
+    (the kernel on the card, its plain version on the CPU), then ``μ_c =
+    g_c + dec_c·μ_{c+1}`` from ``μ_nc = 0`` by one more scan of the
+    reversed operands
+    (:func:`~repro_torch.kernels.ssd.ssd.ssd_chunk_scan_backward`);
     ``dst_c = μ_{c+1}``, ``ddec_c = Σ_{P,N} μ_{c+1}·h_c`` (kept at (BH, 1,
-    1)), ``μ_c = g_c + dec_c·μ_{c+1}``."""
-    import torch
+    1))."""
+    from ..kernels.ssd.ssd import ssd_chunk_scan, ssd_chunk_scan_backward
     g, states, decay = (env[n] for n in spec.ins)
-    h = _ssd_reference(states, decay)
-    mu = torch.zeros_like(states[0])
-    dst, ddec = [], []
-    for c in range(states.shape[0] - 1, -1, -1):
-        dst.append(mu)
-        ddec.append((mu * h[c]).sum(dim=(-2, -1), keepdim=True))
-        mu = g[c] + decay[c] * mu
-    return {spec.outs[0]: torch.stack(dst[::-1], dim=0),
-            spec.outs[1]: torch.stack(ddec[::-1], dim=0).to(decay.dtype)}
+    states, decay = states.contiguous(), decay.contiguous()
+    h = ssd_chunk_scan(states, decay)
+    ds, dd = ssd_chunk_scan_backward(g.contiguous(), decay, h)
+    return {spec.outs[0]: ds, spec.outs[1]: dd}
 
 
 @register_op("sumsq")

@@ -22,7 +22,7 @@ reference's.
 
 The reference's placement helpers (``use_mesh``, ``as_shardings``,
 ``param_shardings``, ``replicated``, the ``shard_map`` shim) place arrays
-for GSPMD; they wait for item 7, whose sharded train step decides how
+for GSPMD; they wait for item 7b, whose sharded train step decides how
 such placements execute.  :func:`shard_hint` is the identity: the port
 has no ambient mesh, and the reference's hint is the identity outside one.
 """

@@ -16,7 +16,9 @@ point launches exactly one kernel on the stream it is given and returns
 code and counts the launch.  A launch made while the calling thread
 captures a CUDA graph (:mod:`repro_torch.core.capture`) only enqueues the
 kernel into the graph: it goes to the capture's record instead, and each
-replay of the graph counts it (:func:`recording_launches`).
+replay of the graph counts it (:func:`recording_launches`).  So does a
+launch that another thread makes into the capturing stream: the autograd
+engine runs a CUDA backward on a thread of its own.
 """
 
 from __future__ import annotations
@@ -52,6 +54,9 @@ NUM_SMS = 132
 # ``_RECORDING.record`` is a Counter of (library, entry point) while a
 # capture runs on this thread, else absent.
 _RECORDING = threading.local()
+# The same record keyed by the capturing stream's handle, for launches
+# that other threads enqueue into that stream (a captured backward).
+_CAPTURING: dict[int, Counter] = {}
 
 # ctypes shorthands for C entry-point signatures.
 PTR, INT, INT64, FLOAT = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -185,6 +190,9 @@ class CudaLibrary:
             raise RuntimeError(f"{self.source.name}:{name} failed to launch: "
                                f"CUDA error {code} ({msg})")
         record = getattr(_RECORDING, "record", None)
+        if record is None and _CAPTURING:
+            import torch
+            record = _CAPTURING.get(torch.cuda.current_stream().cuda_stream)
         if record is not None:
             record[(self, name)] += 1
         else:
@@ -201,17 +209,22 @@ class CudaLibrary:
 
 
 @contextlib.contextmanager
-def recording_launches(record: Counter):
+def recording_launches(record: Counter, stream: int | None = None):
     """Within this context the calling thread's launches are recorded into
     ``record`` (a Counter of (library, entry point)) instead of counted:
     the thread is capturing a CUDA graph, so the kernels are enqueued, not
-    run.  Each replay of the graph then counts them
-    (:meth:`CudaLibrary.count`)."""
+    run.  With ``stream`` (the capturing stream's handle) so are the
+    launches any other thread makes while that stream is its current one.
+    Each replay of the graph then counts them (:meth:`CudaLibrary.count`)."""
     _RECORDING.record = record
+    if stream is not None:
+        _CAPTURING[stream] = record
     try:
         yield record
     finally:
         del _RECORDING.record
+        if stream is not None:
+            _CAPTURING.pop(stream, None)
 
 
 def build_all(libraries: Sequence[CudaLibrary]) -> float:

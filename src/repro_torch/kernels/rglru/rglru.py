@@ -20,6 +20,14 @@ are read once.  The kernel keeps its tickets, flags and epoch in a small
 device buffer that this module owns for each stream (:func:`_state`).
 Tensors on the CPU run :func:`rglru_scan_plain`, the same arithmetic in
 PyTorch ops, pass by pass.
+
+The backward is the same recurrence run in reverse: for the cotangent g
+of h, λ_t = g_t + a_{t+1}·λ_{t+1} from λ_{S−1} = g_{S−1}, which is
+:func:`rglru_scan` of b' = flip(g) and a' = flip(cat(a[:, 1:], 0)), one
+launch on the card (:func:`rglru_scan_backward`); then db = λ and da_t =
+λ_t·h_{t−1} with h_{−1} = 0.  :func:`rglru_scan_autograd` is the scan as
+a ``torch.autograd.Function`` over the two: one forward launch that saves
+a and h, one backward launch.
 """
 
 from __future__ import annotations
@@ -150,5 +158,53 @@ def rglru_scan_plain(a, b, *, chunk: int = 128):
     return out.to(a.dtype)
 
 
+def rglru_scan_backward(g, a, h, *, chunk: int = 128):
+    """``(da, db)`` of ``h = rglru_scan(a, b)`` for the cotangent ``g`` of
+    ``h``: λ by one :func:`rglru_scan` of the reversed operands (the kernel
+    on the card, the plain version on the CPU) flipped back, then ``db =
+    λ`` and ``da_t = λ_t·h_{t−1}``, all in a's type."""
+    import torch
+    a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
+    lam = rglru_scan(a_next.flip(1), g.to(a.dtype).flip(1),
+                     chunk=chunk).flip(1)
+    h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+    return lam * h_prev, lam
+
+
+_FUNCTION = None
+
+
+def _function():
+    """The ``torch.autograd.Function`` of the scan, made at first use."""
+    global _FUNCTION
+    if _FUNCTION is None:
+        import torch
+
+        class RglruScan(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, a, b, chunk):
+                h = rglru_scan(a, b, chunk=chunk)
+                ctx.chunk = chunk
+                ctx.save_for_backward(a, h)
+                return h
+
+            @staticmethod
+            def backward(ctx, g):
+                a, h = ctx.saved_tensors
+                da, db = rglru_scan_backward(g.contiguous(), a, h,
+                                             chunk=ctx.chunk)
+                return da, db, None
+
+        _FUNCTION = RglruScan
+    return _FUNCTION
+
+
+def rglru_scan_autograd(a, b, *, chunk: int = 128):
+    """:func:`rglru_scan` that autograd differentiates through
+    :func:`rglru_scan_backward`: one launch forward, one backward."""
+    return _function().apply(a, b, int(chunk))
+
+
 __all__ = ["LIBRARY", "chunk_length", "launches", "rglru_scan",
-           "rglru_scan_plain", "state_words"]
+           "rglru_scan_autograd", "rglru_scan_backward", "rglru_scan_plain",
+           "state_words"]

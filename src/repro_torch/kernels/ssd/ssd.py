@@ -10,6 +10,15 @@ before chunk c folds in.
 Tensors on the card launch ``csrc/ssd_scan.cu`` (one launch a call):
 one thread per (bh, p, n) element walks the chunks in order.  Tensors on
 the CPU run :func:`ssd_chunk_scan_plain`, the same loop in PyTorch ops.
+
+The backward runs the same scan in reverse: for the cotangent g of the
+emitted states, μ_c = g_c + dec_c·μ_{c+1} from μ_nc = 0 is
+:func:`ssd_chunk_scan` of flip(g) and flip(decay), whose output flipped
+back is μ_{c+1} for each c, one launch on the card
+(:func:`ssd_chunk_scan_backward`); then dstates_c = μ_{c+1} and ddecay_c =
+Σ_{P,N} μ_{c+1}·h_c.  :func:`ssd_chunk_scan_autograd` is the scan as a
+``torch.autograd.Function`` over the two: one forward launch that saves
+decay and the emitted h, one backward launch.
 """
 
 from __future__ import annotations
@@ -80,4 +89,49 @@ def ssd_chunk_scan_plain(states, decay):
     return torch.stack(prevs, dim=0)
 
 
-__all__ = ["LIBRARY", "smem_bytes", "ssd_chunk_scan", "ssd_chunk_scan_plain"]
+def ssd_chunk_scan_backward(g, decay, h):
+    """``(dstates, ddecay)`` of ``h = ssd_chunk_scan(states, decay)`` for
+    the cotangent ``g`` of ``h``: μ_{c+1} by one :func:`ssd_chunk_scan` of
+    the reversed operands (the kernel on the card, the plain version on the
+    CPU) flipped back; ``ddecay`` summed in float32 and kept at (nc, BH,
+    1, 1), both in the states' type."""
+    mu_next = ssd_chunk_scan(g.to(decay.dtype).flip(0),
+                             decay.flip(0)).flip(0)
+    ddecay = (mu_next.float() * h.float()).sum(dim=(-2, -1), keepdim=True)
+    return mu_next, ddecay.to(decay.dtype)
+
+
+_FUNCTION = None
+
+
+def _function():
+    """The ``torch.autograd.Function`` of the scan, made at first use."""
+    global _FUNCTION
+    if _FUNCTION is None:
+        import torch
+
+        class SsdChunkScan(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, states, decay):
+                h = ssd_chunk_scan(states, decay)
+                ctx.save_for_backward(decay, h)
+                return h
+
+            @staticmethod
+            def backward(ctx, g):
+                decay, h = ctx.saved_tensors
+                return ssd_chunk_scan_backward(g.contiguous(), decay, h)
+
+        _FUNCTION = SsdChunkScan
+    return _FUNCTION
+
+
+def ssd_chunk_scan_autograd(states, decay):
+    """:func:`ssd_chunk_scan` that autograd differentiates through
+    :func:`ssd_chunk_scan_backward`: one launch forward, one backward."""
+    return _function().apply(states, decay)
+
+
+__all__ = ["LIBRARY", "smem_bytes", "ssd_chunk_scan",
+           "ssd_chunk_scan_autograd", "ssd_chunk_scan_backward",
+           "ssd_chunk_scan_plain"]

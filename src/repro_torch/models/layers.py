@@ -17,10 +17,11 @@ the memory-bounded form, with the reference's ``-1e30`` mask value and
 (the reference donates the cache to ``jax.jit``), clamping the slot as
 ``lax.dynamic_update_slice`` clamps its start, on the device.
 
-The ``REPRO_*`` forward switches are read at import, as in the reference:
+The ``REPRO_*`` switches are read at import, as in the reference:
 ``REPRO_ATTN_OPT``, ``REPRO_ATTN_SEQSHARD``, ``REPRO_MOE_BF16DISPATCH`` and
-``REPRO_MOE_CHUNK``.  ``REPRO_BF16_BWD`` changes only gradients, which this
-module does not take.
+``REPRO_MOE_CHUNK`` change the forward; ``REPRO_BF16_BWD`` changes only
+the gradients that training takes through ``linear`` and ``unembed``
+(:func:`dot_bf16bwd`).
 """
 
 from __future__ import annotations
@@ -41,11 +42,45 @@ Params = dict
 # reference's sequence-parallel form runs with P = 1 and is the same loop
 # over q blocks as the plain form, so REPRO_ATTN_SEQSHARD selects nothing
 # here, and REPRO_ATTN_OPT only repeats the KV heads; their placements
-# come with the GSPMD helpers (ROADMAP.md, Queue 1 item 7).
+# come with the GSPMD helpers (ROADMAP.md, Queue 1 item 7b).
 _ATTN_OPT = os.environ.get("REPRO_ATTN_OPT", "0") == "1"
 _ATTN_SEQSHARD = os.environ.get("REPRO_ATTN_SEQSHARD", "0") == "1"
 _MOE_BF16 = os.environ.get("REPRO_MOE_BF16DISPATCH", "0") == "1"
 _MOE_CHUNK = int(os.environ.get("REPRO_MOE_CHUNK", "0"))
+# REPRO_BF16_BWD=1  cast matmul cotangents to the weight dtype before the
+#                   backward products (the reference's custom VJP).
+_BF16_BWD = os.environ.get("REPRO_BF16_BWD", "0") == "1"
+
+_DOT = None
+
+
+def _dot_function():
+    """The ``torch.autograd.Function`` of :func:`dot_bf16bwd`."""
+    global _DOT
+    if _DOT is None:
+        class DotBf16Bwd(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, x, w):
+                ctx.save_for_backward(x, w)
+                return x @ w
+
+            @staticmethod
+            def backward(ctx, g):
+                x, w = ctx.saved_tensors
+                gb = g.to(w.dtype)
+                dx = torch.einsum("...f,df->...d", gb, w)
+                ct = torch.promote_types(x.dtype, gb.dtype)
+                dw = torch.einsum("...d,...f->df", x.to(ct), gb.to(ct))
+                return dx.to(x.dtype), dw.to(w.dtype)
+
+        _DOT = DotBf16Bwd
+    return _DOT
+
+
+def dot_bf16bwd(x, w):
+    """``x @ w`` whose backward casts the cotangent to ``w``'s dtype
+    before both products (``repro/models/layers.py: dot_bf16bwd``)."""
+    return _dot_function().apply(x, w)
 
 
 def tree_map(fn, tree, *rest):
@@ -61,6 +96,23 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
     return [tree]
+
+
+def tree_paths(tree, prefix: str) -> dict:
+    """The leaves of a nest of dicts by path (``prefix/key/...``): the env
+    of a captured step over the tree."""
+    if isinstance(tree, dict):
+        return {path: leaf for k, v in tree.items()
+                for path, leaf in tree_paths(v, f"{prefix}/{k}").items()}
+    return {prefix: tree}
+
+
+def tree_from_paths(tree, scope: dict, prefix: str):
+    """``tree`` rebuilt from the leaves of ``scope`` at its paths."""
+    if isinstance(tree, dict):
+        return {k: tree_from_paths(v, scope, f"{prefix}/{k}")
+                for k, v in tree.items()}
+    return scope[prefix]
 
 
 def _device(g):
@@ -90,7 +142,7 @@ def dense_init(g, d_in: int, d_out: int, dtype, bias: bool = False,
 
 
 def linear(p: Params, x):
-    y = x @ p["w"]
+    y = dot_bf16bwd(x, p["w"]) if _BF16_BWD else x @ p["w"]
     if "b" in p:
         y = y + p["b"]
     return y
@@ -504,4 +556,4 @@ def unembed(embed_p: Params, head_p: Params | None, x, cfg: ArchConfig):
     """Logits over ``padded_vocab`` columns (the pad region included)."""
     w = embed_p["tok"].T if (cfg.tie_embeddings or head_p is None) \
         else head_p["w"]
-    return x @ w
+    return dot_bf16bwd(x, w) if _BF16_BWD else x @ w

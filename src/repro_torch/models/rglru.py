@@ -11,8 +11,10 @@ Recurrent Unit:
 Training and prefill run the recurrence over time through the port's
 ``rglru_scan`` kernel (:func:`repro_torch.kernels.rglru.ops.rglru`: the
 CUDA kernel for tensors on the card, its plain version on the CPU), where
-the reference runs an associative scan in jnp; decode is a single-step
-update with O(1) state.  ``rglru_block_fn`` is the gated recurrence core
+the reference runs an associative scan in jnp.  That form is
+differentiable: training's backward runs the reverse recurrence through
+the same kernel, one more launch (``rglru_scan_backward``).  Decode is a
+single-step update with O(1) state.  ``rglru_block_fn`` is the gated recurrence core
 in the dataflow-frontend vocabulary, so the ``rglru_scan`` op reaches the
 same kernel through routing.
 """

@@ -6,7 +6,9 @@ and inter-chunk (a tiny scan over per-chunk states).  The inter-chunk
 scan runs through the port's ``ssd_chunk_scan`` kernel
 (:func:`repro_torch.kernels.ssd.ops.ssd_states`: the CUDA kernel for
 tensors on the card, its plain version on the CPU), where the reference
-runs a ``lax.scan``; the last state is folded after it.
+runs a ``lax.scan``; the last state is folded after it.  That form is
+differentiable: training's backward runs the reverse scan through the
+same kernel, one more launch (``ssd_chunk_scan_backward``).
 
 Shapes follow the minimal reference implementation:
   x: (B, S, H, P)   heads H = expand·d_model / P
@@ -60,17 +62,23 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int):
     Bc = Bm.reshape(b, nc, chunk, n)
     Cc = Cm.reshape(b, nc, chunk, n)
 
+    # The reference's many-operand einsums are written as elementwise
+    # products and one two-operand contraction each: torch contracts a
+    # many-operand einsum pairwise in its own order, and at (2, 2048) on
+    # Mamba-2 780M's widths that order built a 12 GiB (b,nc,h,q,k,p)
+    # intermediate.
+
     # intra-chunk (diagonal blocks): attention-like with decay kernel
     L = torch.exp(_segsum(ac.permute(0, 1, 3, 2)))          # (b,nc,h,q,q)
     scores = torch.einsum("bcqn,bckn->bcqk", Cc, Bc)        # (b,nc,q,q)
-    y_diag = torch.einsum("bcqk,bchqk,bckh,bckhp->bcqhp", scores, L, dtc,
-                          xc)
+    kern = scores[:, :, None] * L * dtc.permute(0, 1, 3, 2)[:, :, :, None]
+    y_diag = torch.einsum("bchqk,bckhp->bcqhp", kern, xc)
 
     # end-of-chunk states
     cs = ac.cumsum(2)
     decay_states = torch.exp(cs[:, :, -1:, :] - cs)         # (b,nc,q,h)
-    states = torch.einsum("bckn,bckh,bckh,bckhp->bchpn",
-                          Bc, decay_states, dtc, xc)        # (b,nc,h,p,n)
+    states = torch.einsum("bckn,bckhp->bchpn", Bc,
+                          xc * (decay_states * dtc)[..., None])  # (b,nc,h,p,n)
 
     # inter-chunk recurrence over nc states: the ssd_chunk_scan kernel
     # over (nc, b·h, p, n) states and (nc, b·h, 1, 1) decays
@@ -85,8 +93,8 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int):
 
     # contribution of carried-in state to each position
     state_decay = torch.exp(cs)                             # (b,nc,q,h)
-    y_off = torch.einsum("bcqn,bchpn,bcqh->bcqhp", Cc,
-                         hprevs.to(Cc.dtype), state_decay)
+    y_off = torch.einsum("bcqn,bchpn->bcqhp", Cc,
+                         hprevs.to(Cc.dtype)) * state_decay[..., None]
 
     y = (y_diag + y_off).reshape(b, s, h, p)
     return y.to(x.dtype), hlast

@@ -22,12 +22,25 @@ patch embeddings stubbed).
 ``shard_hint`` is the identity (the port has no ambient mesh), so the
 reference's ``REPRO_DECODE_WSTAT`` hint, which only places the decode
 step's embeddings, waits for the GSPMD placement helpers (``ROADMAP.md``,
-Queue 1 item 7); ``remat`` is accepted and changes no forward value.
+Queue 1 item 7b).
+
+``remat`` is activation checkpointing where the reference wraps
+``jax.checkpoint``: each pattern group of the backbone, each decoder layer
+of an encoder-decoder, each encoder layer, and (always) each loss chunk
+run under ``torch.utils.checkpoint.checkpoint`` (non-reentrant, the RNG
+state not preserved: the forward draws no random numbers, and reading the
+CUDA RNG state would break a graph capture), so the backward recomputes
+them.  ``REPRO_REMAT_POLICY=dots`` saves the 2-D matmul outputs across
+the boundary, as the reference's ``dots_with_no_batch_dims_saveable``.
+The backbone reads each group's parameters as ``unbind`` views of the
+stacked tree, whose backward stacks the groups' gradients once.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+import os
 from typing import Any
 
 import torch
@@ -192,36 +205,92 @@ def param_count(params) -> int:
 # --------------------------------------------------------------------------
 
 
+# REPRO_REMAT_POLICY=dots  save matmul outputs across the remat boundary
+# (read at import, as the reference reads it at trace time).
+_REMAT_POLICY = os.environ.get("REPRO_REMAT_POLICY", "")
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """The selective checkpoint policy of ``REPRO_REMAT_POLICY=dots``:
+    products with no batch dimension (``aten.mm``, which ``x @ w`` of an
+    activation and a weight lowers to) are saved, the rest recomputed."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpoint(fn, *args, policy: bool = True):
+    """``fn(*args)`` under activation checkpointing (the reference's
+    ``jax.checkpoint``; its ``_checkpoint`` with ``policy``, which reads
+    ``REPRO_REMAT_POLICY``)."""
+    from torch.utils.checkpoint import checkpoint
+    kw = {}
+    if policy and _REMAT_POLICY == "dots":
+        from torch.utils.checkpoint import \
+            create_selective_checkpoint_contexts
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_saveable)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
+
+
+def _diffable_barrier(x):
+    """The identity.  The reference's is an XLA optimization barrier (with
+    an identity VJP) that stops XLA hoisting the norm's float32 convert
+    out of the layer loop; eager torch hoists nothing, so there is no
+    counterpart to write."""
+    return x
+
+
+def _layers(stacked: Params, n: int) -> list:
+    """The ``n`` layers of a stacked tree as ``unbind`` views: one
+    ``UnbindBackward`` stacks their gradients (a ``select`` a layer would
+    write a zeroed full-size gradient for each)."""
+    parts = tree_map(lambda t: t.unbind(0), stacked)
+    return [tree_map(lambda u: u[i], parts) for i in range(n)]
+
+
 def _encode(params: Params, frames, cfg: ArchConfig, remat: bool):
-    del remat                       # checkpointing changes no forward value
-    h = frames
-    for i in range(cfg.n_enc_layers):
-        lp = _layer(params["encoder"], i)
+    def body(h, lp):
         hh = apply_norm(lp["norm1"], h, cfg.norm)
         h = h + attention_train(lp["attn"], hh, cfg, causal=False)
         hh = apply_norm(lp["norm2"], h, cfg.norm)
-        h = h + ffn_apply(lp["mlp"], hh, cfg)
+        return h + ffn_apply(lp["mlp"], hh, cfg)
+
+    h = frames
+    for lp in _layers(params["encoder"], cfg.n_enc_layers):
+        h = (_checkpoint(functools.partial(body, lp=lp), h, policy=False)
+             if remat else body(h, lp))
     return apply_norm(params["enc_norm"], h, cfg.norm)
 
 
 def _backbone(params: Params, x, cfg: ArchConfig, *, remat: bool,
               enc_out=None):
-    del remat                       # checkpointing changes no forward value
     if cfg.enc_dec:
-        for i in range(cfg.n_layers):
-            x = shard_hint(x, BATCH, "model", None)
-            x = shard_hint(_block_train(_layer(params["decoder"], i), x, cfg,
-                                        "xattn", enc_out=enc_out),
-                           BATCH, "model", None)
+        def dec_body(h, lp):
+            h = shard_hint(h, BATCH, "model", None)
+            return shard_hint(_block_train(lp, h, cfg, "xattn",
+                                           enc_out=enc_out),
+                              BATCH, "model", None)
+
+        for lp in _layers(params["decoder"], cfg.n_layers):
+            x = (_checkpoint(functools.partial(dec_body, lp=lp), x)
+                 if remat else dec_body(x, lp))
         return x
 
-    n_groups, leftover = _group_counts(cfg)
-    for gi in range(n_groups):
-        gp = _layer(params["groups"], gi)
-        x = shard_hint(x, BATCH, "model", None)
+    def group_body(h, gp):
+        h = _diffable_barrier(h)
+        h = shard_hint(h, BATCH, "model", None)
         for i, kind in enumerate(cfg.block_pattern):
-            x = _block_train(gp[f"b{i}_{kind}"], x, cfg, kind)
-        x = shard_hint(x, BATCH, "model", None)
+            h = _block_train(gp[f"b{i}_{kind}"], h, cfg, kind)
+        return shard_hint(h, BATCH, "model", None)
+
+    n_groups, leftover = _group_counts(cfg)
+    if n_groups:
+        for gp in _layers(params["groups"], n_groups):
+            x = (_checkpoint(functools.partial(group_body, gp=gp), x)
+                 if remat else group_body(x, gp))
     for i in range(leftover):
         x = _block_train(params["tail"][f"t{i}"], x, cfg, cfg.block_pattern[i])
     return x
@@ -263,23 +332,28 @@ def loss_fn(params: Params, batch: dict, cfg: ArchConfig,
             remat: bool = True, loss_chunk: int = 2048):
     """Next-token CE with **sequence-chunked** logits: the (B, S, vocab)
     float32 logit tensor never materializes — each chunk computes its
-    unembed matmul and reduces to per-token NLL, summed in chunk order."""
+    unembed matmul, reduces to per-token NLL, summed in chunk order, and
+    is recomputed in the backward (checkpointed, as in the reference)."""
     x = forward_hidden(params, batch, cfg, remat=remat)
     labels = batch["labels"]
     B, S, D = x.shape
     c = _loss_chunk(S, loss_chunk)
-    tot = torch.zeros((), dtype=torch.float32, device=x.device)
-    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
-    for ci in range(S // c):
-        xc, lc = x[:, ci * c:(ci + 1) * c], labels[:, ci * c:(ci + 1) * c]
+
+    def chunk_nll(xc, lc):
         logits = unembed(params["embed"], params.get("lm_head"), xc, cfg)
         logits = shard_hint(logits, BATCH, None, "model").float()
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, torch.clamp(lc, min=0).long()[
             ..., None])[..., 0]
         mask = (lc >= 0).float()
-        tot = tot + ((logz - gold) * mask).sum()
-        cnt = cnt + mask.sum()
+        return ((logz - gold) * mask).sum(), mask.sum()
+
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for ci in range(S // c):
+        xc, lc = x[:, ci * c:(ci + 1) * c], labels[:, ci * c:(ci + 1) * c]
+        t, n = _checkpoint(chunk_nll, xc, lc, policy=False)
+        tot, cnt = tot + t, cnt + n
     return tot / torch.clamp(cnt, min=1.0)
 
 

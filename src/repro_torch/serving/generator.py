@@ -21,8 +21,8 @@ continuous batching (finished sequences are replaced by queued requests
 without capturing again), one shared position for every slot and the
 prompt fed one token a step, as in the reference.  The reference's
 ``jit_serve_step`` / ``jit_prefill_step`` take a mesh and GSPMD
-shardings: they wait for the LM's training half (``ROADMAP.md``, Queue 1
-item 7).
+shardings: they wait for the sharded train step (``ROADMAP.md``, Queue 1
+item 7b).
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..models import transformer as tf
-from ..models.layers import tree_leaves
+from ..models.layers import tree_from_paths, tree_leaves, tree_paths
 
 
 def build_serve_step(cfg: ArchConfig) -> Callable:
@@ -50,21 +50,6 @@ def build_prefill_step(cfg: ArchConfig) -> Callable:
     def prefill_step(params, batch):
         return tf.prefill(params, batch, cfg)
     return prefill_step
-
-
-def _flat(tree, prefix: str) -> dict:
-    """The leaves of a nest of dicts by path (``prefix/key/...``)."""
-    if isinstance(tree, dict):
-        return {path: leaf for k, v in tree.items()
-                for path, leaf in _flat(v, f"{prefix}/{k}").items()}
-    return {prefix: tree}
-
-
-def _unflat(tree, scope: dict, prefix: str):
-    """``tree`` rebuilt from the leaves of ``scope`` at its paths."""
-    if isinstance(tree, dict):
-        return {k: _unflat(v, scope, f"{prefix}/{k}") for k, v in tree.items()}
-    return scope[prefix]
 
 
 class ServeStep:
@@ -82,14 +67,14 @@ class ServeStep:
         self.device = cache["pos"].device
         self.tokens = torch.zeros((batch,), dtype=torch.int32,
                                   device=self.device)
-        self.env = {"tokens": self.tokens, **_flat(params, "params"),
-                    **_flat(cache, "cache")}
+        self.env = {"tokens": self.tokens, **tree_paths(params, "params"),
+                    **tree_paths(cache, "cache")}
         serve_step = build_serve_step(cfg)
 
         def decode(scope):
-            nxt, logits, _ = serve_step(_unflat(params, scope, "params"),
-                                        scope["tokens"],
-                                        _unflat(cache, scope, "cache"))
+            nxt, logits, _ = serve_step(
+                tree_from_paths(params, scope, "params"), scope["tokens"],
+                tree_from_paths(cache, scope, "cache"))
             return {"next_tok": nxt, "logits": logits}
 
         self.program = CapturedProgram([("decode_step", decode)],

@@ -6,7 +6,7 @@ serving *runtime* stack: ``repro_torch.serving.runtime`` +
 The port's copy of ``repro/serving/serve.py``: it warns once on import
 and re-exports the generator's public names.  The reference's
 ``jit_serve_step`` / ``jit_prefill_step`` take a mesh and are not ported
-yet (``ROADMAP.md``, Queue 1 item 7).
+yet (``ROADMAP.md``, Queue 1 item 7b).
 """
 
 from __future__ import annotations
