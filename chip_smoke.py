@@ -193,14 +193,44 @@ failing (non-zero exit, no result line) at the first problem:
     checkpoint every two steps exits 42, ``--resume`` runs steps 3-6 bit
     for bit the uninterrupted run's; (f) ``--compiled`` at (128, 1024):
     the backward's mmgrad launches of four steps, no other kernel;
-17. no fallback: a step that reads a device value on the host raises
+17. the mesh phase: the LM stack on ``make_debug_mesh((4, 2), ("data",
+    "model"))`` — eight positions on the card driven in lockstep
+    (``repro_torch.distributed.spmd``), the card line printed first and
+    beside every wall.  (a) mamba2-780m at full width and depth
+    (bfloat16 parameters, float32 moments), global batch (8, 2048), two
+    a data position, no masked boundary: the unsharded ``TrainStep`` over
+    the batch in four microbatches (captured), then two captured
+    ``jit_train_step`` steps from the same state: the loss within 1e-4
+    relative, every gathered parameter within one bfloat16 step and m / v
+    within ``UPDATE_TOL`` in norm (the leaves bit for bit counted),
+    ``ssd_chunk_scan``'s launches (forward and remat, and the backward
+    helper's) counted, the shards written in place with their specs'
+    shapes, each position's state bytes beside its specs' share, the peak
+    memory, the same two steps eagerly bit for bit, replay walls and
+    device time both ways; ``ssd_chunk_scan`` at a data block's shape
+    through its autograd Function; (b) recurrentgemma-9b at full width,
+    three layers deep, float32: ``jit_prefill_step`` at (4, 512) against
+    the unsharded prefill within 1e-4 of scale, ``rglru_scan`` launched
+    once a RG-LRU block and data block and held at its shape against its
+    plain version; (c) gpt2-medium bfloat16: 16 captured
+    ``jit_serve_step`` steps at 8 slots and cache 1024 against the
+    unsharded ``ServeStep``: the logits every step and every cache leaf
+    within 2.5e-2 of scale, a control (a data block decoding on its
+    neighbour's cache rows) beyond that band, a differing token only at a
+    top-2 margin within one bfloat16 step of the top logit, the cache
+    shards written in place; (d) the elastic restart: mamba2-780m
+    one layer deep in float32, a failure on 4 x 2, ``resume(shardings=
+    ...)`` onto 2 x 2, the losses and state against the uninterrupted
+    run; (e) ``compressed_allreduce`` under ``shard_map`` over eight
+    positions against the plain sum, within 0.02;
+18. no fallback: a step that reads a device value on the host raises
     ``CaptureError`` naming the step;
-18. prints the card line, the ``kernels`` JSON line (the scans' entries
-    four times: their serving, their train-path, the LM prefills' and
-    the trainers' launches, the trainers' split into the forward and the
-    backward helper; flash's also at the serving batch; the chain's also
-    at the sharded phase's local shapes) and, last, the ``{"ok": true,
-    "device": ...}`` line.
+19. prints the card line, the ``kernels`` JSON line (the scans' entries
+    five times: their serving, their train-path, the LM prefills', the
+    trainers' and the mesh phase's launches, the trainers' split into the
+    forward and the backward helper; flash's also at the serving batch;
+    the chain's also at the sharded phase's local shapes) and, last, the
+    ``{"ok": true, "device": ...}`` line.
 
 The full record (every check, every timing) goes to
 ``chiprun_out/chip_smoke.json``.  Imports nothing of JAX or the JAX
@@ -1546,14 +1576,25 @@ def main_path(S: int, record: dict) -> dict:
     return result
 
 
+# Each call whose profile held no device activity in four tries: its
+# caller and the CUDA-event time that stands in for its device time.
+PROFILER_MISSES: list = []
+
+
 def device_rows(run) -> list:
     """Device time by kernel name over one call of ``run`` (torch.profiler;
     up to three more tries when one records no device activity, which the
-    card's tracing does now and then)."""
+    card's tracing does now and then).  When all four record nothing, one
+    more call is timed with CUDA events and returned as one row named
+    ``PROFILER_MISS_ROW``: the span from its first launch to its last
+    kernel's end, the device's idle gaps inside it included, so an upper
+    bound on its device time.  The miss is printed and kept in
+    ``PROFILER_MISSES``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     rows: list = []
     for _ in range(4):
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             run()
@@ -1568,8 +1609,32 @@ def device_rows(run) -> list:
                              "device_us": float(dev)})
         if rows:
             break
+        time.sleep(0.5)
+    if not rows:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        torch.cuda.synchronize()
+        us = 1e3 * start.elapsed_time(end)
+        frame = sys._getframe(1)
+        while frame.f_code.co_name in PROFILING_HELPERS:
+            frame = frame.f_back
+        caller = frame.f_code.co_name
+        PROFILER_MISSES.append({"caller": caller, "events_us": us})
+        print(f"    {caller}: the profiler recorded no device time in four "
+              f"tries; its device time here is CUDA events around one call, "
+              f"{us:.1f} us (idle gaps included)")
+        rows = [{"name": PROFILER_MISS_ROW, "count": 1, "device_us": us}]
     rows.sort(key=lambda r: -r["device_us"])
     return rows
+
+
+PROFILER_MISS_ROW = "(CUDA events: the profiler recorded nothing)"
+# The helpers over device_rows: a miss is named by the phase calling them.
+PROFILING_HELPERS = ("device_ms", "profile_device", "wall_and_device",
+                     "<lambda>", "<listcomp>")
 
 
 def device_ms(fn, iters: int) -> float:
@@ -1577,8 +1642,6 @@ def device_ms(fn, iters: int) -> float:
     calls: beside the CUDA-event time, which holds the host's share where
     a call's host work outlasts its kernels."""
     rows = device_rows(lambda: [fn() for _ in range(iters)])
-    if not rows:
-        fail("the profiler recorded no device time")
     return sum(r["device_us"] for r in rows) / iters / 1e3
 
 
@@ -4286,12 +4349,13 @@ def _scan_entry(name, kernel, plain, flops, nbytes, err) -> dict:
     return m
 
 
-def train_scans(record: list) -> dict:
-    """(a) Each scan through its autograd Function at full width: one
-    forward launch and one backward launch, the output and both gradients
-    against autograd through the plain version, within TOL["f32"] of each
-    tensor's scale; the forward and the backward helper timed beside the
-    plain forms and their byte bounds."""
+def scan_autograd(kind: str, shape: tuple, g, record: list) -> dict:
+    """One scan (``"rglru"`` at (B, S, D) or ``"ssd"`` at (nc, BH, P, N))
+    through its autograd Function: one forward launch and one backward
+    launch, the output and both gradients against autograd through the
+    plain version, within TOL["f32"] of each tensor's scale; the forward
+    and the backward helper timed beside the plain forms and their byte
+    bounds."""
     import importlib
 
     import torch
@@ -4300,66 +4364,74 @@ def train_scans(record: list) -> dict:
     from repro_torch.kernels.ssd.ops import ssd_states
     rg = importlib.import_module("repro_torch.kernels.rglru.rglru")
     sd = importlib.import_module("repro_torch.kernels.ssd.ssd")
+    if kind == "rglru":
+        ch = chunk_length(*shape)
+        a = gates(shape, g, 0.5, 0.999).requires_grad_()
+        b = torch.randn(shape, generator=g, device="cuda").requires_grad_()
+        ins, cot = (a, b), torch.randn(shape, generator=g, device="cuda")
+        fn = "rglru_scan"
+
+        def diff(x, y):
+            return rglru(x, y, chunk=ch)
+
+        def plain(x, y):
+            return rg.rglru_scan_plain(x, y, chunk=ch)
+    else:
+        # the states and cotangents at the scale of a chunk's states
+        st = (0.1 * torch.randn(shape, generator=g, device="cuda")
+              ).requires_grad_()
+        dec = gates((shape[0], shape[1], 1, 1), g, 0.5, 0.99
+                    ).requires_grad_()
+        ins, cot = (st, dec), 0.1 * torch.randn(shape, generator=g,
+                                                device="cuda")
+        fn, diff, plain = "ssd_chunk_scan", ssd_states, sd.ssd_chunk_scan_plain
+    text = "x".join(map(str, shape))
+    zero_counts()
+    got = diff(*ins)
+    grads = torch.autograd.grad(got, ins, cot)
+    torch.cuda.synchronize()
+    _held_launches(f"{fn} forward and backward", {kind: 2})
+    want = plain(*ins)
+    want_grads = torch.autograd.grad(want, ins, cot)
+    err = check_scaled(record, f"{fn} {text} autograd forward",
+                       got.detach(), want.detach(), TOL["f32"])
+    errs = [check_scaled(record, f"{fn} {text} grad {i}", gi, wi, TOL["f32"])
+            for i, (gi, wi) in enumerate(zip(grads, want_grads))]
+    x, y = (t.detach() for t in ins)
+    h = got.detach()
+    n = x.numel()
+    if kind == "rglru":
+        fwd = (lambda: rg.rglru_scan(x, y, chunk=ch),
+               lambda: rg.rglru_scan_plain(x, y, chunk=ch))
+        bwd = lambda: rg.rglru_scan_backward(cot, x, h, chunk=ch)
+        f_bytes, b_bytes, b_flops = 4.0 * 3 * n, 4.0 * 5 * n, 3.0 * n
+    else:
+        fwd = (lambda: sd.ssd_chunk_scan(x, y),
+               lambda: sd.ssd_chunk_scan_plain(x, y))
+        bwd = lambda: sd.ssd_chunk_scan_backward(cot, y, h)
+        f_bytes = 4.0 * (2 * n + y.numel())
+        b_bytes, b_flops = 4.0 * (3 * n + 2 * y.numel()), 4.0 * n
+
+    def bwd_plain(bwd=bwd):
+        with plain_scans():
+            return bwd()
+
+    forward = _scan_entry(f"{fn} forward {text}", fwd[0], fwd[1], 2.0 * n,
+                          f_bytes, err)
+    backward = _scan_entry(f"{fn}_backward {text}", bwd, bwd_plain, b_flops,
+                           b_bytes, max(errs))
+    return {"shape": list(x.shape), "forward": forward,
+            "backward": backward, "grad_errs": errs}
+
+
+def train_scans(record: list) -> dict:
+    """(a) Each scan through its autograd Function at full width
+    (:func:`scan_autograd`): ``rglru_scan`` at TRAIN_RGLRU and
+    ``ssd_chunk_scan`` at TRAIN_SSD."""
+    import torch
     g = torch.Generator(device="cuda").manual_seed(SEED + 300)
-    out = {}
-
-    B, S, D = TRAIN_RGLRU
-    ch = chunk_length(B, S, D)
-    a = gates(TRAIN_RGLRU, g, 0.5, 0.999).requires_grad_()
-    b = torch.randn(TRAIN_RGLRU, generator=g, device="cuda").requires_grad_()
-    ct = torch.randn(TRAIN_RGLRU, generator=g, device="cuda")
-    # ssd: the states and cotangents at the scale of a chunk's states
-    st = (0.1 * torch.randn(TRAIN_SSD, generator=g, device="cuda")
-          ).requires_grad_()
-    nc, BH = TRAIN_SSD[:2]
-    dec = gates((nc, BH, 1, 1), g, 0.5, 0.99).requires_grad_()
-    cs = 0.1 * torch.randn(TRAIN_SSD, generator=g, device="cuda")
-    cases = {
-        "rglru": ("rglru_scan", (a, b), ct,
-                  lambda x, y: rglru(x, y, chunk=ch),
-                  lambda x, y: rg.rglru_scan_plain(x, y, chunk=ch)),
-        "ssd": ("ssd_chunk_scan", (st, dec), cs, ssd_states,
-                sd.ssd_chunk_scan_plain)}
-    for kind, (fn, ins, cot, diff, plain) in cases.items():
-        shape = "x".join(map(str, ins[0].shape))
-        zero_counts()
-        got = diff(*ins)
-        grads = torch.autograd.grad(got, ins, cot)
-        torch.cuda.synchronize()
-        _held_launches(f"{fn} forward and backward", {kind: 2})
-        want = plain(*ins)
-        want_grads = torch.autograd.grad(want, ins, cot)
-        err = check_scaled(record, f"{fn} {shape} autograd forward",
-                           got.detach(), want.detach(), TOL["f32"])
-        errs = [check_scaled(record, f"{fn} {shape} grad {i}", gi, wi,
-                             TOL["f32"])
-                for i, (gi, wi) in enumerate(zip(grads, want_grads))]
-        x, y = (t.detach() for t in ins)
-        h = got.detach()
-        n = x.numel()
-        if kind == "rglru":
-            fwd = (lambda: rg.rglru_scan(x, y, chunk=ch),
-                   lambda: rg.rglru_scan_plain(x, y, chunk=ch))
-            bwd = lambda: rg.rglru_scan_backward(cot, x, h, chunk=ch)
-            f_bytes, b_bytes, b_flops = 4.0 * 3 * n, 4.0 * 5 * n, 3.0 * n
-        else:
-            fwd = (lambda: sd.ssd_chunk_scan(x, y),
-                   lambda: sd.ssd_chunk_scan_plain(x, y))
-            bwd = lambda: sd.ssd_chunk_scan_backward(cot, y, h)
-            f_bytes = 4.0 * (2 * n + y.numel())
-            b_bytes, b_flops = 4.0 * (3 * n + 2 * y.numel()), 4.0 * n
-
-        def bwd_plain(bwd=bwd):
-            with plain_scans():
-                return bwd()
-
-        forward = _scan_entry(f"{fn} forward {shape}", fwd[0], fwd[1],
-                              2.0 * n, f_bytes, err)
-        backward = _scan_entry(f"{fn}_backward {shape}", bwd, bwd_plain,
-                               b_flops, b_bytes, max(errs))
-        out[kind] = {"shape": list(x.shape), "forward": forward,
-                     "backward": backward, "grad_errs": errs}
-    return out
+    return {"rglru": scan_autograd("rglru", TRAIN_RGLRU, g, record),
+            "ssd": scan_autograd("ssd", TRAIN_SSD, g, record)}
 
 
 def train_wide(record: list) -> dict:
@@ -4696,6 +4768,656 @@ def train_phase(card: str, record: dict, expected_mmgrad: int) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# The mesh phase: the LM stack's sharded steps on a 4 x 2 mesh of positions
+# on the card (one process drives every position in lockstep, so the card
+# shows the cost of the split, not scaling)
+# --------------------------------------------------------------------------
+
+MESH_SHAPE = ((4, 2), ("data", "model"))
+# (a) mamba2-780m at full width and depth, bfloat16 parameters, float32
+# moments: the global batch, two captured steps, then MESH_WALLS replays.
+# The unsharded comparator is TrainStep over the same batch in MESH_ACCUM
+# microbatches (the sharded step's four data blocks: a whole-batch
+# backward does not fit beside the state), whose loss is the global
+# token-weighted mean only when the microbatches hold equal token counts:
+# so the batch masks no document boundary.
+MESH_TRAIN_BATCH = (8, 2048)
+MESH_TRAIN_STEPS = 2
+MESH_ACCUM = 4
+MESH_WALLS = 3
+MESH_LOSS_RTOL = 1e-4
+# (b) recurrentgemma-9b at full width, three layers deep (rglru, rglru,
+# attn), float32: the sharded prefill against the unsharded one.
+MESH_PREFILL = (4, 512)
+MESH_PREFILL_LAYERS = 3
+# (c) gpt2-medium bfloat16: the sharded serve step at 8 slots, cache 1024.
+# Its logits and every cache leaf are held to the unsharded ServeStep's
+# within MESH_SERVE_BAND of their scale: the data blocks' products round
+# apart from the whole batch's (about two bfloat16 steps of the largest
+# logit, 1.26e-2 of scale, after 16 steps on an H100), while a data block decoding
+# with its neighbour's cache rows moves them by far more (the control,
+# printed each run, must exceed the band).  A token may differ only where
+# the unsharded step's top-2 margin is within one bfloat16 step of its top
+# logit.
+MESH_SERVE = (8, 1024)
+MESH_SERVE_STEPS = 16
+MESH_SERVE_BAND = 2.5e-2
+# (d) The elastic restart: mamba2-780m one layer deep, float32, (4, 512);
+# a failure after step 2 with a checkpoint every two steps on 4 x 2, then
+# resume(shardings=...) onto 2 x 2 to step 4.
+MESH_RESTART_BATCH = (4, 512)
+MESH_RESTART_STEPS = 4
+MESH_RESTART_FAIL_AT = 2
+MESH_SMALL = ((2, 2), ("data", "model"))
+# (e) compressed_allreduce of a 4M-element gradient a position over 8.
+MESH_ALLREDUCE = (8, 4 * 1024 * 1024)
+MESH_ALLREDUCE_TOL = 0.02
+
+
+def bf16_steps(got, want) -> float:
+    """The largest ``|got - want|`` in units of the bfloat16 spacing at
+    ``want`` (1.0: the neighbouring bfloat16 number)."""
+    import torch
+    a, b = got.float(), want.float()
+    e = torch.floor(torch.log2(b.abs().clamp(min=2.0 ** -126)))
+    return float(((a - b).abs() / torch.exp2(e - 7)).max())
+
+
+def _placed_bytes(tree, position: int) -> tuple[int, int]:
+    """(the bytes a position holds of a placed tree, its specs' share:
+    each leaf's bytes over the shards its spec splits it into)."""
+    import math as _m
+    from repro_torch.models.layers import tree_leaves
+    held = share = 0
+    for a in tree_leaves(tree):
+        s = a.shards[position]
+        held += s.numel() * s.element_size()
+        parts = _m.prod(a.sharding.parts(d) for d in range(a.ndim))
+        share += _m.prod(a.shape) * s.element_size() // parts
+    return held, share
+
+
+def _shard_ptrs(tree) -> list:
+    from repro_torch.models.layers import tree_leaves
+    return [s.data_ptr() for a in tree_leaves(tree) for s in a.shards]
+
+
+def _shards_by_spec(name: str, tree) -> None:
+    """Every position's shard of every placed leaf has its spec's local
+    shape."""
+    from repro_torch.models.layers import tree_leaves
+    for a in tree_leaves(tree):
+        want = a.sharding.shard_shape(a.shape)
+        if any(tuple(s.shape) != want for s in a.shards):
+            fail(f"{name}: a shard is not its spec's {want} "
+                 f"({a.sharding.spec!r})")
+
+
+def _timed(fn) -> float:
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t)
+
+
+def mesh_train(card: str, record: list) -> dict:
+    """(a) mamba2-780m at full width and depth on the 4 x 2 mesh: the
+    unsharded TrainStep (MESH_ACCUM microbatches, captured) and two
+    captured jit_train_step steps from the same state; the loss within
+    MESH_LOSS_RTOL, every gathered parameter within one bfloat16 step and
+    m / v within UPDATE_TOL in norm of the unsharded step's (bit for bit
+    counted); ssd_chunk_scan's forward and backward launches; every
+    position's state bytes beside its spec's share and the peak memory;
+    the captured steps bit for bit eager; walls and device time."""
+    import importlib
+
+    import numpy as np
+    import torch
+    from repro_torch import models as M
+    from repro_torch.configs import get_config
+    from repro_torch.core.capture import clear_graphs
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.distributed.sharding import place
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.layers import tree_map
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_loop as tl
+    sd = importlib.import_module("repro_torch.kernels.ssd.ssd")
+    cfg = get_config("mamba2-780m")
+    B, S = MESH_TRAIN_BATCH
+    source = SyntheticLM(cfg, DataConfig(seq_len=S, global_batch=B, seed=SEED,
+                                         mask_boundaries=False))
+    batches = [source.batch(i)
+               for i in range(MESH_TRAIN_STEPS + MESH_WALLS + 1)]
+    oc = opt.OptConfig()
+    p0 = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    blocks = _scan_blocks(cfg)["ssd"]
+    mesh = make_debug_mesh(*MESH_SHAPE)
+    data = mesh.shape["data"]
+    out = {"params": M.param_count(p0), "batch": list(MESH_TRAIN_BATCH)}
+
+    # the unsharded step
+    pu, su = tree_map(torch.clone, p0), opt.adamw_init(p0)
+    unsharded = tl.TrainStep(cfg, pu, su, oc, accum=MESH_ACCUM)
+    losses_u, walls_u = [], []
+    for i in range(MESH_TRAIN_STEPS):
+        walls_u.append(_timed(lambda i=i: losses_u.append(
+            float(unsharded(batches[i])["loss"]))))
+    want = {k: v.cpu() for k, v in _tree_paths(
+        {"params": pu, "m": su["m"], "v": su["v"]}).items()}
+    for j in range(MESH_WALLS):
+        walls_u.append(_timed(lambda j=j: float(
+            unsharded(batches[MESH_TRAIN_STEPS + j])["loss"])))
+    rows = device_rows(lambda: unsharded(batches[-1]))
+    dev_u = sum(r["device_us"] for r in rows) / 1e3
+    del unsharded, pu, su
+    clear_graphs()
+    torch.cuda.empty_cache()
+
+    def placed_state():
+        sh = tl.train_state_shardings(p0, mesh, cfg)
+        return (place(p0, sh["params"]),
+                place(opt.adamw_init(p0), sh["opt"]))
+
+    # the sharded step, captured
+    ps, ss = placed_state()
+    held = [_placed_bytes({"p": ps, "o": ss}, q) for q in range(mesh.size)]
+    if any(h != s_ for h, s_ in held):
+        fail(f"sharded train: a position holds other than its specs' share "
+             f"{held}")
+    # the unsharded state: the parameters and their float32 m and v
+    whole_bytes = sum(t.numel() * (t.element_size() + 8)
+                      for t in _tree_paths(p0).values())
+    step = tl.jit_train_step(cfg, mesh, p0, batches[0], oc)
+    ptrs = _shard_ptrs({"p": ps, "o": ss})
+    calls = {"backward": 0}
+    real_bwd = sd.ssd_chunk_scan_backward
+
+    def counted(*a, **kw):
+        calls["backward"] += 1
+        return real_bwd(*a, **kw)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    losses_s, walls_s = [], []
+    sd.ssd_chunk_scan_backward = counted
+    try:
+        for i in range(MESH_TRAIN_STEPS):
+            walls_s.append(_timed(lambda i=i: losses_s.append(
+                float(step(ps, ss, batches[i])[2]["loss"]))))
+    finally:
+        sd.ssd_chunk_scan_backward = real_bwd
+    per_step = 3 * blocks * data
+    launches = _held_launches("sharded mamba2-780m train steps",
+                              {"ssd": per_step * MESH_TRAIN_STEPS})
+    peak = torch.cuda.max_memory_allocated()
+    # the first call runs eagerly and then captures (each calls the backward
+    # helper once a block); the replay runs what the capture recorded
+    bwd_launches = calls["backward"] // 2 * MESH_TRAIN_STEPS
+    if calls["backward"] != 2 * blocks * data:
+        fail(f"sharded train: backward helper calls {calls['backward']}, "
+             f"expected one a block and data block, eager and captured")
+    if _shard_ptrs({"p": ps, "o": ss}) != ptrs:
+        fail("sharded train: the state was not written in place")
+    _shards_by_spec("sharded train", {"p": ps, "o": ss})
+    if step.runner.program is None or step.runner.program.graphs() != 1:
+        fail("sharded train: the step was not captured once")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses_s, losses_u))
+    if not loss_rel <= MESH_LOSS_RTOL:
+        fail(f"sharded train: losses {losses_s} against {losses_u}")
+    got = _tree_paths({"params": ps, "m": ss["m"], "v": ss["v"]})
+    steps_max, norm_max, exact = 0.0, 0.0, 0
+    for path, w in want.items():
+        g = got[path].gather()
+        wc = w.to(g.device)
+        exact += int(torch.equal(g, wc))
+        if path.startswith("/params"):
+            steps_max = max(steps_max, bf16_steps(g, wc))
+        else:
+            n = float((g.float() - wc).norm() / wc.norm().clamp(min=1e-30))
+            norm_max = max(norm_max, n)
+        del g, wc
+    if not steps_max <= 1.0:
+        fail(f"sharded train: a parameter is {steps_max:.1f} bfloat16 steps "
+             f"from the unsharded step's")
+    if not norm_max <= UPDATE_TOL:
+        fail(f"sharded train: m / v differ by {norm_max:.2e} in norm "
+             f"(band {UPDATE_TOL:.0e})")
+    record.append({"case": "mamba2-780m 4x2 sharded train vs unsharded",
+                   "loss_rel": loss_rel, "param_bf16_steps": steps_max,
+                   "mv_norm_rel": norm_max, "bit_identical_leaves": exact,
+                   "leaves": len(want), "ok": True})
+
+    # the same steps eagerly, from the same state: bit for bit
+    pe, se = placed_state()
+    eager = tl.jit_train_step(cfg, mesh, p0, batches[0], oc, jit=False)
+    losses_e = [float(eager(pe, se, batches[i])[2]["loss"])
+                for i in range(MESH_TRAIN_STEPS)]
+    a = _tree_paths({"p": ps, "o": ss})
+    b = _tree_paths({"p": pe, "o": se})
+    differ = [k for k in a if not all(torch.equal(x, y) for x, y in zip(
+        a[k].shards, b[k].shards))]
+    if differ or losses_e != losses_s:
+        fail(f"sharded train: captured steps are not eager's bit for bit: "
+             f"losses {losses_s} / {losses_e}, leaves {differ[:4]}")
+    record.append({"case": "mamba2-780m 4x2 sharded train captured vs eager",
+                   "bit_identical": True, "ok": True})
+    del pe, se, eager
+    torch.cuda.empty_cache()
+    for j in range(MESH_WALLS):
+        walls_s.append(_timed(lambda j=j: float(step(
+            ps, ss, batches[MESH_TRAIN_STEPS + j])[2]["loss"])))
+    rows_s = device_rows(lambda: step(ps, ss, batches[-1]))
+    dev_s = sum(r["device_us"] for r in rows_s) / 1e3
+    rep_u = float(np.median(walls_u[1:]))
+    rep_s = float(np.median(walls_s[1:]))
+    out.update({
+        "losses": losses_s, "losses_unsharded": losses_u,
+        "loss_rel": loss_rel, "param_bf16_steps": steps_max,
+        "mv_norm_rel": norm_max, "bit_identical_leaves": exact,
+        "leaves": len(want), "launches": launches,
+        "ssd_per_step": per_step, "ssd_backward": bwd_launches,
+        "ssd_forward": launches["ssd"] - bwd_launches,
+        "held_bytes": [h for h, _ in held], "share_bytes": [s_ for _, s_ in
+                                                           held],
+        "whole_state_bytes": whole_bytes, "peak_memory_gib": peak / 2**30,
+        "walls_ms": walls_s, "walls_unsharded_ms": walls_u,
+        "replay_median_ms": rep_s, "replay_median_unsharded_ms": rep_u,
+        "device_ms": dev_s, "device_unsharded_ms": dev_u,
+        "idle": 1.0 - dev_s / rep_s, "idle_unsharded": 1.0 - dev_u / rep_u,
+        "profile": rows_s[:8], "profile_unsharded": rows[:8]})
+    print(f"  (a) mamba2-780m ({out['params'] / 1e9:.3f} B parameters), "
+          f"global batch {MESH_TRAIN_BATCH}, 4x2: losses {losses_s} against "
+          f"unsharded {losses_u} ({loss_rel:.2e}); parameters within "
+          f"{steps_max:.1f} bfloat16 steps, m / v within {norm_max:.2e} in "
+          f"norm, {exact} of {len(want)} leaves bit for bit; captured steps "
+          f"bit for bit eager")
+    print(f"      ssd_chunk_scan launches {launches['ssd']} in "
+          f"{MESH_TRAIN_STEPS} steps ({per_step} a step: "
+          f"{out['ssd_forward'] // MESH_TRAIN_STEPS} forward and remat, "
+          f"{bwd_launches // MESH_TRAIN_STEPS} backward); state a position "
+          f"{held[0][0] / 2**20:.1f} MiB (its specs' share "
+          f"{held[0][1] / 2**20:.1f}; the whole state "
+          f"{whole_bytes / 2**20:.1f} / 8 = {whole_bytes / 8 / 2**20:.1f});"
+          f" peak {out['peak_memory_gib']:.2f} GiB")
+    print(f"      {card}: replays sharded {rep_s:.3f} ms (device "
+          f"{dev_s:.3f}, idle {100 * out['idle']:.1f} %), unsharded "
+          f"{rep_u:.3f} ms (device {dev_u:.3f}); first calls "
+          f"{walls_s[0]:.1f} / {walls_u[0]:.1f} ms (eager, then the capture)")
+    del step, ps, ss, p0, want
+    clear_graphs()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_prefill(card: str, record: list) -> dict:
+    """(b) recurrentgemma-9b at full width, MESH_PREFILL_LAYERS deep,
+    float32: jit_prefill_step at MESH_PREFILL on the 4 x 2 mesh against the
+    unsharded prefill within LM_TOL of scale; rglru_scan launched once a
+    RG-LRU block and data block, each launch held against its plain
+    version at its shape; walls both ways."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import repro_torch.kernels.rglru.ops as rglru_ops
+    from repro_torch import models as M
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import param_shardings, place
+    from repro_torch.kernels.rglru import rglru_scan, rglru_scan_plain
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import generator as gen
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"),
+                              n_layers=MESH_PREFILL_LAYERS, dtype="float32")
+    B, S = MESH_PREFILL
+    mesh = make_debug_mesh(*MESH_SHAPE)
+    data = mesh.shape["data"]
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED))
+    batch = M.make_batch(cfg, batch=B, seq=S, kind="prefill", seed=SEED)
+    want = tf.prefill(params, batch, cfg)
+    placed = place(params, param_shardings(params, mesh, cfg))
+    step = gen.jit_prefill_step(cfg, mesh, params, batch)
+    seen = []
+    real = rglru_ops.rglru
+
+    def rec(a, b, **kw):
+        seen.append((a.clone(), b.clone(), kw))
+        return real(a, b, **kw)
+
+    rglru_ops.rglru = rec
+    try:
+        step(placed, batch)
+    finally:
+        rglru_ops.rglru = real
+    zero_counts()
+    got = step(placed, batch)
+    torch.cuda.synchronize()
+    rec_blocks = _scan_blocks(cfg)["rglru"]
+    launches = _held_launches("sharded recurrentgemma-9b prefill",
+                              {"rglru": rec_blocks * data})
+    rel = check_scaled(record, "recurrentgemma-9b x3 4x2 prefill vs "
+                               "unsharded", got, want, LM_TOL) / float(
+        want.abs().max())
+    x, y, kw = seen[0]
+    ch = kw["chunk"]
+    shape = "x".join(map(str, x.shape))
+    err = check(record, f"rglru_scan sharded prefill {shape}",
+                rglru_scan(x, y, chunk=ch), rglru_scan_plain(x, y, chunk=ch),
+                RGLRU_TOL)
+    n = x.numel()
+    m = _measure_scan(f"rglru_scan sharded prefill {shape}",
+                      lambda: rglru_scan(x, y, chunk=ch),
+                      lambda: rglru_scan_plain(x, y, chunk=ch), 2.0 * n,
+                      4.0 * 3 * n, err)
+    m["shape"] = list(x.shape)
+    sharded_ms = [_timed(lambda: step(placed, batch))
+                  for _ in range(MESH_WALLS)]
+    plain_ms = [_timed(lambda: tf.prefill(params, batch, cfg))
+                for _ in range(MESH_WALLS)]
+    rows = device_rows(lambda: step(placed, batch))
+    dev = sum(r["device_us"] for r in rows) / 1e3
+    out = {"layers": cfg.n_layers, "params": M.param_count(params),
+           "rel_err": rel, "launches": launches, "rglru": m,
+           "walls_ms": sharded_ms, "walls_unsharded_ms": plain_ms,
+           "device_ms": dev, "profile": rows[:8]}
+    print(f"  (b) recurrentgemma-9b x{cfg.n_layers} f32 prefill {MESH_PREFILL}"
+          f", 4x2: logits within {rel:.2e} of scale of the unsharded prefill;"
+          f" rglru_scan launches {launches['rglru']} ({rec_blocks} a data "
+          f"block)")
+    print(f"      {card}: sharded {np.median(sharded_ms):.3f} ms (device "
+          f"{dev:.3f}), unsharded {np.median(plain_ms):.3f} ms")
+    del params, placed, want, got, seen
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_serve(card: str, record: list) -> dict:
+    """(c) gpt2-medium bfloat16: jit_serve_step at MESH_SERVE on the 4 x 2
+    mesh, MESH_SERVE_STEPS captured decode steps, against the unsharded
+    ServeStep fed the same tokens: the logits every step and every
+    gathered cache leaf after the last within MESH_SERVE_BAND of scale; a
+    token differs only at a top-2 margin within one bfloat16 step of the
+    top logit (printed); the control (one block's cache rows shifted to
+    its neighbour's) beyond the band; the cache shards written in place;
+    walls both ways."""
+    import numpy as np
+    import torch
+    from repro_torch import models as M
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import (as_shardings,
+                                                  cache_batch_dim,
+                                                  cache_specs,
+                                                  param_shardings, place)
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import generator as gen
+    cfg = get_config("gpt2-medium")
+    slots, C = MESH_SERVE
+    mesh = make_debug_mesh(*MESH_SHAPE)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED))
+    placed = place(params, param_shardings(params, mesh, cfg))
+    cache_u = tf.init_cache(cfg, slots, C)
+    cshard = as_shardings(cache_specs(cache_u, mesh, cfg), mesh)
+    cache_s = place(tf.init_cache(cfg, slots, C), cshard)
+    unsharded = gen.ServeStep(cfg, params, cache_u, slots)
+    step = gen.jit_serve_step(cfg, mesh, params, cache_s)
+    ptrs = _shard_ptrs(cache_s)
+    tok = np.random.default_rng(SEED).integers(0, cfg.vocab, slots).astype(
+        np.int32)
+
+    def rel(got, want) -> float:
+        w = want.float()
+        return float((got.float() - w).abs().max() / w.abs().max())
+
+    differ, margins, log_rels = 0, [], []
+    walls_s, walls_u = [], []
+    for i in range(MESH_SERVE_STEPS):
+        t0 = time.perf_counter()
+        nxt, logits, cache_s = step(placed, tok, cache_s)
+        got = np.asarray(nxt)
+        walls_s.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        nxt_u, logits_u = unsharded(tok)
+        want = nxt_u.cpu().numpy()
+        walls_u.append(1e3 * (time.perf_counter() - t0))
+        log_rels.append(rel(logits, logits_u))
+        for j in np.nonzero(got != want)[0]:
+            top = torch.topk(logits_u[j].float(), 2).values
+            margin = float(top[0] - top[1])
+            steps = margin / 2.0 ** (np.floor(np.log2(abs(float(top[0]))))
+                                     - 7)
+            margins.append({"step": i, "slot": int(j), "top": float(top[0]),
+                            "margin": margin, "bf16_steps": steps})
+            print(f"      step {i} slot {j}: token {got[j]} against "
+                  f"{want[j]}, top logit {float(top[0]):.4f}, top-2 margin "
+                  f"{margin:.3e} ({steps:.2f} bfloat16 steps)")
+            if steps > 1.0:
+                fail(f"sharded serve: step {i} slot {j} differs at a top-2 "
+                     f"margin of {steps:.2f} bfloat16 steps (> 1)")
+            differ += 1
+        tok = want
+    log_rel = max(log_rels)
+    if log_rel > MESH_SERVE_BAND:
+        fail(f"sharded serve: logits {log_rel:.3e} of scale from the "
+             f"unsharded step's (band {MESH_SERVE_BAND})")
+    if _shard_ptrs(cache_s) != ptrs:
+        fail("sharded serve: the cache shards were not written in place")
+    _shards_by_spec("sharded serve cache", cache_s)
+    gathered = {k: v.gather() for k, v in _tree_paths(cache_s).items()}
+    cache_rel = {}
+    for path, w in _tree_paths(cache_u).items():
+        g = gathered[path]
+        if w.dim() == 0:
+            if not torch.equal(g, w):
+                fail(f"sharded serve: pos {g} against {w}")
+            continue
+        cache_rel[path] = rel(g, w)
+    worst = max(cache_rel, key=cache_rel.get)
+    if cache_rel[worst] > MESH_SERVE_BAND:
+        fail(f"sharded serve: cache {worst} {cache_rel[worst]:.3e} of scale "
+             f"from the unsharded step's (band {MESH_SERVE_BAND})")
+    # The control: the sharded step, eager, on the unsharded cache with
+    # each data block's rows taken from the next block's (rolled by one
+    # block), against the unsharded decode on that cache as it is.
+    from repro_torch.models.layers import tree_from_paths
+    paths_u = _tree_paths(cache_u)
+    block = slots // mesh.shape["data"]
+    shifted = tree_from_paths(cache_u, {
+        path: (w.clone() if cache_batch_dim(path.lstrip("/"), w.dim())
+               is None else w.roll(block, cache_batch_dim(path.lstrip("/"),
+                                                          w.dim())))
+        for path, w in paths_u.items()}, "")
+    control_step = gen.jit_serve_step(cfg, mesh, params, cache_u, jit=False)
+    _, lg_bad, _ = control_step(placed, tok, place(shifted, cshard))
+    plain = tree_from_paths(cache_u, {path: w.clone() for path, w in
+                                      paths_u.items()}, "")
+    lg_ref, _ = tf.decode_step(params, torch.as_tensor(tok, device="cuda"),
+                               plain, cfg)
+    control = rel(lg_bad, lg_ref)
+    if control <= MESH_SERVE_BAND:
+        fail(f"sharded serve: the control (cache rows shifted by a block) "
+             f"moves the logits only {control:.3e} of scale, within the "
+             f"band {MESH_SERVE_BAND}: the check cannot see a wrong cache")
+    del shifted, plain, control_step
+    record.append({"case": "gpt2-medium 4x2 sharded serve vs ServeStep",
+                   "tokens_differ": differ, "logits_rel": log_rel,
+                   "logits_rel_steps": log_rels, "cache_rel": cache_rel,
+                   "control_rel": control, "band": MESH_SERVE_BAND,
+                   "margins": margins, "ok": True})
+    rows = device_rows(lambda: step(placed, tok, cache_s))
+    dev = sum(r["device_us"] for r in rows) / 1e3
+    rows_u = device_rows(lambda: unsharded(tok))
+    dev_u = sum(r["device_us"] for r in rows_u) / 1e3
+    rep_s, rep_u = float(np.median(walls_s[1:])), float(np.median(walls_u[1:]))
+    out = {"steps": MESH_SERVE_STEPS, "tokens_differ": differ,
+           "margins": margins, "logits_rel": log_rel,
+           "logits_rel_steps": log_rels, "cache_rel": cache_rel,
+           "control_rel": control, "band": MESH_SERVE_BAND,
+           "walls_ms": walls_s, "walls_unsharded_ms": walls_u,
+           "median_ms": rep_s, "median_unsharded_ms": rep_u,
+           "device_ms": dev, "device_unsharded_ms": dev_u,
+           "profile": rows[:8], "graphs": step.runner.program.graphs()}
+    print(f"  (c) gpt2-medium bf16 serve {MESH_SERVE}, 4x2, "
+          f"{MESH_SERVE_STEPS} captured steps: {differ} tokens differ from "
+          f"the unsharded ServeStep's; logits within {log_rel:.3e} of scale,"
+          f" cache within {cache_rel[worst]:.3e} ({worst}), band "
+          f"{MESH_SERVE_BAND}; control (rows shifted a block) {control:.3e};"
+          f" cache shards written in place")
+    print(f"      {card}: step sharded {rep_s:.3f} ms (device {dev:.3f}), "
+          f"unsharded {rep_u:.3f} ms (device {dev_u:.3f}); first call "
+          f"{walls_s[0]:.1f} ms (eager, then the capture)")
+    del step, unsharded, placed, params, cache_s, cache_u
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_restart(card: str, record: list) -> dict:
+    """(d) The elastic restart: mamba2-780m one layer deep, float32,
+    MESH_RESTART_BATCH: train on 4 x 2 with a checkpoint every two steps
+    and a failure after step MESH_RESTART_FAIL_AT, resume(shardings=...)
+    onto 2 x 2 to step MESH_RESTART_STEPS; the resumed losses within
+    MESH_LOSS_RTOL and the final parameters, m and v within GRAD_TOL of
+    each leaf's scale of an uninterrupted run on 4 x 2."""
+    import dataclasses
+    import shutil
+
+    import torch
+    from repro_torch import models as M
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.distributed.sharding import PlacedArray, place
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.training import train_loop as tl
+    cfg = dataclasses.replace(get_config("mamba2-780m"), n_layers=1,
+                              dtype="float32")
+    B, S = MESH_RESTART_BATCH
+    source = SyntheticLM(cfg, DataConfig(seq_len=S, global_batch=B,
+                                         seed=SEED))
+    big, small = make_debug_mesh(*MESH_SHAPE), make_debug_mesh(*MESH_SMALL)
+    p0 = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    sh = tl.train_state_shardings(p0, big, cfg)
+    pw, sw, whole = tl.train(cfg, steps=MESH_RESTART_STEPS,
+                             batch_fn=source.batch,
+                             params=place(tree_map(torch.clone, p0),
+                                          sh["params"]))
+    ckpt = ROOT / "build" / "mesh_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ck = Checkpointer(ckpt)
+    try:
+        tl.train(cfg, steps=MESH_RESTART_STEPS, batch_fn=source.batch,
+                 checkpointer=ck, checkpoint_every=2,
+                 fail_at=MESH_RESTART_FAIL_AT,
+                 params=place(tree_map(torch.clone, p0), sh["params"]))
+    except tl.SimulatedFailure:
+        pass
+    else:
+        fail("restart on the mesh: the injected failure did not raise")
+    ck.wait()
+    p, s, rep = tl.resume(cfg, ck, steps=MESH_RESTART_STEPS,
+                          batch_fn=source.batch,
+                          shardings=tl.train_state_shardings(p0, small, cfg))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if not all(isinstance(a, PlacedArray) and a.sharding.mesh is small
+               for a in tree_leaves({"p": p, "s": s})):
+        fail("restart on the mesh: the resumed state is not on the 2x2 mesh")
+    _shards_by_spec("resumed state", {"p": p, "s": s})
+    want = whole.losses[MESH_RESTART_FAIL_AT:]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(rep.losses, want))
+    if len(rep.losses) != len(want) or not rel <= MESH_LOSS_RTOL:
+        fail(f"restart on the mesh: resumed losses {rep.losses} against "
+             f"{want}")
+    got = _tree_paths({"p": p, "m": s["m"], "v": s["v"]})
+    ref = _tree_paths({"p": pw, "m": sw["m"], "v": sw["v"]})
+    worst = 0.0
+    for path, w in ref.items():
+        w = w.gather()
+        worst = max(worst, scaled(f"restart {path}", max_err(
+            got[path].gather(), w), float(w.abs().max().clamp(min=1e-30)),
+            GRAD_TOL))
+    record.append({"case": "mamba2-780m x1 restart 4x2 -> 2x2",
+                   "loss_rel": rel, "state_rel": worst, "ok": True})
+    print(f"  (d) restart: failure after step {MESH_RESTART_FAIL_AT} on 4x2, "
+          f"resumed onto 2x2 to step {MESH_RESTART_STEPS}: losses "
+          f"{rep.losses} against {want} ({rel:.2e}), state within "
+          f"{worst:.2e} of scale of the uninterrupted run")
+    return {"losses": rep.losses, "uninterrupted": whole.losses,
+            "loss_rel": rel, "state_rel": worst}
+
+
+def mesh_allreduce(card: str, record: list) -> dict:
+    """(e) compressed_allreduce under shard_map over 8 positions on the
+    card against the plain sum: relative error under MESH_ALLREDUCE_TOL
+    (the reference's test holds its own to the same), every position's
+    result the same."""
+    import torch
+    from repro_torch.distributed.compression import compressed_allreduce
+    from repro_torch.distributed.sharding import P, shard_map
+    from repro_torch.launch.mesh import make_debug_mesh
+    mesh = make_debug_mesh((MESH_ALLREDUCE[0],), ("data",))
+    g = torch.randn(MESH_ALLREDUCE, generator=torch.Generator(
+        device="cuda").manual_seed(SEED + 400), device="cuda") * 1e-2
+
+    def worker(x):
+        red, _ = compressed_allreduce({"g": x[0]}, {}, ("data",))
+        return red["g"][None]
+
+    run = shard_map(worker, mesh=mesh, in_specs=P("data"),
+                    out_specs=P("data"))
+    red = run(g)
+    want = g.sum(0)
+    err = float((red[0] - want).abs().max() / want.abs().max())
+    if not err < MESH_ALLREDUCE_TOL or not all(
+            torch.equal(red[0], r) for r in red):
+        fail(f"compressed all-reduce: error {err:.3e} against the plain sum "
+             f"(band {MESH_ALLREDUCE_TOL}), or positions disagree")
+    walls = [_timed(lambda: run(g)) for _ in range(MESH_WALLS)]
+    record.append({"case": "compressed_allreduce 8 positions", "rel_err": err,
+                   "tol": MESH_ALLREDUCE_TOL, "ok": True})
+    print(f"  (e) compressed_allreduce over 8 positions of "
+          f"{MESH_ALLREDUCE[1]} elements: {err:.3e} of the plain sum's scale "
+          f"(band {MESH_ALLREDUCE_TOL}); {card}: {min(walls):.3f} ms a call")
+    return {"rel_err": err, "walls_ms": walls}
+
+
+def mesh_phase(card: str, record: dict) -> dict:
+    """The LM stack on a 4 x 2 mesh of positions on the card: (a) sharded
+    training, (b) the sharded prefill, (c) the sharded serve step, (d) the
+    elastic restart, (e) the compressed all-reduce."""
+    import torch
+    print(f"card: {card}")
+    checks = record["checks"]
+    out = {"train": mesh_train(card, checks)}
+    out["ssd"] = scan_autograd(
+        "ssd", _ssd_local_shape(), torch.Generator(device="cuda").manual_seed(
+            SEED + 410), checks)
+    out["prefill"] = mesh_prefill(card, checks)
+    out["serve"] = mesh_serve(card, checks)
+    out["restart"] = mesh_restart(card, checks)
+    out["allreduce"] = mesh_allreduce(card, checks)
+    return out
+
+
+def _ssd_local_shape() -> tuple:
+    """ssd_chunk_scan's (chunks, batch x heads, head dim, state) in the
+    sharded trainer: a data block's rows of MESH_TRAIN_BATCH."""
+    from repro_torch.configs import get_config
+    cfg = get_config("mamba2-780m")
+    s = cfg.ssm
+    rows = MESH_TRAIN_BATCH[0] // MESH_SHAPE[0][0]
+    heads = cfg.d_model * s.expand // s.head_dim
+    return (MESH_TRAIN_BATCH[1] // s.chunk, rows * heads, s.head_dim,
+            s.d_state)
+
+
 def no_fallback() -> dict:
     """A step that reads a device value on the host cannot be captured:
     the first jit=True call raises CaptureError naming the step, and no
@@ -4853,8 +5575,18 @@ def main() -> int:
     train = train_phase(card, record, TRAIN_STEPS * trains[SEQS[0]][
         "launches_per_step"])
     record["train_phase"] = train
+    print("the LM stack on a mesh: jit_train_step, jit_prefill_step, "
+          "jit_serve_step, the elastic restart and compressed_allreduce on a "
+          "4x2 mesh of positions on the card:")
+    mesh = mesh_phase(card, record)
+    record["mesh_phase"] = mesh
     print("no fallback:")
     record["no_fallback"] = no_fallback()
+    record["profiler_misses"] = PROFILER_MISSES
+    print(f"profiler: {len(PROFILER_MISSES)} profiled call(s) recorded no "
+          f"device time and were timed with CUDA events"
+          + "".join(f"; {m['caller']} {m['events_us']:.1f} us"
+                    for m in PROFILER_MISSES))
 
     # One entry a kernel and S.  fused_matmul_grad's serves both backward
     # chains, and its launch counter counts both: its entry carries that
@@ -4967,6 +5699,23 @@ def main() -> int:
              m["forward"], run["launches"][kind] - bwd),
             (f"{fn}_backward[{trainer} trainer {shape}]", src, replaces,
              m["backward"], bwd)]
+    # The mesh phase's scans at their local shapes: the sharded trainer's
+    # data blocks (forward and remat launches, then the backward helper's,
+    # one a block and data block a step) and the sharded prefill's.
+    m = mesh["ssd"]
+    shape = "x".join(map(str, m["shape"]))
+    fn, src, replaces = scan_src["ssd"]
+    cnn_entries += [
+        (f"{fn}[mamba2-780m 4x2 trainer forward {shape}]", src, replaces,
+         m["forward"], mesh["train"]["ssd_forward"]),
+        (f"{fn}_backward[mamba2-780m 4x2 trainer {shape}]", src, replaces,
+         m["backward"], mesh["train"]["ssd_backward"])]
+    m = mesh["prefill"]["rglru"]
+    fn, src, replaces = scan_src["rglru"]
+    cnn_entries.append((
+        f"{fn}[recurrentgemma-9b x3 4x2 prefill "
+        + "x".join(map(str, m["shape"])) + "]", src, replaces, m,
+        mesh["prefill"]["launches"]["rglru"]))
     cnn_entries.append((
         "matmul[ops.mm " + "x".join(map(str, MM_SHAPE)) + "]",
         "src/repro_torch/csrc/matmul.cu",

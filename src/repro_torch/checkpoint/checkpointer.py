@@ -21,9 +21,11 @@ Layout per step, the reference's:
   so the reference restores it; a reference checkpoint's bfloat16 leaf
   (numpy's raw ``|V2``) is read by its bits.  Restore puts each leaf on
   the ``like`` tree's device, in its dtype.
-
-The reference's elastic restore onto another mesh (``shardings=``) waits
-for the GSPMD placement helpers (``ROADMAP.md``, Queue 1 item 7b).
+* **Elastic** — leaves are stored whole: ``save`` gathers a leaf placed
+  on a mesh (:class:`~repro_torch.distributed.sharding.PlacedArray`), and
+  ``restore(..., shardings=...)`` places each leaf by its
+  :class:`~repro_torch.distributed.sharding.NamedSharding` on that
+  sharding's mesh, which may be smaller than the one that saved it.
 """
 
 from __future__ import annotations
@@ -59,6 +61,10 @@ def _treedef(tree: Any) -> str:
 
 def _to_numpy(leaf) -> np.ndarray:
     import torch
+
+    from ..distributed.sharding import PlacedArray
+    if isinstance(leaf, PlacedArray):
+        leaf = leaf.gather()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         if t.dtype == torch.bfloat16:
@@ -159,20 +165,24 @@ class Checkpointer:
     def restore(self, step: int, like: Any, shardings: Any | None = None
                 ) -> Any:
         """Restore into the structure of ``like`` (its values ignored), each
-        leaf on its ``like`` leaf's device and in its dtype."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore onto a mesh (shardings=) waits for the GSPMD "
-                "placement helpers: ROADMAP.md, Queue 1 item 7b")
+        leaf in its ``like`` leaf's dtype: on that leaf's device, or placed
+        by its sharding when ``shardings`` (a tree mirroring ``like`` of
+        :class:`~repro_torch.distributed.sharding.NamedSharding` or
+        ``None``) gives one — the elastic re-mesh path."""
+        from ..distributed.sharding import place
         leaves = self._load(step)
 
-        def walk(t, prefix):
+        def walk(t, sh, prefix):
             if isinstance(t, dict):
-                return {k: walk(v, prefix + (str(k),)) for k, v in t.items()}
+                return {k: walk(v, sh[k] if isinstance(sh, dict) else sh,
+                                prefix + (str(k),)) for k, v in t.items()}
             arr, dtype = leaves["/".join(prefix)]
-            return _as_tensor(arr, dtype, t)
+            if sh is None:
+                return _as_tensor(arr, dtype, t)
+            whole = _as_tensor(arr, dtype, None)
+            return place(whole.to(getattr(t, "dtype", whole.dtype)), sh)
 
-        return walk(like, ())
+        return walk(like, shardings, ())
 
     def restore_latest(self, like: Any | None = None,
                        shardings: Any | None = None):
@@ -185,8 +195,6 @@ class Checkpointer:
                     return step, {k: a for k, (a, _) in
                                   self._load(step).items()}
                 return step, self.restore(step, like, shardings)
-            except NotImplementedError:
-                raise
             except Exception:
                 continue
         raise FileNotFoundError(f"no restorable checkpoint in {self.dir}")

@@ -28,17 +28,26 @@ The PyTorch port of ``repro/distributed/collectives.py``.  Two halves:
   :func:`attach` anchors before and after their tasks.  Every form sums
   in position order, so ``rs_ag`` is bit for bit ``direct`` and the ring
   bit for bit the direct all-gather.
+
+* **In-step collectives** for code running under the port's
+  :func:`~repro_torch.distributed.sharding.shard_map`:
+  :func:`run_positions` runs a function once a mesh position, one thread
+  each, and :func:`psum`, :func:`pmax` and :func:`all_gather` over named
+  axes are rendezvous of those threads: every position of the group
+  leaves its value, and each takes the group's reduction in position
+  order (bit for bit :func:`make_collective`'s direct form).
 """
 
 from __future__ import annotations
 
 import os
+import threading
 from collections import defaultdict
 
 from repro_torch.distributed.plan import CollectiveStep, MeshSpec, ShardingPlan
 
-__all__ = ["build_steps", "make_collective", "attach",
-           "env_partition_specs"]
+__all__ = ["all_gather", "attach", "build_steps", "env_partition_specs",
+           "make_collective", "pmax", "psum", "run_positions"]
 
 _MIB = 1 << 20
 
@@ -189,3 +198,126 @@ def env_partition_specs(graph, plan: ShardingPlan):
     ins = {b.name: spec(b) for b in graph.inputs() + graph.weights()}
     outs = {b.name: spec(b) for b in graph.outputs()}
     return ins, outs
+
+
+# --------------------------------------------------------------------------
+# in-step collectives: one thread a position, each collective a rendezvous
+# --------------------------------------------------------------------------
+
+_POSITION = threading.local()
+# Seconds a position waits at a rendezvous before the run is abandoned (a
+# position that never arrives: a collective called on some positions only).
+RENDEZVOUS_TIMEOUT_S = 600.0
+
+
+class _Rendezvous:
+    """The shared state of one :func:`run_positions` call: a slot per
+    position and a barrier of them all."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.slots: list = [None] * mesh.size
+        self.barrier = threading.Barrier(mesh.size,
+                                         timeout=RENDEZVOUS_TIMEOUT_S)
+
+    def exchange(self, position: int, value, axes: tuple) -> list:
+        """Every position of ``position``'s group along ``axes`` (in
+        position order) and their values; all positions must call it."""
+        self.slots[position] = value
+        self.barrier.wait()
+        group = _group_of(self.mesh, position, axes)
+        values = [self.slots[q] for q in group]
+        self.barrier.wait()             # the slots may be written again
+        return values, group.index(position)
+
+
+def _group_of(mesh, position: int, axes: tuple) -> list:
+    """The positions that share every coordinate but those of ``axes``."""
+    here = mesh.coords(position)
+    return [q for q in range(mesh.size)
+            if all(c == here[k] for k, c in mesh.coords(q).items()
+                   if k not in axes)]
+
+
+def run_positions(mesh, fn) -> list:
+    """``[fn(0), fn(1), ...]``: ``fn(p)`` run for every position of
+    ``mesh``, one thread a position, with :func:`psum` / :func:`pmax` /
+    :func:`all_gather` bound to the mesh's axes and the mesh ambient
+    (:func:`~repro_torch.distributed.sharding.use_mesh`).  A position that
+    raises breaks the barrier, so the others raise too; the first error is
+    re-raised here."""
+    from .sharding import use_mesh
+    rv = _Rendezvous(mesh)
+    results: list = [None] * mesh.size
+    errors: list = [None] * mesh.size
+
+    def run(p):
+        _POSITION.state = (rv, p)
+        try:
+            with use_mesh(mesh):
+                results[p] = fn(p)
+        except BaseException as e:          # noqa: BLE001 — re-raised below
+            errors[p] = e
+            rv.barrier.abort()
+        finally:
+            _POSITION.state = None
+
+    threads = [threading.Thread(target=run, args=(p,), daemon=True)
+               for p in range(mesh.size)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    first = next((e for e in errors
+                  if e is not None
+                  and not isinstance(e, threading.BrokenBarrierError)),
+                 next((e for e in errors if e is not None), None))
+    if first is not None:
+        raise first
+    return results
+
+
+def _axes(axes) -> tuple:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def _exchange(x, axes):
+    state = getattr(_POSITION, "state", None)
+    if state is None:
+        raise NameError(f"unbound axis name {_axes(axes)}: collectives over "
+                        f"named axes run inside shard_map")
+    rv, p = state
+    axes = _axes(axes)
+    missing = [a for a in axes if a not in rv.mesh.axis_names]
+    if missing:
+        raise NameError(f"unbound axis name {missing[0]!r}: the mesh has "
+                        f"axes {tuple(rv.mesh.axis_names)}")
+    return rv.exchange(p, x, axes)
+
+
+def psum(x, axes):
+    """The sum of ``x`` over the positions of this position's group along
+    ``axes`` (a name or a tuple of names), added in position order."""
+    values, i = _exchange(x, axes)
+    return _psum(values)[i]
+
+
+def pmax(x, axes):
+    """The elementwise maximum of ``x`` over the group along ``axes``."""
+    import torch
+    values, i = _exchange(x, axes)
+    acc = values[0].to(x.device)
+    for v in values[1:]:
+        acc = torch.maximum(acc, v.to(x.device))
+    return acc
+
+
+def all_gather(x, axes, *, axis: int = 0, tiled: bool = False):
+    """The group's values along ``axes`` stacked on a new dim ``axis``
+    (``tiled=True``: concatenated along ``axis``), in position order, as
+    ``jax.lax.all_gather``."""
+    import torch
+    values, i = _exchange(x, axes)
+    if tiled:
+        return _all_gather(values, axis)[i]
+    return torch.stack([v.to(x.device) for v in values], axis)

@@ -20,19 +20,41 @@ A mesh is anything with ``.shape`` (axis name -> size) and
 ``.axis_names``: the port's :class:`~repro_torch.launch.mesh.Mesh`, or the
 reference's.
 
-The reference's placement helpers (``use_mesh``, ``as_shardings``,
-``param_shardings``, ``replicated``, the ``shard_map`` shim) place arrays
-for GSPMD; they wait for item 7b, whose sharded train step decides how
-such placements execute.  :func:`shard_hint` is the identity: the port
-has no ambient mesh, and the reference's hint is the identity outside one.
+The placement helpers are the reference's GSPMD ones on the port's
+single-controller mesh (one process drives every position in lockstep):
+
+* :func:`use_mesh` sets an ambient mesh (:func:`current_mesh`) that the
+  sharded steps set while they run and model code may read;
+* :class:`NamedSharding` is a mesh and a spec; :func:`param_shardings`,
+  :func:`as_shardings` and :func:`replicated` build them as the
+  reference's do;
+* :func:`place` is the reference's ``jax.device_put``: it splits each
+  leaf by its sharding into a :class:`PlacedArray`, one local tensor per
+  position on that position's device, which gathers on
+  :meth:`PlacedArray.gather` / ``numpy()``;
+* :func:`shard_map` runs a function on every position's local shards,
+  one thread a position, with the in-step collectives of
+  :mod:`~repro_torch.distributed.collectives` (``psum``, ``pmax``,
+  ``all_gather``) bound to the mesh's axes.
+
+:func:`shard_hint` is the identity: a position's activations are whole
+local tensors of its own program (the sharded steps split the batch and
+gather the weights around the model), so there is nothing for a hint to
+place.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
+from dataclasses import dataclass
 from typing import Any, Callable
 
-__all__ = ["BATCH", "P", "ShardingSpecError", "batch_specs", "cache_specs",
-           "param_specs", "sanitize_spec", "shard_hint"]
+__all__ = ["BATCH", "NamedSharding", "P", "PlacedArray", "ShardingSpecError",
+           "as_shardings", "batch_specs", "cache_batch_dim", "cache_specs",
+           "current_mesh", "gather", "param_shardings", "param_specs",
+           "place", "replicated", "sanitize_spec", "shard_hint", "shard_map",
+           "use_mesh"]
 
 # stacked containers whose leaves carry a leading layer/group dim
 _STACKED = ("groups", "encoder", "decoder")
@@ -239,6 +261,17 @@ def batch_specs(batch: Any, mesh) -> Any:
     return _map_with_path(rule, batch)
 
 
+def cache_batch_dim(path: str, ndim: int) -> int | None:
+    """The batch dim of the decode-cache leaf at ``path`` (``a/b/c``) with
+    ``ndim`` dims: 1 under a stacked group or layer dim, 0 otherwise; None
+    for a 0-d leaf (``pos``).  :func:`cache_specs` splits this dim over the
+    data axes, and the sharded serve step decodes a block of its rows."""
+    if ndim == 0:
+        return None
+    stacked = path.startswith(("groups", "layers")) or "/groups/" in path
+    return 1 if stacked else 0
+
+
 def cache_specs(cache: Any, mesh, cfg) -> Any:
     """Decode-cache specs: batch over data axes, head/channel dim over model.
 
@@ -256,7 +289,7 @@ def cache_specs(cache: Any, mesh, cfg) -> Any:
         nd = len(leaf.shape)
         if nd == 0:
             return P()
-        stacked = p.startswith(("groups", "layers")) or "/groups/" in p
+        stacked = cache_batch_dim(p, nd) == 1
         lead = (None,) if stacked else ()
         body = leaf.shape[1:] if stacked else leaf.shape
         bn = len(body)
@@ -292,9 +325,334 @@ BATCH = ("pod", "data")  # logical batch axes
 
 
 def shard_hint(x, *axes):
-    """The reference's ``with_sharding_constraint`` hint.  Outside a mesh
-    the reference's is the identity, and the port has no ambient mesh, so
-    this is the identity: model code can sprinkle hints without caring
-    about the execution context."""
+    """The reference's ``with_sharding_constraint`` hint, which places an
+    activation across the mesh.  In the port a position's activations are
+    whole local tensors of its own program (the sharded steps split the
+    batch and gather the weights around the model), so there is nothing
+    to place: this is the identity, on a mesh or off it, and model code
+    can sprinkle hints without caring about the execution context."""
     del axes
     return x
+
+
+# --------------------------------------------------------------------------
+# The ambient mesh
+# --------------------------------------------------------------------------
+
+_AMBIENT = threading.local()
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Within this context ``mesh`` is the ambient mesh
+    (:func:`current_mesh`), as ``jax.sharding.use_mesh`` makes it in the
+    reference; the previous one comes back on exit.  Per thread: the
+    threads of :func:`shard_map` set their own."""
+    stack = getattr(_AMBIENT, "stack", None)
+    if stack is None:
+        stack = _AMBIENT.stack = []
+    stack.append(mesh)
+    try:
+        yield mesh
+    finally:
+        stack.pop()
+
+
+def current_mesh():
+    """The ambient mesh, or None outside :func:`use_mesh`."""
+    stack = getattr(_AMBIENT, "stack", None)
+    return stack[-1] if stack else None
+
+
+# --------------------------------------------------------------------------
+# Shardings and placed arrays
+# --------------------------------------------------------------------------
+
+
+@dataclass(frozen=True, eq=False)
+class NamedSharding:
+    """A mesh and a partition spec: where each position's shard of an array
+    comes from (the reference's ``jax.sharding.NamedSharding``)."""
+
+    mesh: Any
+    spec: P
+
+    def __post_init__(self):
+        object.__setattr__(self, "spec", P(*self.spec))
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, NamedSharding) and other.mesh is self.mesh
+                and tuple(other.spec) == tuple(self.spec))
+
+    def __hash__(self) -> int:
+        return hash((id(self.mesh), tuple(self.spec)))
+
+    def _axes(self, d: int) -> tuple:
+        entry = self.spec[d] if d < len(self.spec) else None
+        if entry is None:
+            return ()
+        return entry if isinstance(entry, tuple) else (entry,)
+
+    def parts(self, d: int) -> int:
+        """How many shards dim ``d`` is split into."""
+        n = 1
+        for a in self._axes(d):
+            n *= self.mesh.shape[a]
+        return n
+
+    def shard_shape(self, shape) -> tuple:
+        """The local shape of an array of ``shape`` on every position."""
+        out = []
+        for d, n in enumerate(shape):
+            k = self.parts(d)
+            if n % k:
+                raise ShardingSpecError(
+                    f"{self.spec!r} splits dim {d} (size {n}) into {k} "
+                    f"shards, which does not divide it")
+            out.append(n // k)
+        return tuple(out)
+
+    def block(self, position: int, ndim: int) -> tuple:
+        """The position's shard index along every dim: the coordinates of
+        the dim's axes in mixed radix, the first axis major (the
+        reference's order for a tuple of axes)."""
+        coords = self.mesh.coords(position)
+        out = []
+        for d in range(ndim):
+            i = 0
+            for a in self._axes(d):
+                i = i * self.mesh.shape[a] + coords[a]
+            out.append(i)
+        return tuple(out)
+
+    def local(self, full, position: int):
+        """The position's shard of the whole array ``full`` (a view)."""
+        t = full
+        for d, (i, n) in enumerate(zip(self.block(position, full.dim()),
+                                       self.shard_shape(full.shape))):
+            if n != full.shape[d]:
+                t = t.narrow(d, i * n, n)
+        return t
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, P) or x is None
+
+
+def _map_leaves(fn: Callable, tree: Any, *rest, leaf=None) -> Any:
+    """``fn`` over the leaves of ``tree`` (dicts, lists and tuples; a
+    :class:`P`, a :class:`NamedSharding`, None and anything with
+    ``.shape`` are leaves), ``rest`` nested alike."""
+    is_leaf = leaf or (lambda x: isinstance(x, (P, NamedSharding))
+                       or x is None or hasattr(x, "shape"))
+    if is_leaf(tree):
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v, *(r[k] for r in rest), leaf=leaf)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_leaves(fn, v, *(r[i] for r in rest),
+                                      leaf=leaf)
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def param_shardings(params_or_shapes: Any, mesh, cfg) -> Any:
+    """:func:`param_specs` as :class:`NamedSharding` leaves."""
+    return as_shardings(param_specs(params_or_shapes, mesh, cfg), mesh)
+
+
+def as_shardings(specs: Any, mesh) -> Any:
+    """Partition-spec tree -> :class:`NamedSharding` tree; ``None`` leaves
+    pass through."""
+    return _map_leaves(lambda s: s if s is None else NamedSharding(mesh, s),
+                       specs, leaf=_is_spec)
+
+
+def replicated(mesh) -> NamedSharding:
+    return NamedSharding(mesh, P())
+
+
+class PlacedArray:
+    """An array placed on a mesh: its :class:`NamedSharding` and one local
+    tensor per position (``shards``, in position order, each on its
+    position's device and of the sharding's local shape).  Positions that
+    hold the same block hold equal tensors of their own.  The reference's
+    ``jax.Array`` with a sharding: :meth:`gather` / ``numpy()`` give the
+    whole array."""
+
+    def __init__(self, sharding: NamedSharding, shape, shards: list):
+        self.sharding = sharding
+        self.shape = tuple(shape)
+        self.shards = list(shards)
+        if len(self.shards) != sharding.mesh.size:
+            raise ValueError(f"{len(self.shards)} shards for a mesh of "
+                             f"{sharding.mesh.size} positions")
+
+    @property
+    def dtype(self):
+        return self.shards[0].dtype
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def blocks(self) -> dict:
+        """{block index: the first position holding it}, in position
+        order: one entry for every distinct shard."""
+        out: dict = {}
+        for p in range(len(self.shards)):
+            out.setdefault(self.sharding.block(p, self.ndim), p)
+        return out
+
+    def gather(self, device=None):
+        """The whole array, on ``device`` (position 0's by default): each
+        block once, from the first position that holds it."""
+        import torch
+        device = device or self.shards[0].device
+        full = torch.empty(self.shape, dtype=self.dtype, device=device)
+        for p in self.blocks().values():
+            self.sharding.local(full, p).copy_(self.shards[p])
+        return full
+
+    def numpy(self):
+        import torch
+        t = self.gather(torch.device("cpu"))
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    def __array__(self, dtype=None, copy=None):
+        a = self.numpy()
+        return a.astype(dtype) if dtype is not None else a
+
+    def __repr__(self) -> str:
+        return (f"PlacedArray(shape={self.shape}, dtype={self.dtype}, "
+                f"spec={self.sharding.spec!r}, mesh={self.sharding.mesh!r})")
+
+
+def _whole(x):
+    """A leaf as a whole tensor (a placed array gathered)."""
+    import numpy as np
+    import torch
+    if isinstance(x, PlacedArray):
+        return x.gather()
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.as_tensor(np.asarray(x))
+
+
+def _place_leaf(x, sharding):
+    if sharding is None:
+        return x
+    if isinstance(x, PlacedArray) and x.sharding == sharding:
+        return x
+    full = _whole(x)
+    devices = sharding.mesh.devices
+    return PlacedArray(sharding, full.shape, [
+        sharding.local(full, p).to(devices[p], copy=True).contiguous()
+        for p in range(sharding.mesh.size)])
+
+
+def place(tree: Any, shardings: Any) -> Any:
+    """The reference's ``jax.device_put(tree, shardings)``: every leaf
+    (numpy array, tensor or placed array) split by its
+    :class:`NamedSharding` — one sharding for every leaf, or a tree of
+    them mirroring ``tree`` (``None`` leaves stay as they are) — into a
+    :class:`PlacedArray` whose shards are fresh tensors on the positions'
+    devices.  A leaf already placed by its sharding is kept."""
+    if isinstance(shardings, NamedSharding):
+        return _map_leaves(lambda x: _place_leaf(x, shardings), tree)
+    return _map_leaves(lambda x, s: _place_leaf(x, s), tree, shardings)
+
+
+def gather(tree: Any) -> Any:
+    """Every placed leaf of ``tree`` as its whole tensor."""
+    return _map_leaves(lambda x: x.gather() if isinstance(x, PlacedArray)
+                       else x, tree)
+
+
+# --------------------------------------------------------------------------
+# shard_map
+# --------------------------------------------------------------------------
+
+
+def _flat_specs(specs, n: int) -> list:
+    """``in_specs`` / ``out_specs`` as one spec tree per argument."""
+    if _is_spec(specs):
+        return [specs] * n
+    specs = list(specs)
+    if len(specs) != n:
+        raise ValueError(f"{len(specs)} specs for {n} values")
+    return specs
+
+
+def _spec_tree(spec, tree):
+    """``spec`` broadcast over the leaves of ``tree`` when it is one spec
+    (the reference's prefix rule), else the spec tree as it is."""
+    if _is_spec(spec):
+        return _map_leaves(lambda _: spec, tree)
+    return spec
+
+
+def _local_of(x, spec, mesh, p):
+    if spec is None:
+        return _whole(x)
+    return NamedSharding(mesh, spec).local(_whole(x), p)
+
+
+def _assemble(locals_: list, spec, mesh):
+    """The whole output from every position's local output under
+    ``spec`` (position 0's under ``None``)."""
+    if spec is None:
+        return locals_[0]
+    sh = NamedSharding(mesh, spec)
+    shape = [n * sh.parts(d) for d, n in enumerate(locals_[0].shape)]
+    return PlacedArray(sh, shape, locals_).gather()
+
+
+def shard_map(f, *, mesh, in_specs, out_specs, **kwargs):
+    """The reference's ``shard_map``: ``shard_map(f, ...)(*args)`` splits
+    each argument (a tree of arrays) by its ``in_specs`` tree, runs ``f``
+    on every position's local shards — one thread a position, in which
+    :func:`~repro_torch.distributed.collectives.psum`, ``pmax`` and
+    ``all_gather`` over the mesh's axis names reduce across the positions
+    in position order — and reassembles the outputs by ``out_specs``
+    (each block once, from the first position holding it).  A ``None``
+    spec passes a whole value in, and takes position 0's out.
+    ``check_vma`` / ``check_rep`` are accepted and ignored, as the
+    reference's shim does on the JAX versions without them."""
+    kwargs.pop("check_vma", None)
+    kwargs.pop("check_rep", None)
+    if kwargs:
+        raise TypeError(f"shard_map got unexpected arguments {sorted(kwargs)}")
+    from .collectives import run_positions
+
+    def mapped(*args):
+        specs = _flat_specs(in_specs, len(args))
+        local_args = [[_map_leaves(lambda x, sp, p=p: _local_of(x, sp, mesh, p),
+                                   a, _spec_tree(sp, a))
+                       for a, sp in zip(args, specs)]
+                      for p in range(mesh.size)]
+        outs = run_positions(mesh, lambda p: f(*local_args[p]))
+        if not isinstance(outs[0], tuple):
+            return _assemble_tree(outs, out_specs, mesh)
+        ospecs = _flat_specs(out_specs, len(outs[0]))
+        return tuple(_assemble_tree([o[i] for o in outs], ospecs[i], mesh)
+                     for i in range(len(outs[0])))
+
+    return mapped
+
+
+def _assemble_tree(trees: list, spec, mesh):
+    """:func:`_assemble` over the leaves of the positions' output trees;
+    one spec applies to every leaf below it."""
+    if isinstance(trees[0], dict):
+        return {k: _assemble_tree([t[k] for t in trees],
+                                  spec[k] if isinstance(spec, dict) else spec,
+                                  mesh) for k in trees[0]}
+    if isinstance(trees[0], (list, tuple)) and not hasattr(trees[0], "shape"):
+        return type(trees[0])(
+            _assemble_tree([t[i] for t in trees],
+                           spec[i] if isinstance(spec, (list, tuple))
+                           and not isinstance(spec, P) else spec, mesh)
+            for i in range(len(trees[0])))
+    return _assemble(trees, spec, mesh)

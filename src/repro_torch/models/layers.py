@@ -38,11 +38,13 @@ Params = dict
 
 # --- §Perf hillclimb switches (read at import, as the reference reads them
 # at trace time).  See repro/models/layers.py for what each one trades.
-# Outside a mesh (the port has none yet: shard_hint is the identity) the
-# reference's sequence-parallel form runs with P = 1 and is the same loop
-# over q blocks as the plain form, so REPRO_ATTN_SEQSHARD selects nothing
-# here, and REPRO_ATTN_OPT only repeats the KV heads; their placements
-# come with the GSPMD helpers (ROADMAP.md, Queue 1 item 7b).
+# A position's activations are whole local tensors of its own program (the
+# sharded steps split the batch and gather the weights around the model,
+# and shard_hint is the identity), so the reference's sequence-parallel
+# form runs with P = 1 and is the same loop over q blocks as the plain form:
+# REPRO_ATTN_SEQSHARD selects nothing here, and REPRO_ATTN_OPT only repeats
+# the KV heads.  Their mesh forms come with tensor-parallel compute over
+# `model` (ROADMAP.md, Queue 1 item 11).
 _ATTN_OPT = os.environ.get("REPRO_ATTN_OPT", "0") == "1"
 _ATTN_SEQSHARD = os.environ.get("REPRO_ATTN_SEQSHARD", "0") == "1"
 _MOE_BF16 = os.environ.get("REPRO_MOE_BF16DISPATCH", "0") == "1"

@@ -19,10 +19,12 @@ moonshot), ``ssm`` (mamba2), ``hybrid`` (recurrentgemma rglru:rglru:attn),
 ``audio`` (whisper enc-dec, frame embeddings stubbed), ``vlm`` (internvl,
 patch embeddings stubbed).
 
-``shard_hint`` is the identity (the port has no ambient mesh), so the
+``shard_hint`` is the identity (a position's activations are whole local
+tensors of its own program, ``distributed/sharding.py``), so the
 reference's ``REPRO_DECODE_WSTAT`` hint, which only places the decode
-step's embeddings, waits for the GSPMD placement helpers (``ROADMAP.md``,
-Queue 1 item 7b).
+step's embeddings over ``data``, changes no value and is not read: it
+comes back with tensor-parallel compute over ``model`` (``ROADMAP.md``,
+Queue 1 item 11).
 
 ``remat`` is activation checkpointing where the reference wraps
 ``jax.checkpoint``: each pattern group of the backbone, each decoder layer
@@ -328,12 +330,11 @@ def _loss_chunk(s: int, target: int = 2048) -> int:
     return c
 
 
-def loss_fn(params: Params, batch: dict, cfg: ArchConfig,
-            remat: bool = True, loss_chunk: int = 2048):
-    """Next-token CE with **sequence-chunked** logits: the (B, S, vocab)
-    float32 logit tensor never materializes — each chunk computes its
-    unembed matmul, reduces to per-token NLL, summed in chunk order, and
-    is recomputed in the backward (checkpointed, as in the reference)."""
+def loss_sums(params: Params, batch: dict, cfg: ArchConfig,
+              remat: bool = True, loss_chunk: int = 2048):
+    """``(Σ nll·mask, Σ mask)`` of the next-token CE, float32 0-d tensors:
+    :func:`loss_fn` before its division, which a sharded step reduces
+    across the data-parallel positions before it divides."""
     x = forward_hidden(params, batch, cfg, remat=remat)
     labels = batch["labels"]
     B, S, D = x.shape
@@ -354,6 +355,16 @@ def loss_fn(params: Params, batch: dict, cfg: ArchConfig,
         xc, lc = x[:, ci * c:(ci + 1) * c], labels[:, ci * c:(ci + 1) * c]
         t, n = _checkpoint(chunk_nll, xc, lc, policy=False)
         tot, cnt = tot + t, cnt + n
+    return tot, cnt
+
+
+def loss_fn(params: Params, batch: dict, cfg: ArchConfig,
+            remat: bool = True, loss_chunk: int = 2048):
+    """Next-token CE with **sequence-chunked** logits: the (B, S, vocab)
+    float32 logit tensor never materializes — each chunk computes its
+    unembed matmul, reduces to per-token NLL, summed in chunk order, and
+    is recomputed in the backward (checkpointed, as in the reference)."""
+    tot, cnt = loss_sums(params, batch, cfg, remat, loss_chunk)
     return tot / torch.clamp(cnt, min=1.0)
 
 

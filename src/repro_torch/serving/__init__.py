@@ -11,11 +11,20 @@
   deprecated alias).
 
 Only the runtime names are imported eagerly; the generator pulls in the
-transformer stack, so import it explicitly.
+transformer stack, so its sharded steps ``jit_serve_step`` and
+``jit_prefill_step`` are imported at first use.
 """
 
 from .runtime import (QueueFullError, ServeConfig, ServeError, ServeFuture,
                       ServeStats, ServingRuntime)
 
 __all__ = ["QueueFullError", "ServeConfig", "ServeError", "ServeFuture",
-           "ServeStats", "ServingRuntime"]
+           "ServeStats", "ServingRuntime", "jit_prefill_step",
+           "jit_serve_step"]
+
+
+def __getattr__(name):
+    if name in ("jit_serve_step", "jit_prefill_step"):
+        from . import generator
+        return getattr(generator, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -19,10 +19,19 @@ instead.  On the CPU the step runs eagerly.
 ``Generator`` is the runnable driver: greedy sampling, slot-based
 continuous batching (finished sequences are replaced by queued requests
 without capturing again), one shared position for every slot and the
-prompt fed one token a step, as in the reference.  The reference's
-``jit_serve_step`` / ``jit_prefill_step`` take a mesh and GSPMD
-shardings: they wait for the sharded train step (``ROADMAP.md``, Queue 1
-item 7b).
+prompt fed one token a step, as in the reference.
+
+On a mesh, :func:`jit_serve_step` and :func:`jit_prefill_step` are the
+reference's steps with their in and out shardings (parameters by
+``param_specs``, the cache by ``cache_specs``, the batch by
+``batch_specs``), run by the lockstep executor of
+:mod:`~repro_torch.distributed.spmd`: the parameters gathered, the model
+run once for each data-parallel block of the batch.  The serve step's
+cache is donated: every position's cache shards are written in place,
+and the step is captured into one CUDA graph on the card as
+:class:`ServeStep` is.  Its tokens come back placed over the data axes,
+its logits whole; the prefill step runs eagerly, as the unsharded prefill
+does, and returns its logits whole.
 """
 
 from __future__ import annotations
@@ -34,8 +43,14 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
+from ..distributed import spmd
+from ..distributed.sharding import (BATCH, P, NamedSharding, PlacedArray,
+                                    as_shardings, batch_specs,
+                                    cache_batch_dim, cache_specs,
+                                    param_specs, place, use_mesh)
 from ..models import transformer as tf
-from ..models.layers import tree_from_paths, tree_leaves, tree_paths
+from ..models.layers import (tree_from_paths, tree_leaves, tree_map,
+                             tree_paths)
 
 
 def build_serve_step(cfg: ArchConfig) -> Callable:
@@ -85,6 +100,136 @@ class ServeStep:
         self.tokens.copy_(torch.as_tensor(np.asarray(tokens, np.int32)))
         out = self.program(self.env)
         return out["next_tok"], out["logits"]
+
+
+# --------------------------------------------------------------------------
+# The sharded steps (the reference's jit_serve_step / jit_prefill_step)
+# --------------------------------------------------------------------------
+
+
+def _dp(mesh) -> tuple:
+    return tuple(a for a in BATCH if a in mesh.axis_names)
+
+
+class ShardedServeStep:
+    """The serve step of ``cfg`` on ``mesh`` with the reference's in and
+    out shardings: ``step(params, tokens, cache) -> (next_tok, logits,
+    cache)``.  Parameters are placed by ``param_specs`` and the cache by
+    ``cache_specs`` (leaves given unplaced are placed first); the cache is
+    donated, every position's shards written in place.  ``tokens`` (B,)
+    is copied into the step's buffer, split over the data axes;
+    ``next_tok`` comes back placed so, ``logits`` whole on the mesh's
+    first device.  Each data-parallel block of the batch decodes once on
+    the gathered parameters and its rows of the gathered cache."""
+
+    def __init__(self, cfg: ArchConfig, mesh, pspecs, cspecs, *,
+                 jit: bool = True):
+        self.cfg, self.mesh = cfg, mesh
+        self.pshard = as_shardings(pspecs, mesh)
+        self.cshard = as_shardings(cspecs, mesh)
+        self.tshard = NamedSharding(mesh, P(_dp(mesh)))
+        self.tokens: PlacedArray | None = None
+        self._cur = None
+        self.runner = spmd.LockstepStep(mesh, "decode_step", self._body,
+                                        ["next_tok", "logits"], jit=jit)
+
+    def _body(self) -> dict:
+        params, tokens, cache = self._cur
+        cfg = self.cfg
+        tok = tokens.gather()
+        whole = tree_map(lambda a: a.gather(), cache)
+        paths = tree_paths(whole, "")
+        pos = whole["pos"]
+
+        def decode(full_p, r0, r1):
+            rows = {}
+            for path, leaf in paths.items():
+                d = cache_batch_dim(path.lstrip("/"), leaf.dim())
+                rows[path] = (pos.clone() if d is None
+                              else leaf.narrow(d, r0, r1 - r0))
+            lg, _ = tf.decode_step(full_p, tok[r0:r1],
+                                   tree_from_paths(whole, rows, ""), cfg)
+            return {"next_tok": torch.argmax(lg, dim=-1).to(torch.int32),
+                    "logits": lg}
+
+        out = spmd.over_blocks(
+            params, spmd.compute_blocks(tok.shape[0],
+                                        tokens.sharding.parts(0), 1,
+                                        spmd.moe_chunk(cfg)),
+            decode, "cat")
+        pos.add_(1)
+        for path, leaf in tree_paths(cache, "").items():
+            spmd.write_blocks(leaf, paths[path])
+        return out
+
+    def __call__(self, params, tokens, cache):
+        params = place(params, self.pshard)
+        cache = place(cache, self.cshard)
+        if isinstance(tokens, PlacedArray):
+            tokens = tokens.gather()
+        t = torch.as_tensor(np.array(tokens, np.int32)
+                            if not isinstance(tokens, torch.Tensor)
+                            else tokens.to(torch.int32))
+        if self.tokens is None or self.tokens.shape != tuple(t.shape):
+            self.tokens = place(t, self.tshard)
+        else:
+            spmd.write_blocks(self.tokens, t)
+        self._cur = (params, self.tokens, cache)
+        try:
+            out = self.runner(spmd.shard_env(
+                {"params": params, "tokens": self.tokens, "cache": cache},
+                ""))
+        finally:
+            self._cur = None
+        return place(out["next_tok"], self.tshard), out["logits"], cache
+
+
+def jit_serve_step(cfg: ArchConfig, mesh, params_or_shapes, cache_like, *,
+                   jit: bool = True) -> ShardedServeStep:
+    """The decode step with explicit in / out shardings over ``mesh`` (the
+    reference's ``jit_serve_step``): parameters by ``param_specs``, tokens
+    over the data axes, the cache by ``cache_specs`` and donated.  On the
+    card it is captured into one CUDA graph (``jit=False``: eager)."""
+    return ShardedServeStep(cfg, mesh, param_specs(params_or_shapes, mesh,
+                                                   cfg),
+                            cache_specs(cache_like, mesh, cfg), jit=jit)
+
+
+class ShardedPrefillStep:
+    """The prefill step of ``cfg`` on ``mesh``: ``step(params, batch) ->
+    logits`` (B, vocab), whole.  Parameters placed by ``param_specs``; each
+    data-parallel block of the batch (its shards by ``batch_specs``) runs
+    ``prefill`` once on the gathered parameters, eagerly."""
+
+    def __init__(self, cfg: ArchConfig, mesh, pspecs, bspecs):
+        self.cfg, self.mesh = cfg, mesh
+        self.pshard = as_shardings(pspecs, mesh)
+        self.bshard = as_shardings(bspecs, mesh)
+
+    def __call__(self, params, batch: dict):
+        cfg = self.cfg
+        params = place(params, self.pshard)
+        device = self.mesh.devices[0]
+        batch = {k: v.to(device) for k, v in
+                 spmd.whole_batch(batch, cfg.tdtype).items()}
+        blocks = spmd.compute_blocks(
+            batch["tokens"].shape[0], self.bshard["tokens"].parts(0),
+            batch["tokens"].shape[1] + cfg.n_patches, spmd.moe_chunk(cfg))
+        with use_mesh(self.mesh):
+            return spmd.over_blocks(
+                params, blocks, lambda full_p, r0, r1: tf.prefill(
+                    full_p, {k: v[r0:r1] for k, v in batch.items()}, cfg),
+                "cat")
+
+
+def jit_prefill_step(cfg: ArchConfig, mesh, params_or_shapes, batch_like
+                     ) -> ShardedPrefillStep:
+    """The prefill step with explicit in shardings over ``mesh`` (the
+    reference's ``jit_prefill_step``): parameters by ``param_specs``, the
+    batch by ``batch_specs``; the logits come back whole."""
+    return ShardedPrefillStep(cfg, mesh,
+                              param_specs(params_or_shapes, mesh, cfg),
+                              batch_specs(batch_like, mesh))
 
 
 # --------------------------------------------------------------------------
@@ -163,5 +308,6 @@ class Generator:
         return finished
 
 
-__all__ = ["Generator", "Request", "ServeStep", "build_prefill_step",
-           "build_serve_step"]
+__all__ = ["Generator", "Request", "ServeStep", "ShardedPrefillStep",
+           "ShardedServeStep", "build_prefill_step", "build_serve_step",
+           "jit_prefill_step", "jit_serve_step"]

@@ -4,9 +4,7 @@ serving *runtime* stack: ``repro_torch.serving.runtime`` +
 ``repro_torch.serving.cli``).
 
 The port's copy of ``repro/serving/serve.py``: it warns once on import
-and re-exports the generator's public names.  The reference's
-``jit_serve_step`` / ``jit_prefill_step`` take a mesh and are not ported
-yet (``ROADMAP.md``, Queue 1 item 7b).
+and re-exports the generator's public names.
 """
 
 from __future__ import annotations
@@ -20,6 +18,7 @@ warnings.warn(
     DeprecationWarning, stacklevel=2)
 
 from .generator import (Generator, Request, build_prefill_step,  # noqa: E402
-                        build_serve_step)
+                        build_serve_step, jit_prefill_step, jit_serve_step)
 
-__all__ = ["Generator", "Request", "build_prefill_step", "build_serve_step"]
+__all__ = ["Generator", "Request", "build_prefill_step", "build_serve_step",
+           "jit_prefill_step", "jit_serve_step"]

@@ -56,9 +56,15 @@ def global_norm(tree: Any):
                           for x in tree_leaves(tree)))
 
 
+def clip_scale(norm, max_norm: float):
+    """The factor that clips a gradient of global norm ``norm`` to
+    ``max_norm`` (1 when it is shorter)."""
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
 def clip_by_global_norm(grads: Any, max_norm: float):
     norm = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    scale = clip_scale(norm, max_norm)
     return tree_map(lambda g: g.float() * scale, grads), norm
 
 
@@ -91,13 +97,17 @@ def adamw_update(grads: Any, state: dict, params: Any, oc: OptConfig):
         {"grad_norm": gnorm, "lr": lr}
 
 
-def adamw_update_(grads: Any, state: dict, params: Any, oc: OptConfig):
+def adamw_update_(grads: Any, state: dict, params: Any, oc: OptConfig, *,
+                  norm=None):
     """:func:`adamw_update` written into ``params`` and ``state`` in place,
     one leaf at a time (so one leaf's float32 temporaries are alive at a
-    time, not the whole tree's), with the same arithmetic.  Returns the
-    metrics."""
-    norm = global_norm(grads)
-    scale = torch.clamp(oc.clip_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    time, not the whole tree's), with the same arithmetic.  ``norm`` is
+    the gradient's global norm where the caller has it: a sharded step
+    passes its whole gradient's and hands in only its shards' slices.
+    Returns the metrics."""
+    if norm is None:
+        norm = global_norm(grads)
+    scale = clip_scale(norm, oc.clip_norm)
     step, lr, upd = _update_rule(state, oc)
     for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                           tree_leaves(state["m"]), tree_leaves(state["v"])):
@@ -110,4 +120,4 @@ def adamw_update_(grads: Any, state: dict, params: Any, oc: OptConfig):
 
 
 __all__ = ["OptConfig", "adamw_init", "adamw_update", "adamw_update_",
-           "clip_by_global_norm", "global_norm", "lr_at"]
+           "clip_by_global_norm", "clip_scale", "global_norm", "lr_at"]

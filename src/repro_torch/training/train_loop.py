@@ -27,10 +27,23 @@ eagerly.
 checkpointing (layout ``{"params", "opt"}``), simulated-failure injection
 for tests, and restart (:func:`resume`).  ``train_compiled`` /
 ``resume_compiled`` drive a pipeline-compiled
-:class:`~repro_torch.api.CompiledTrainStep` the same way.  The
-reference's ``jit_train_step`` (GSPMD shardings over a mesh) and the
-compressed gradient all-reduce wait for the sharded train step
-(``ROADMAP.md``, Queue 1 item 7b).
+:class:`~repro_torch.api.CompiledTrainStep` the same way.
+
+On a mesh, :func:`jit_train_step` is the reference's step with its in and
+out shardings (parameters and AdamW state by ``param_specs``, the batch by
+``batch_specs``): a :class:`ShardedTrainStep` run by the lockstep executor
+of :mod:`~repro_torch.distributed.spmd`.  It gathers the parameters, takes
+the gradient of Σ nll·mask over each data-parallel block of the batch
+divided by the whole batch's Σ mask (the sums and counts reduced across
+the positions before the division, as the token-weighted mean needs),
+sums the blocks' gradients in float32 in position order, clips by the
+norm of that whole gradient (each element counted once), and writes
+every position's AdamW update of its own shards in place.  ``train``
+runs it when the parameters it is given are placed on a mesh (``resume``
+with ``shardings`` places them), and checkpoints gathered leaves.
+``build_train_step(compress_grads=True, dp_axes=...)`` all-reduces the
+gradients in int8 (:func:`~repro_torch.distributed.compression.
+compressed_allreduce`) for a step run inside ``shard_map``.
 """
 
 from __future__ import annotations
@@ -43,12 +56,15 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
+from ..distributed import compression, spmd
+from ..distributed.sharding import (PlacedArray, as_shardings, batch_specs,
+                                    param_shardings, param_specs, place,
+                                    replicated)
 from ..models import transformer as tf
 from ..models.layers import (tree_from_paths, tree_leaves, tree_map,
                              tree_paths)
-from .optimizer import OptConfig, adamw_init, adamw_update, adamw_update_
-
-_ITEM_7B = "ROADMAP.md, Queue 1 item 7b (the sharded train step)"
+from .optimizer import (OptConfig, adamw_init, adamw_update, adamw_update_,
+                        global_norm)
 
 
 def _unflatten(tree: Any, leaves) -> Any:
@@ -82,10 +98,6 @@ def build_train_step(cfg: ArchConfig, oc: OptConfig | None = None, *,
     (:func:`~repro_torch.training.optimizer.adamw_update_`, the same
     arithmetic) and returns those."""
     oc = oc or OptConfig()
-    if compress_grads and dp_axes:
-        raise NotImplementedError(
-            f"compress_grads over dp_axes={dp_axes} is an all-reduce inside "
-            f"the sharded train step, which waits for {_ITEM_7B}")
 
     def loss_of(params, batch):
         return tf.loss_fn(params, batch, cfg, remat=remat)
@@ -107,6 +119,14 @@ def build_train_step(cfg: ArchConfig, oc: OptConfig | None = None, *,
         else:
             loss, grads = value_and_grad(loss_of, params, batch)
 
+        if compress_grads and dp_axes:
+            # as in the reference, the updated state is AdamW's {"m", "v",
+            # "step"}: the error feedback is returned by the all-reduce
+            grads, compressed = compression.compressed_allreduce(
+                grads, opt_state, dp_axes)
+            if not in_place:
+                opt_state = compressed
+
         if in_place:
             metrics = adamw_update_(grads, opt_state, params, oc)
         else:
@@ -118,11 +138,165 @@ def build_train_step(cfg: ArchConfig, oc: OptConfig | None = None, *,
     return train_step
 
 
+def train_state_shardings(params_or_shapes: Any, mesh, cfg: ArchConfig
+                          ) -> dict:
+    """The ``{"params", "opt"}`` checkpoint tree's shardings on ``mesh``:
+    parameters, m and v by ``param_specs``, the step counter replicated
+    (the reference's ``jit_train_step`` in / out shardings)."""
+    ps = param_shardings(params_or_shapes, mesh, cfg)
+    return {"params": ps, "opt": {"m": ps, "v": ps,
+                                  "step": replicated(mesh)}}
+
+
+def _placed(tree) -> bool:
+    leaves = tree_leaves(tree) if tree is not None else []
+    return bool(leaves) and all(isinstance(x, PlacedArray) for x in leaves)
+
+
+class ShardedTrainStep:
+    """The train step of ``cfg`` on ``mesh`` with the reference's in and
+    out shardings: ``step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``.  Parameters and AdamW state are placed by ``param_specs``
+    (``{"m", "v": pspecs, "step": P()}``), leaves given unplaced or placed
+    otherwise are placed first (``jax.jit``'s in_shardings); the batch
+    (numpy arrays or tensors, the global batch) is copied into the step's
+    buffers, split by ``batch_specs``.  With ``donate`` every position's
+    shards are written in place and returned; without, the state is copied
+    first and the step runs eagerly.  The metrics are 0-d tensors
+    (``loss``, ``grad_norm``, ``lr``) on the mesh's first device.
+
+    Each data-parallel block of the batch (:func:`~repro_torch.
+    distributed.spmd.compute_blocks`) runs the model once on the gathered
+    parameters; see the module docstring for the reduction.  On one data
+    block the step is the unsharded step bit for bit."""
+
+    OUTPUTS = ("loss", "grad_norm", "lr")
+
+    def __init__(self, cfg: ArchConfig, mesh, pspecs, bspecs,
+                 oc: OptConfig | None = None, *, accum: int = 1,
+                 remat: bool = True, donate: bool = True, jit: bool = True):
+        self.cfg, self.mesh = cfg, mesh
+        self.oc = oc or OptConfig()
+        self.accum, self.remat, self.donate = accum, remat, donate
+        self.pshard = as_shardings(pspecs, mesh)
+        self.oshard = {"m": self.pshard, "v": self.pshard,
+                       "step": replicated(mesh)}
+        self.bshard = as_shardings(bspecs, mesh)
+        self.bufs: dict | None = None
+        self._cur = None
+        # undonated state is copied each call: nothing to bind, so eager
+        self.runner = spmd.LockstepStep(mesh, "train_step", self._body,
+                                        list(self.OUTPUTS),
+                                        jit=jit and donate)
+
+    # --------------------------------------------------------------- batch
+    def _load_batch(self, batch: dict) -> dict:
+        """The batch copied into this step's placed buffers (allocated
+        again when a key or shape changes): float inputs in the model's
+        dtype."""
+        full = spmd.whole_batch(batch, self.cfg.tdtype)
+        if self.bufs is None or self.bufs.keys() != full.keys() or any(
+                self.bufs[k].shape != tuple(t.shape) for k, t in full.items()):
+            self.bufs = place(full, {k: self.bshard[k] for k in full})
+        else:
+            for k, t in full.items():
+                spmd.write_blocks(self.bufs[k], t)
+        return self.bufs
+
+    # ---------------------------------------------------------------- body
+    def _body(self) -> dict:
+        params, opt, bufs = self._cur
+        cfg, accum = self.cfg, self.accum
+        batch = {k: v.gather() for k, v in bufs.items()}
+        rows = batch["tokens"].shape[0] // accum
+        # each microbatch's whole token count, reduced before dividing
+        cnts = [torch.clamp((batch["labels"][i * rows:(i + 1) * rows] >= 0)
+                            .float().sum(), min=1.0) for i in range(accum)]
+        blocks = spmd.compute_blocks(rows, bufs["tokens"].sharding.parts(0),
+                                     batch["tokens"].shape[1] + cfg.n_patches,
+                                     spmd.moe_chunk(cfg))
+
+        def grad(full, r0, r1):
+            cnt = cnts[r0 // rows]
+
+            def loss_of(p, b):
+                return tf.loss_sums(p, b, cfg, remat=self.remat)[0] / cnt
+
+            loss, g = value_and_grad(
+                loss_of, full, {k: v[r0:r1] for k, v in batch.items()})
+            return {"loss": loss, "grads": g}
+
+        out = spmd.over_blocks(params, [(i * rows + r0, i * rows + r1)
+                                        for i in range(accum)
+                                        for r0, r1 in blocks], grad, "sum")
+        loss, acc = out["loss"], out["grads"]
+        if accum > 1:
+            acc = tree_map(lambda g: g / accum, acc)
+            loss = loss / accum
+        # every distinct block of every leaf updated once, on the first
+        # position that holds it, then copied to the others that hold it
+        views, held = [], []
+        for p, g, m, v in zip(tree_leaves(params), tree_leaves(acc),
+                              tree_leaves(opt["m"]), tree_leaves(opt["v"])):
+            holders: dict = {}
+            for q in range(len(p.shards)):
+                holders.setdefault(p.sharding.block(q, p.ndim), []).append(q)
+            for qs in holders.values():
+                q0 = qs[0]
+                views.append((p.shards[q0], p.sharding.local(g, q0),
+                              m.shards[q0], v.shards[q0]))
+                held.append([(p.shards[q], m.shards[q], v.shards[q])
+                             for q in qs[1:]])
+        step0 = opt["step"].shards[0]
+        col = [dict(enumerate(x[j] for x in views)) for j in range(4)]
+        metrics = adamw_update_(col[1], {"m": col[2], "v": col[3],
+                                         "step": step0},
+                                col[0], self.oc, norm=global_norm(acc))
+        for (p0, _, m0, v0), others in zip(views, held):
+            for p_, m_, v_ in others:
+                p_.copy_(p0)
+                m_.copy_(m0)
+                v_.copy_(v0)
+        for s_ in opt["step"].shards[1:]:
+            s_.copy_(step0)
+        metrics["loss"] = loss
+        return metrics
+
+    def __call__(self, params, opt_state, batch: dict):
+        params = place(params, self.pshard)
+        opt_state = place({k: opt_state[k] for k in ("m", "v", "step")},
+                          self.oshard)
+        if not self.donate:
+            params, opt_state = _copy_placed(params), _copy_placed(opt_state)
+        bufs = self._load_batch(batch)
+        self._cur = (params, opt_state, bufs)
+        env = spmd.shard_env({"params": params, "opt": opt_state,
+                              "batch": bufs}, "")
+        try:
+            metrics = self.runner(env)
+        finally:
+            self._cur = None
+        return params, opt_state, metrics
+
+
+def _copy_placed(tree):
+    return tree_map(lambda a: PlacedArray(a.sharding, a.shape,
+                                          [s.clone() for s in a.shards]),
+                    tree)
+
+
 def jit_train_step(cfg: ArchConfig, mesh, params_or_shapes, batch_like,
-                   oc: OptConfig | None = None, **kw):
-    """The reference's step with GSPMD shardings over ``mesh``: not yet."""
-    raise NotImplementedError(f"jit_train_step over a mesh waits for "
-                              f"{_ITEM_7B}")
+                   oc: OptConfig | None = None, *, accum: int = 1,
+                   remat: bool = True, donate: bool = True,
+                   jit: bool = True) -> ShardedTrainStep:
+    """The train step with explicit in / out shardings over ``mesh`` (the
+    reference's ``jit_train_step``): parameters and AdamW state by
+    ``param_specs``, the batch by ``batch_specs``; state donated.  On the
+    card it is captured into one CUDA graph (``jit=False``: eager)."""
+    pspecs = param_specs(params_or_shapes, mesh, cfg)
+    bspecs = batch_specs(batch_like, mesh)
+    return ShardedTrainStep(cfg, mesh, pspecs, bspecs, oc, accum=accum,
+                            remat=remat, donate=donate, jit=jit)
 
 
 # --------------------------------------------------------------------------
@@ -269,17 +443,29 @@ def train(cfg: ArchConfig, *, steps: int, batch_fn: Callable[[int], dict],
     restart path calls :func:`resume`, which restores the latest
     checkpoint and calls ``train`` again.  ``batch_fn(step)`` returns the
     batch as numpy arrays (or tensors); the step copies it to the device.
+
+    ``mesh`` is accepted and not read, as in the reference: parameters
+    placed on a mesh (:func:`~repro_torch.distributed.sharding.place`,
+    ``resume(shardings=...)``) run the sharded step
+    (:class:`ShardedTrainStep`) over their placement, its state written in
+    place, and checkpoints store the gathered leaves.
     """
-    if mesh is not None:
-        raise NotImplementedError(f"train on a mesh waits for {_ITEM_7B}")
+    del mesh
     oc = oc or OptConfig()
     report = TrainReport()
     if params is None:
         params = _init_params(cfg, seed, device)
-    if opt_state is None:
-        opt_state = adamw_init(params)
-
-    runner = TrainStep(cfg, params, opt_state, oc, remat=remat, jit=jit)
+    if _placed(params):
+        first = tree_leaves(params)[0].sharding.mesh
+        if opt_state is None:
+            opt_state = place(adamw_init(tree_map(lambda a: a.gather(),
+                                                  params)),
+                              train_state_shardings(params, first, cfg)["opt"])
+        runner = _MeshRunner(cfg, first, params, opt_state, oc, remat, jit)
+    else:
+        if opt_state is None:
+            opt_state = adamw_init(params)
+        runner = TrainStep(cfg, params, opt_state, oc, remat=remat, jit=jit)
     monitor, hb = StepTimeMonitor(), Heartbeat()
 
     for step in range(start_step, steps):
@@ -302,6 +488,26 @@ def train(cfg: ArchConfig, *, steps: int, batch_fn: Callable[[int], dict],
     return params, opt_state, report
 
 
+class _MeshRunner:
+    """``train``'s runner over placed state: the :class:`ShardedTrainStep`
+    of the placement's specs, built at the first batch."""
+
+    def __init__(self, cfg, mesh, params, opt_state, oc, remat, jit):
+        self.cfg, self.mesh, self.oc = cfg, mesh, oc
+        self.params, self.opt_state = params, opt_state
+        self.remat, self.jit = remat, jit
+        self.step = None
+
+    def __call__(self, batch: dict) -> dict:
+        if self.step is None:
+            pspecs = tree_map(lambda a: a.sharding.spec, self.params)
+            self.step = ShardedTrainStep(
+                self.cfg, self.mesh, pspecs, batch_specs(batch, self.mesh),
+                self.oc, remat=self.remat, jit=self.jit)
+        _, _, metrics = self.step(self.params, self.opt_state, batch)
+        return metrics
+
+
 def _like(cfg: ArchConfig, device) -> dict:
     """The ``{"params", "opt"}`` tree of ``cfg`` on ``device``, values
     unset: the structure, devices and dtypes a restore fills."""
@@ -316,8 +522,11 @@ def _like(cfg: ArchConfig, device) -> dict:
 def resume(cfg: ArchConfig, checkpointer, *, steps: int, batch_fn,
            seed: int = 0, shardings=None, device=None, **kw):
     """Restore the latest checkpoint onto ``device`` and continue (the
-    restart path).  Restoring onto another mesh (``shardings``) waits for
-    the sharded train step."""
+    restart path).  With ``shardings`` (a ``{"params", "opt"}`` tree of
+    :class:`~repro_torch.distributed.sharding.NamedSharding`, e.g.
+    :func:`train_state_shardings`) each leaf is placed by its sharding and
+    training continues on that mesh — a smaller one after losing hosts is
+    the elastic restart."""
     step, state = checkpointer.restore_latest(_like(cfg, device), shardings)
     return train(cfg, steps=steps, batch_fn=batch_fn,
                  checkpointer=checkpointer, params=state["params"],
@@ -389,6 +598,7 @@ def resume_compiled(step, checkpointer, *, steps: int, batch_fn, **kw):
                           opt_state=state["opt"], start_step=at, **kw)
 
 
-__all__ = ["Heartbeat", "SimulatedFailure", "StepTimeMonitor", "TrainReport",
-           "TrainStep", "build_train_step", "jit_train_step", "resume",
-           "resume_compiled", "train", "train_compiled", "value_and_grad"]
+__all__ = ["Heartbeat", "ShardedTrainStep", "SimulatedFailure",
+           "StepTimeMonitor", "TrainReport", "TrainStep", "build_train_step",
+           "jit_train_step", "resume", "resume_compiled", "train",
+           "train_compiled", "train_state_shardings", "value_and_grad"]

@@ -88,8 +88,22 @@ def test_keep_collects_old_steps_and_torn_or_corrupt_ones_are_skipped(
     step, back = ck.restore_latest(_like(_tree()))
     assert step == 3
     assert torch.equal(back["params"]["w"], _tree(3)["params"]["w"])
-    with pytest.raises(NotImplementedError, match="7b"):
-        ck.restore(3, _like(_tree()), shardings=object())
+    # restore onto a mesh: each leaf placed by its sharding, whole again
+    # when gathered (tests/test_torch_gspmd.py: 4 x 2 onto 2 x 2)
+    from repro_torch.distributed.sharding import (P, NamedSharding,
+                                                  PlacedArray, replicated)
+    from repro_torch.launch.mesh import make_debug_mesh
+    mesh = make_debug_mesh((2,), ("data",), device="cpu")
+    sh = tree_map(lambda t: replicated(mesh), _tree())
+    sh["params"]["w"] = NamedSharding(mesh, P("data"))
+    placed = ck.restore(3, _like(_tree()), shardings=sh)
+    w = placed["params"]["w"]
+    assert isinstance(w, PlacedArray) and [tuple(s.shape)
+                                           for s in w.shards] == [(2, 3)] * 2
+    assert torch.equal(w.gather(), _tree(3)["params"]["w"])
+    b = placed["params"]["blk"]["b"]
+    assert b.dtype == torch.bfloat16 and torch.equal(
+        b.gather(), _tree(3)["params"]["blk"]["b"])
 
 
 def test_reference_bfloat16_leaves_restore_by_their_bits(tmp_path):

@@ -2,14 +2,16 @@
 compression``) against the JAX reference's, on the CPU, bit for bit:
 ``quantize`` / ``dequantize`` (round half to even, the clip, the 1e-12
 floor of an all-zero tensor), ``compress_tree`` with and without error
-feedback over three rounds, and ``wire_bytes`` of float32 and bfloat16
-trees."""
+feedback over three rounds, ``wire_bytes`` of float32 and bfloat16
+trees, and ``compressed_allreduce`` under the port's ``shard_map``
+against the reference's under ``jax.vmap``."""
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.distributed import compression as ref  # noqa: E402
@@ -85,4 +87,34 @@ def test_wire_bytes_match_reference():
 
 
 def test_compressed_allreduce_waits_for_the_sharded_step():
-    assert not hasattr(comp, "compressed_allreduce")
+    """Named for when ``compressed_allreduce`` was missing: it runs under
+    the port's ``shard_map`` now, bit for bit the reference's under
+    ``jax.vmap`` (four positions, error feedback carried in), and needs
+    the named axes (``tests/test_torch_shard_map.py`` holds it at eight
+    positions and in a train step)."""
+    from repro_torch.distributed.sharding import P, shard_map
+    from repro_torch.launch.mesh import make_debug_mesh
+    rng = np.random.default_rng(4)
+    g = (rng.standard_normal((4, 9)) * 1e-2).astype(np.float32)
+    e = (rng.standard_normal((4, 9)) * 1e-4).astype(np.float32)
+
+    def ours(x, ef):
+        red, st = comp.compressed_allreduce({"g": x[0]}, {"ef": {"g": ef[0]}},
+                                            ("data",))
+        return red["g"][None], st["ef"]["g"][None]
+
+    def theirs(x, ef):
+        red, st = ref.compressed_allreduce({"g": x}, {"ef": {"g": ef}},
+                                           ("data",))
+        return red["g"], st["ef"]["g"]
+
+    mesh = make_debug_mesh((4,), ("data",), device="cpu")
+    red, new_ef = shard_map(ours, mesh=mesh, in_specs=P("data"),
+                            out_specs=(P("data"), P("data")))(
+        torch.from_numpy(g), torch.from_numpy(e))
+    want = jax.vmap(theirs, axis_name="data")(jnp.asarray(g), jnp.asarray(e))
+    assert np.array_equal(red.numpy(), np.asarray(want[0]))
+    assert np.array_equal(new_ef.numpy(), np.asarray(want[1]))
+    with pytest.raises(NameError, match="unbound axis"):
+        comp.compressed_allreduce({"g": torch.from_numpy(g[0])}, {},
+                                  ("data",))

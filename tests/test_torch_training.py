@@ -26,7 +26,8 @@ against the JAX reference, on the CPU.
   ``gpt2_block_loss_fn`` at (32, 64) against the reference's and bit for
   bit their own uninterrupted run; the CLI's both paths, ``--fail-at``'s
   exit code 42 and ``--resume``; ``launch.train``'s
-  ``DeprecationWarning``; the sharded train step's raises.
+  ``DeprecationWarning``; the sharded paths' entry points (held against
+  the reference in ``tests/test_torch_gspmd.py``).
 
 The captured step runs only on the card (``chip_smoke.py``'s train
 phase); here ``TrainStep`` runs eagerly.
@@ -429,14 +430,28 @@ def test_the_step_runner_is_the_functional_step_bit_for_bit():
 
 
 def test_sharded_paths_raise_until_item_7b():
+    """Named for when the sharded paths raised; they run now (held against
+    the reference in ``tests/test_torch_gspmd.py`` and
+    ``tests/test_torch_shard_map.py``).  ``compress_grads`` over
+    ``dp_axes`` builds a step whose all-reduce needs ``shard_map``'s named
+    axes, as the reference's does; ``jit_train_step`` returns the sharded
+    step; ``train(mesh=...)`` with unplaced parameters reads no mesh, as
+    the reference's."""
+    from repro_torch.launch.mesh import make_debug_mesh
     cfg = get_config("mamba2-780m").smoke()
-    with pytest.raises(NotImplementedError, match="7b"):
-        tl.build_train_step(cfg, compress_grads=True, dp_axes=("data",))
-    with pytest.raises(NotImplementedError, match="7b"):
-        tl.jit_train_step(cfg, None, None, None)
-    with pytest.raises(NotImplementedError, match="7b"):
-        tl.train(cfg, steps=1, batch_fn=_batch_fn(cfg), mesh=object(),
-                 device="cpu")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    batch = _batch_fn(cfg)(0)
+    step = tl.build_train_step(cfg, compress_grads=True, dp_axes=("data",))
+    with pytest.raises(NameError, match="unbound axis"):
+        step(params, opt.adamw_init(params),
+             {k: torch.from_numpy(v) for k, v in batch.items()})
+    mesh = make_debug_mesh((2, 1), ("data", "model"), device="cpu")
+    sharded = tl.jit_train_step(cfg, mesh, params, batch)
+    assert isinstance(sharded, tl.ShardedTrainStep)
+    _, _, rep = tl.train(cfg, steps=1, batch_fn=_batch_fn(cfg), mesh=object(),
+                         device="cpu")
+    assert rep.steps_done == 1 and np.isfinite(rep.losses[0])
 
 
 # --------------------------------------------------------------------------
