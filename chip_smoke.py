@@ -223,13 +223,36 @@ failing (non-zero exit, no result line) at the first problem:
     ...)`` onto 2 x 2, the losses and state against the uninterrupted
     run; (e) ``compressed_allreduce`` under ``shard_map`` over eight
     positions against the plain sum, within 0.02;
-18. no fallback: a step that reads a device value on the host raises
+18. the launch phase: the port's last entry points, the card line
+    printed first.  Subprocesses run side by side (their walls printed):
+    (a) ``python -m repro_torch.api`` for ``feed_forward``,
+    ``multi_head_attention`` and ``conv3_block`` with ``--run`` and a fresh
+    ``--cache-dir``, cold then warm: ``cache_hit=False`` then ``True``
+    with one ``key=``, the numerics verified on the card both times; then
+    ``api.main`` of each in this process with the launch counters zeroed
+    just before and read just after (the chain, flash and conv kernels
+    each launched); (b) ``pad_conv_relu(use_kernel=True)`` at ResNet-18's
+    N=8 64 x 56² and VGG-16's first chain against ``use_kernel=False``
+    within ``CONV_TOL`` of scale, one conv launch a call counted, event and
+    device times beside cuDNN's; (c) the five ``examples/torch/*.py`` on
+    the card, each exiting 0 with its verdict line; (d) the dry-run:
+    ``python -m repro_torch.launch.dryrun`` of mamba2-780m ``train_4k`` on
+    the (16, 16) mesh of meta positions (``status: ok``; FLOPs, bytes,
+    collective bytes, wall), then the mesh phase's own configuration
+    costed through ``dryrun.run_cell``: a position's parameter and
+    optimizer bytes equal to the bytes the mesh phase measured a
+    position, its predicted peaks beside the measured one, and its FLOPs a
+    step over the measured replay wall; (e) ``python -m
+    repro_torch.launch.perf`` on the cell with ``base`` and
+    ``REPRO_REMAT_POLICY=dots``, both rows printed;
+19. no fallback: a step that reads a device value on the host raises
     ``CaptureError`` naming the step;
-19. prints the card line, the ``kernels`` JSON line (the scans' entries
+20. prints the card line, the ``kernels`` JSON line (the scans' entries
     five times: their serving, their train-path, the LM prefills', the
     trainers' and the mesh phase's launches, the trainers' split into the
     forward and the backward helper; flash's also at the serving batch;
-    the chain's also at the sharded phase's local shapes) and, last, the
+    the chain's also at the sharded phase's local shapes; the conv's also
+    at the launch phase's two ``pad_conv_relu`` shapes) and, last, the
     ``{"ok": true, "device": ...}`` line.
 
 The full record (every check, every timing) goes to
@@ -5406,6 +5429,329 @@ def mesh_phase(card: str, record: dict) -> dict:
     return out
 
 
+# The launch phase.  (a) the API smoke CLI's workloads and the kernel each
+# must launch in process under forced routing: multi_head_attention's
+# chains route streamfuse.mmchain in both packages (no Table II workload
+# routes flashattn.mha), so flash_attention is not on this path; (b)
+# pad_conv_relu at ResNet-18's N=8 64 x 56² route and VGG-16's first chain
+# (N, C, H, CO); (c) the five examples and the verdict line each prints,
+# at small step counts; (d) the production cell the dry-run costs; each
+# subprocess's time limit.
+LAUNCH_API = {"feed_forward": "mmchain", "multi_head_attention": "mmchain",
+              "conv3_block": "conv"}
+LAUNCH_CONV = [(8, 64, 56, 64), (1, 3, 224, 64)]
+LAUNCH_EXAMPLES = {
+    "quickstart": ([], "compiled(x) == motivating(x) == oracle ✓"),
+    "compile_resnet18": (["--cache-dir", "build/launch/resnet18_cache"],
+                         "reloaded design executed on cuda"),
+    "pipeline_parallel": ([], "pipeline vs serial max err:"),
+    "serve_lm": ([], "8/8 finished;"),
+    "train_lm": (["--steps", "30", "--ckpt", "build/launch/train_lm_ckpt"],
+                 "arch=gpt2-medium-smoke steps=30 loss"),
+}
+LAUNCH_CELL = ("mamba2-780m", "train_4k", "single")
+LAUNCH_TIMEOUT = 300
+
+
+class _Spawned:
+    """A subprocess of the launch phase, its output in a file under
+    ``build/launch/``; a thread notes when it ends, so its wall is its own
+    whenever it is read.  It leads a process group of its own, so a kill
+    stops the processes it started too (perf's dry-runs)."""
+
+    def __init__(self, name: str, argv: list, env: dict):
+        import threading
+        self.name = name
+        log_dir = ROOT / "build" / "launch"
+        log_dir.mkdir(parents=True, exist_ok=True)
+        self.log = log_dir / f"{name}.log"
+        self._fh = self.log.open("w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=self._fh,
+                                     stderr=subprocess.STDOUT, text=True,
+                                     start_new_session=True)
+        self.wall_s = None
+        self._watch = threading.Thread(target=self._ended, daemon=True)
+        self._watch.start()
+
+    def _ended(self) -> None:
+        self.proc.wait()
+        self.wall_s = time.perf_counter() - self.t0
+
+    def finish(self) -> str:
+        """Wait (at most LAUNCH_TIMEOUT s), then its output; fails on a
+        non-zero exit."""
+        self._watch.join(timeout=LAUNCH_TIMEOUT)
+        if self._watch.is_alive():
+            self.kill()
+            fail(f"launch: {self.name} ran past {LAUNCH_TIMEOUT} s")
+        rc = self.proc.returncode
+        self._fh.close()
+        text = self.log.read_text()
+        if rc != 0:
+            fail(f"launch: {self.name} exited {rc}:\n{text[-3000:]}")
+        return text
+
+    def kill(self) -> None:
+        import signal
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:        # the group has ended
+            pass
+        self.proc.wait()
+        self._fh.close()
+
+
+def _launch_env() -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src"), *filter(None, [env.get("PYTHONPATH")])])
+    return env
+
+
+def _api_argv(workload: str, cache: Path) -> list:
+    return [sys.executable, "-m", "repro_torch.api", workload, "--run",
+            "--cache-dir", str(cache)]
+
+
+def _api_line(name: str, text: str) -> dict:
+    """The ``cache_hit=`` / ``speedup=`` / ``key=`` line of one API run and
+    whether it verified on the card."""
+    m = re.search(r"cache_hit=(\w+) speedup=([\d.]+)x key=(\w{12})", text)
+    if not m:
+        fail(f"launch: {name} printed no cache_hit= / key= line")
+    verified = "numerics verified against the oracle" in text and (
+        "on cuda" in text)
+    if not verified:
+        fail(f"launch: {name} did not verify its numerics on the card")
+    return {"cache_hit": m.group(1) == "True", "speedup": float(m.group(2)),
+            "key": m.group(3)}
+
+
+def launch_api_in_process() -> dict:
+    """(a) ``api.main`` of each LAUNCH_API workload with ``--run`` in this
+    process (forced routing), the launch counters zeroed just before and
+    read just after each: the workload's kernel must launch."""
+    import io
+
+    from repro_torch import api
+    out = {}
+    for w, key in LAUNCH_API.items():
+        zero_counts()
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            rc = api.main([w, "--run"])
+        launched = {k: n for k, n in counts().items() if n}
+        if rc != 0 or "numerics verified" not in text.getvalue():
+            fail(f"launch: api.main({w!r}) did not verify on the card")
+        if not launched.get(key):
+            fail(f"launch: api.main({w!r}) launched no {key} kernel "
+                 f"({launched})")
+        out[w] = launched
+        print(f"  (a) api.main([{w!r}, '--run']) in process: launches "
+              f"{launched}")
+    return out
+
+
+def launch_conv(card: str, record: list) -> dict:
+    """(b) ``pad_conv_relu(use_kernel=True)`` on the card at LAUNCH_CONV
+    against ``use_kernel=False``: within CONV_TOL of scale, one conv
+    launch a call, event and device times beside cuDNN's (full float32)
+    and the bounds."""
+    import torch
+    from repro_torch.core.ops import full_f32_convolutions
+    from repro_torch.kernels.streamfuse import (CONV_LIBRARY,
+                                                pad_conv_relu_plain)
+    from repro_torch.kernels.streamfuse.ops import pad_conv_relu
+    g = torch.Generator(device="cuda").manual_seed(SEED + 700)
+    out = {}
+    for N, C, H, CO in LAUNCH_CONV:
+        name = f"{N}x{C}x{H}x{H}->{CO}"
+        x, w = conv_operands(N, C, H, H, CO, 3, g)
+        CONV_LIBRARY.reset_counts()
+        got = pad_conv_relu(x, w, use_kernel=True)
+        torch.cuda.synchronize()
+        calls = CONV_LIBRARY.entry_launches["codo_pad_conv_relu"]
+        if calls != 1:
+            fail(f"launch: pad_conv_relu {name} made {calls} conv launches")
+        want = pad_conv_relu(x, w, use_kernel=False)
+        err = check_scaled(record, f"pad_conv_relu {name} use_kernel",
+                           got, want, CONV_TOL)
+        iters = 20
+
+        def library():
+            with full_f32_convolutions():
+                return torch.relu(torch.nn.functional.conv2d(x, w, padding=1))
+
+        ms, plain = in_turns(lambda: pad_conv_relu_plain(x, w),
+                             lambda: pad_conv_relu(x, w), iters)
+        m = {"ms": ms, "plain_ms": plain,
+             "library_ms": time_ms(library, iters),
+             "device_ms": device_ms(lambda: pad_conv_relu(x, w), iters),
+             "max_abs_err": err, "launches": 1,
+             "flops": 2.0 * N * H * H * CO * C * 9,
+             "bytes": 4.0 * (N * C * H * H + CO * C * 9 + N * CO * H * H)}
+        m.update(tf32x3_bound(m["flops"], m["bytes"]))
+        out[name] = m
+        print(f"  (b) {card}: pad_conv_relu {name}: kernel {ms:.4f} ms "
+              f"(device {m['device_ms']:.4f})  plain {plain:.4f}  cuDNN "
+              f"{m['library_ms']:.4f}  {bound_text(m)}")
+    return out
+
+
+def launch_dryrun_mesh(card: str, mesh_train_run: dict) -> dict:
+    """(d) The mesh phase's (a) configuration costed by the dry-run on a
+    4 x 2 mesh of meta positions: a position's parameter and optimizer
+    bytes must equal what the mesh phase measured a position; the
+    predicted peaks beside the measured one; FLOPs a step over the
+    measured replay wall."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    (shape, axes), (B, S) = MESH_SHAPE, MESH_TRAIN_BATCH
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell("mamba2-780m", "mesh_phase", "4x2",
+                          mesh=dryrun.meta_mesh(shape, axes),
+                          shape=ShapeSpec("mesh_phase", S, B, "train"),
+                          accum=MESH_ACCUM)
+    wall = time.perf_counter() - t0
+    if rec["status"] != "ok":
+        fail(f"launch: the dry-run of the mesh phase's cell: "
+             f"{rec.get('error')}\n{rec.get('traceback', '')}")
+    mem = rec["memory"]
+    state = mem["argument_parts"]["params"] + mem["argument_parts"]["opt"]
+    held = mesh_train_run["held_bytes"][0]
+    if state != held:
+        fail(f"launch: the dry-run's state a position {state} B is not the "
+             f"{held} B the mesh phase measured a position")
+    step_ms = mesh_train_run["replay_median_ms"]
+    tflops = rec["flops_one_device"] / (step_ms * 1e-3) / 1e12
+    measured_gib = mesh_train_run["peak_memory_gib"]
+    print(f"  (d) mesh phase's cell (mamba2-780m {MESH_TRAIN_BATCH}, 4x2, "
+          f"accum {MESH_ACCUM}) on meta: state a position {state / 2**20:.1f}"
+          f" MiB = measured {held / 2**20:.1f} MiB ✓ (argument bytes "
+          f"{mem['argument_bytes'] / 2**20:.1f} MiB with the batch's shard);"
+          f" walked in {wall:.1f} s")
+    print(f"      predicted peak a position {mem['peak_per_device'] / 2**30:.2f}"
+          f" GiB; every position on one card "
+          f"{mem['one_device_peak'] / 2**30:.2f} GiB; measured on the card "
+          f"{measured_gib:.2f} GiB")
+    print(f"      {card}: {rec['flops_one_device']:.4e} FLOPs a step (the "
+          f"card's, every position) / {step_ms:.3f} ms replay = "
+          f"{tflops:.2f} TFLOP/s, {100 * tflops / 989:.2f} % of 989 "
+          f"(bfloat16 dense)")
+    return {"record": rec, "wall_s": wall, "state_bytes": state,
+            "measured_state_bytes": held, "tflops": tflops,
+            "measured_peak_gib": measured_gib}
+
+
+def launch_phase(card: str, record: dict, mesh_train_run: dict) -> dict:
+    """The port's last entry points on the card: (a) the API smoke CLI,
+    (b) ``pad_conv_relu``, (c) the five examples, (d) the dry-run, (e)
+    ``perf``.  Subprocesses run side by side; every one is stopped before
+    this returns or fails."""
+    import shutil
+    print(f"card: {card}")
+    checks = record["checks"]
+    out = {"conv": launch_conv(card, checks)}   # timed before the others
+    env = _launch_env()
+    caches = ROOT / "build" / "launch" / "api_cache"
+    shutil.rmtree(caches, ignore_errors=True)
+    arch, shape, mesh_kind = LAUNCH_CELL
+    running: list = []
+    try:
+        cold = {w: _Spawned(f"api_{w}_cold", _api_argv(w, caches / w), env)
+                for w in LAUNCH_API}
+        running += cold.values()
+        examples = {
+            name: _Spawned(f"example_{name}", [
+                sys.executable, str(ROOT / "examples" / "torch" / f"{name}.py"),
+                *args], env) for name, (args, _) in LAUNCH_EXAMPLES.items()}
+        running += examples.values()
+        cell_dir = ROOT / "build" / "launch" / "dryrun"
+        cell = _Spawned("dryrun", [
+            sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+            "--shape", shape, "--mesh", mesh_kind, "--out", str(cell_dir),
+            "--force"], env)
+        perf = _Spawned("perf", [
+            sys.executable, "-m", "repro_torch.launch.perf", "--arch", arch,
+            "--shape", shape, "--mesh", mesh_kind, "--variant", "base",
+            "--variant", "dots:REPRO_REMAT_POLICY=dots", "--out",
+            str(ROOT / "build" / "launch" / "perf")], env)
+        running += [cell, perf]
+
+        api_runs = {}
+        warm = {}
+        for w, p in cold.items():
+            api_runs[w] = {"cold": _api_line(p.name, p.finish()),
+                           "cold_wall_s": p.wall_s}
+            warm[w] = _Spawned(f"api_{w}_warm", _api_argv(w, caches / w),
+                               env)
+            running.append(warm[w])
+        out["api_in_process"] = launch_api_in_process()
+        for w, p in warm.items():
+            run = api_runs[w]
+            run["warm"] = _api_line(p.name, p.finish())
+            run["warm_wall_s"] = p.wall_s
+            if run["cold"]["cache_hit"] or not run["warm"]["cache_hit"]:
+                fail(f"launch: {w}: cold cache_hit={run['cold']['cache_hit']}"
+                     f", warm cache_hit={run['warm']['cache_hit']}")
+            if run["cold"]["key"] != run["warm"]["key"]:
+                fail(f"launch: {w}: the warm run's key is not the cold run's")
+            print(f"  (a) python -m repro_torch.api {w} --run: cold "
+                  f"cache_hit=False, warm cache_hit=True, key="
+                  f"{run['cold']['key']} speedup={run['cold']['speedup']}x, "
+                  f"verified on the card both times; walls "
+                  f"{run['cold_wall_s']:.1f} / {run['warm_wall_s']:.1f} s")
+        out["api"] = api_runs
+
+        out["examples"] = {}
+        for name, p in examples.items():
+            text = p.finish()
+            verdict = LAUNCH_EXAMPLES[name][1]
+            line = next((ln for ln in text.splitlines() if verdict in ln),
+                        None)
+            if line is None:
+                fail(f"launch: examples/torch/{name}.py printed no "
+                     f"{verdict!r} line:\n{text[-2000:]}")
+            out["examples"][name] = {"wall_s": p.wall_s, "verdict": line}
+            print(f"  (c) {card}: examples/torch/{name}.py "
+                  f"{' '.join(LAUNCH_EXAMPLES[name][0])} {p.wall_s:.1f} s: "
+                  f"{line.strip()[:100]}")
+
+        cell.finish()
+        rec = json.loads((cell_dir / f"{arch}__{shape}__{mesh_kind}.json")
+                         .read_text())
+        if rec["status"] != "ok":
+            fail(f"launch: the dry-run of {LAUNCH_CELL}: {rec['status']} "
+                 f"{rec.get('error')}")
+        print(f"  (d) dryrun {arch} {shape} {mesh_kind} ({rec['chips']} meta "
+              f"positions, {rec['mesh_shape']}): status ok, "
+              f"{rec['flops_per_device']:.4e} FLOPs / "
+              f"{rec['bytes_per_device']:.4e} bytes a device, collectives "
+              f"{rec['collective']['total']:.4e} B, peak "
+              f"{rec['memory']['peak_per_device'] / 2**30:.2f} GiB; walked in "
+              f"{rec['walk_s']} s, the subprocess {cell.wall_s:.1f} s")
+        out["dryrun_cell"] = {k: rec[k] for k in (
+            "status", "flops_per_device", "bytes_per_device",
+            "transcendentals", "collective", "memory", "model_flops",
+            "chips", "mesh_shape", "walk_s", "wall_s", "ops")}
+        out["dryrun_cell"]["subprocess_s"] = cell.wall_s
+        out["dryrun_mesh"] = launch_dryrun_mesh(card, mesh_train_run)
+
+        text = perf.finish()
+        rows = [ln for ln in text.splitlines()
+                if ln.startswith(("base ", "dots "))]
+        if len(rows) != 2:
+            fail(f"launch: perf printed {len(rows)} of its two rows:\n"
+                 f"{text[-2000:]}")
+        for ln in rows:
+            print(f"  (e) perf {ln}")
+        out["perf"] = {"rows": rows, "wall_s": perf.wall_s}
+    finally:
+        for p in running:
+            p.kill()
+    return out
+
+
 def _ssd_local_shape() -> tuple:
     """ssd_chunk_scan's (chunks, batch x heads, head dim, state) in the
     sharded trainer: a data block's rows of MESH_TRAIN_BATCH."""
@@ -5580,6 +5926,10 @@ def main() -> int:
           "4x2 mesh of positions on the card:")
     mesh = mesh_phase(card, record)
     record["mesh_phase"] = mesh
+    print("the launch entry points: the API smoke CLI, pad_conv_relu, the "
+          "examples, the dry-run over meta positions and perf:")
+    launch = launch_phase(card, record, mesh["train"])
+    record["launch_phase"] = launch
     print("no fallback:")
     record["no_fallback"] = no_fallback()
     record["profiler_misses"] = PROFILER_MISSES
@@ -5716,6 +6066,11 @@ def main() -> int:
         f"{fn}[recurrentgemma-9b x3 4x2 prefill "
         + "x".join(map(str, m["shape"])) + "]", src, replaces, m,
         mesh["prefill"]["launches"]["rglru"]))
+    # The launch phase's pad_conv_relu(use_kernel=True) calls: one launch
+    # a counted call.
+    for name, m in launch["conv"].items():
+        cnn_entries.append((f"fused_pad_conv_relu[pad_conv_relu {name}]",
+                            *conv_src, m, m["launches"]))
     cnn_entries.append((
         "matmul[ops.mm " + "x".join(map(str, MM_SHAPE)) + "]",
         "src/repro_torch/csrc/matmul.cu",

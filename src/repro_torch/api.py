@@ -67,6 +67,7 @@ otherwise.
 
 from __future__ import annotations
 
+import argparse
 from pathlib import Path
 from typing import Any, Callable, Sequence
 
@@ -183,6 +184,14 @@ class CompiledProgram:
     @property
     def cache_hit(self) -> bool:
         return self.compiled.cache_hit
+
+    @property
+    def compile_seconds(self) -> float:
+        return self.compiled.compile_seconds
+
+    @property
+    def schedule_report(self):
+        return self.compiled.schedule_report
 
     def report(self) -> str:
         return self.compiled.report()
@@ -767,7 +776,69 @@ def _load_train_step(doc: dict, device) -> CompiledTrainStep:
     return step
 
 
+# --------------------------------------------------------------------------
+# Smoke CLI:  python -m repro_torch.api gemm --cache-dir .codo_cache --run
+# A cold and a warm invocation print `cache_hit=False` / `cache_hit=True`
+# with the same `key=` (the design's structural hash), as the reference's
+# `python -m repro.api` does, so one grep checks both packages.
+# --------------------------------------------------------------------------
+
+# The band ``--run`` verifies within on the card, where the kernels sum
+# in another order than the oracle (the sharded band of
+# ``lowering.verify_sharding``); on the CPU the reference's own.
+CARD_VERIFY = dict(rtol=1e-4, atol=5e-5)
+
+
+def main(argv=None) -> int:
+    from repro_torch.models.dataflow_models import KERNEL_BENCHES
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.api",
+        description="Compile one Table II kernel through codo_torch.compile().")
+    ap.add_argument("workload", choices=sorted(KERNEL_BENCHES),
+                    help="traced kernel workload to compile")
+    ap.add_argument("--opt", default="opt5",
+                    help="CodoOptions preset (default opt5)")
+    ap.add_argument("--cache-dir", default="",
+                    help="disk compile-cache dir (cold/warm smoke)")
+    ap.add_argument("--run", action="store_true",
+                    help="also execute the design on random inputs and "
+                         "verify against the oracle on the device")
+    ap.add_argument("--export", default="", metavar="PATH",
+                    help="export the design as a JSON artifact")
+    ap.add_argument("--device", default=None,
+                    help="device of the program (default: the card; 'cpu' "
+                         "to run on the CPU)")
+    args = ap.parse_args(argv)
+
+    from repro_torch.core.cache import CompileCache
+    cache = (CompileCache(disk_dir=args.cache_dir) if args.cache_dir
+             else _UNSET)
+    graph = KERNEL_BENCHES[args.workload]()
+    program = compile(graph, device=args.device,
+                      options=CodoOptions.preset(args.opt), cache=cache)
+    print(program.report())
+    print(f"codo_torch.compile({args.workload}): "
+          f"cache_hit={program.cache_hit} "
+          f"speedup={program.speedup:.1f}x "
+          f"key={program.graph.structural_hash()[:12]}")
+    if args.run:
+        from repro_torch.models.dataflow_models import random_inputs
+        env = random_inputs(program.source)
+        band = CARD_VERIFY if program.device.type == "cuda" else {}
+        program.verify(**env, **band)
+        print(f"numerics verified against the oracle on "
+              f"{sorted(n for n in env)} on {program.device} ✓")
+    if args.export:
+        program.export(args.export)
+        print(f"artifact exported to {args.export}")
+    return 0
+
+
 __all__ = ["CodoOptions", "CompiledProgram", "CompiledTrainStep", "F",
-           "ShapedBuffer", "TraceError", "buffer", "compile", "load",
+           "ShapedBuffer", "TraceError", "buffer", "compile", "load", "main",
            "params_from_numpy", "resolve_device", "trace",
            "train_state_from_numpy"]
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -295,11 +295,24 @@ def _exchange(x, axes):
     return rv.exchange(p, x, axes)
 
 
+def _report(op: str, result, axes) -> None:
+    """Charge an in-step collective to the active cost walker, once: from
+    position 0, per device."""
+    from ..launch import hlo_analysis
+    walker = hlo_analysis.active()
+    rv, p = _POSITION.state
+    if walker is not None and p == 0:
+        walker.collective(op, hlo_analysis.tensor_bytes(result),
+                          hlo_analysis.group_size(rv.mesh, _axes(axes)))
+
+
 def psum(x, axes):
     """The sum of ``x`` over the positions of this position's group along
     ``axes`` (a name or a tuple of names), added in position order."""
     values, i = _exchange(x, axes)
-    return _psum(values)[i]
+    out = _psum(values)[i]
+    _report("all-reduce", out, axes)
+    return out
 
 
 def pmax(x, axes):
@@ -319,5 +332,8 @@ def all_gather(x, axes, *, axis: int = 0, tiled: bool = False):
     import torch
     values, i = _exchange(x, axes)
     if tiled:
-        return _all_gather(values, axis)[i]
-    return torch.stack([v.to(x.device) for v in values], axis)
+        out = _all_gather(values, axis)[i]
+    else:
+        out = torch.stack([v.to(x.device) for v in values], axis)
+    _report("all-gather", out, axes)
+    return out

@@ -507,12 +507,22 @@ class PlacedArray:
 
     def gather(self, device=None):
         """The whole array, on ``device`` (position 0's by default): each
-        block once, from the first position that holds it."""
+        block once, from the first position that holds it.  Under a cost
+        walker it is one all-gather over the spec's axes."""
         import torch
+
+        from ..launch import hlo_analysis
         device = device or self.shards[0].device
         full = torch.empty(self.shape, dtype=self.dtype, device=device)
-        for p in self.blocks().values():
-            self.sharding.local(full, p).copy_(self.shards[p])
+        with hlo_analysis.muted():
+            for p in self.blocks().values():
+                self.sharding.local(full, p).copy_(self.shards[p])
+        walker = hlo_analysis.active()
+        if walker is not None:
+            axes = [a for d in range(self.ndim) for a in self.sharding._axes(d)]
+            walker.collective("all-gather", hlo_analysis.tensor_bytes(full),
+                              hlo_analysis.group_size(self.sharding.mesh,
+                                                      axes))
         return full
 
     def numpy(self):
@@ -545,11 +555,13 @@ def _place_leaf(x, sharding):
         return x
     if isinstance(x, PlacedArray) and x.sharding == sharding:
         return x
-    full = _whole(x)
+    from ..launch import hlo_analysis
     devices = sharding.mesh.devices
-    return PlacedArray(sharding, full.shape, [
-        sharding.local(full, p).to(devices[p], copy=True).contiguous()
-        for p in range(sharding.mesh.size)])
+    with hlo_analysis.muted():          # an argument's transfer, not a step's
+        full = _whole(x)
+        return PlacedArray(sharding, full.shape, [
+            sharding.local(full, p).to(devices[p], copy=True).contiguous()
+            for p in range(sharding.mesh.size)])
 
 
 def place(tree: Any, shardings: Any) -> Any:

@@ -39,7 +39,7 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
-from .sharding import PlacedArray, gather, use_mesh
+from .sharding import PlacedArray, current_mesh, gather, use_mesh
 
 __all__ = ["LockstepStep", "compute_blocks", "moe_chunk", "over_blocks",
            "shard_env", "whole_batch", "write_blocks"]
@@ -76,32 +76,67 @@ def compute_blocks(rows: int, parts: int, row_tokens: int,
 
 
 def over_blocks(params: Any, blocks: list[tuple[int, int]],
-                fn: Callable, combine: str) -> Any:
+                fn: Callable, combine: str, *, microbatches: int = 1) -> Any:
     """The body of every sharded step: gather the placed leaves of
     ``params`` once, run ``fn(whole_params, r0, r1)`` on each compute block
     ``(r0, r1)`` in order, and combine its results (a dict of tensors each,
     nested alike) leaf by leaf: ``"cat"`` concatenates them along dim 0,
     ``"sum"`` adds them in float32 in block order into one running sum, so
     one block's results are alive beside it at a time.  The gathered
-    parameters are dropped before it returns."""
+    parameters are dropped before it returns.
+
+    ``blocks`` may span ``microbatches`` equal microbatches one after
+    another.  Under a cost walker (:mod:`repro_torch.launch.hlo_analysis`)
+    each block runs at the share of the positions that compute it (its
+    rows over a microbatch's), and the combination is one collective over
+    the data axes: the sum an all-reduce, the concatenation an
+    all-gather.  On meta parameters a block's result and cost follow from
+    its row count alone, so a block of a row count already run is charged
+    that block's cost again and returns its result
+    (:meth:`~repro_torch.launch.hlo_analysis.CostWalker.repeat`)."""
     import torch
 
+    from ..launch import hlo_analysis
     from ..models.layers import tree_leaves, tree_map
+    walker = hlo_analysis.active()
+    rows = sum(r1 - r0 for r0, r1 in blocks) / microbatches
     whole = gather(params)
-    parts, acc = [], None
+    on_meta = all(t.device.type == "meta" for t in tree_leaves(whole))
+    parts, acc, ran = [], None, {}
     for r0, r1 in blocks:
-        out = fn(whole, r0, r1)
-        if combine == "cat":
-            parts.append(out)
-        elif acc is None:
-            acc = tree_map(lambda t: t.float(), out)
+        if walker is None:
+            out = fn(whole, r0, r1)
+        elif on_meta and (r1 - r0) in ran:
+            out = walker.repeat(ran[r1 - r0])
         else:
-            for a, t in zip(tree_leaves(acc), tree_leaves(out)):
-                a.add_(t.float())
+            with walker.block() as blk, walker.share((r1 - r0) / rows):
+                out = fn(whole, r0, r1)
+            ran[r1 - r0] = blk.result(out)
+        with hlo_analysis.muted():
+            if combine == "cat":
+                parts.append(out)
+            elif acc is None:
+                acc = tree_map(lambda t: t.float(), out)
+            else:
+                for a, t in zip(tree_leaves(acc), tree_leaves(out)):
+                    a.add_(t.float())
     del whole
-    if combine == "sum":
-        return acc
-    return tree_map(lambda *ts: torch.cat(ts), *parts)
+    with hlo_analysis.muted():
+        result = acc if combine == "sum" else tree_map(
+            lambda *ts: torch.cat(ts), *parts)
+    if walker is not None:
+        mesh = current_mesh()
+        group = (hlo_analysis.group_size(mesh, _data_axes(mesh))
+                 if mesh is not None else len(blocks) // microbatches)
+        nbytes = sum(hlo_analysis.tensor_bytes(t)
+                     for t in tree_leaves(result))
+        walker.collective("all-reduce" if combine == "sum" else "all-gather",
+                          nbytes, group)
+    return result
+
+
+def _data_axes(mesh) -> tuple:
+    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
 
 
 def whole_batch(batch: dict, float_dtype) -> dict:

@@ -5,7 +5,11 @@ Where a call runs follows from its operands alone: tensors on a CUDA
 device launch the hand-written kernel, tensors on the CPU run the kernel's
 plain PyTorch version (the same function written with torch ops, kept in
 the kernel's module).  A CUDA call never falls back: it launches or
-raises.
+raises.  Tensors on the ``meta`` device (a step costed without running,
+:mod:`repro_torch.launch.dryrun`) get a meta result of the kernel's shape
+and type, and the kernel's work is charged to the active cost walker
+(:func:`meta_result`); nothing is computed, the plain version least of
+all.
 
 Kernels are CUDA C++ for ``sm_90a`` with a plain C interface, compiled
 with ``nvcc`` at first use into ``build/kernels/`` at the repository root
@@ -63,10 +67,26 @@ PTR, INT, INT64, FLOAT = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
 
 
-def on_card(*tensors) -> bool:
+class _Meta:
+    """:func:`on_card`'s outcome for operands on the meta device.  It is
+    true, so a wrapper that does not test for it goes the card's way and
+    fails there: it never runs the plain version."""
+
+    def __bool__(self) -> bool:
+        return True
+
+    def __repr__(self) -> str:
+        return "META"
+
+
+META = _Meta()
+
+
+def on_card(*tensors):
     """True when every operand lies on one CUDA device (launch the
     kernel), False when every operand lies on the CPU (run the plain
-    version).  Anything else raises."""
+    version), :data:`META` when every operand lies on the meta device
+    (return :func:`meta_result`).  Anything else raises."""
     devices = {t.device for t in tensors}
     if len(devices) == 1:
         (device,) = devices
@@ -74,8 +94,28 @@ def on_card(*tensors) -> bool:
             return True
         if device.type == "cpu":
             return False
+        if device.type == "meta":
+            return META
     raise ValueError(f"kernel operands must all lie on one CUDA device or "
                      f"all on the CPU, got {sorted(map(str, devices))}")
+
+
+def meta_result(shape, dtype, operands, *, flops: float,
+                transcendentals: float = 0.0):
+    """A kernel's result on the meta device: an empty meta tensor of
+    ``shape`` and ``dtype``, the kernel's work — its ``operands`` read and
+    its result written once, ``flops`` — charged to the active cost
+    walker (:func:`repro_torch.launch.hlo_analysis.active`), if any."""
+    import torch
+
+    from ..launch import hlo_analysis
+    out = torch.empty(shape, dtype=dtype, device="meta")
+    walker = hlo_analysis.active()
+    if walker is not None:
+        nbytes = sum(hlo_analysis.tensor_bytes(t) for t in (*operands, out))
+        walker.kernel(flops=flops, nbytes=nbytes,
+                      transcendentals=transcendentals)
+    return out
 
 
 def smem_ok(nbytes: int) -> bool:

@@ -23,8 +23,9 @@ import ctypes
 import functools
 import math
 
-from ..common import (FLOAT, INT, NUM_SMS, PTR, SMEM_PER_SM, CudaLibrary,
-                      dtype_code, on_card, smem_ok, stream_of)
+from ..common import (FLOAT, INT, META, NUM_SMS, PTR, SMEM_PER_SM,
+                      CudaLibrary, dtype_code, meta_result, on_card, smem_ok,
+                      stream_of)
 
 NEG_INF = -1e30
 
@@ -141,7 +142,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     B, Hq, Sq, hd = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     scale = 1.0 / math.sqrt(hd) if scale is None else float(scale)
-    if not on_card(q, k, v):
+    where = on_card(q, k, v)
+    if where is META:                       # q·kᵀ and p·v; one exp a score
+        return meta_result(q.shape, q.dtype, (q, k, v),
+                           flops=4.0 * B * Hq * Sq * Sk * hd,
+                           transcendentals=float(B * Hq * Sq * Sk))
+    if not where:
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale)
     if not tiling_ok(hd):

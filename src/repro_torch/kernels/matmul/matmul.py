@@ -16,7 +16,8 @@ accumulator in registers until it is written); tensors on the CPU run
 
 from __future__ import annotations
 
-from ..common import INT, PTR, CudaLibrary, dtype_code, on_card, stream_of
+from ..common import (INT, META, PTR, CudaLibrary, dtype_code, meta_result,
+                      on_card, stream_of)
 
 # Output tile of csrc/matmul.cu (csrc/mma_gemm.cuh's 128 × 128 tile).
 BM, BN = 128, 128
@@ -47,7 +48,11 @@ def matmul(a, b):
     version on the CPU."""
     import torch
     _check(a, b)
-    if not on_card(a, b):
+    where = on_card(a, b)
+    if where is META:
+        return meta_result((a.shape[0], b.shape[1]), a.dtype, (a, b),
+                           flops=2.0 * a.shape[0] * a.shape[1] * b.shape[1])
+    if not where:
         return matmul_plain(a, b)
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("matmul reads row-major a and b")

@@ -32,7 +32,8 @@ a and h, one backward launch.
 
 from __future__ import annotations
 
-from ..common import (INT, NUM_SMS, PTR, CudaLibrary, dtype_code, on_card,
+from ..common import (INT, META, NUM_SMS, PTR, CudaLibrary, dtype_code,
+                      meta_result, on_card,
                       stream_of)
 
 # Channels a block of csrc/rglru_scan.cu (one a thread), the steps a
@@ -106,7 +107,10 @@ def rglru_scan(a, b, *, chunk: int = 128):
     kernel on the card, the plain version on the CPU."""
     import torch
     _check(a, b, chunk)
-    if not on_card(a, b):
+    where = on_card(a, b)
+    if where is META:                       # one multiply-add an element
+        return meta_result(a.shape, a.dtype, (a, b), flops=2.0 * a.numel())
+    if not where:
         return rglru_scan_plain(a, b, chunk=chunk)
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("rglru_scan reads contiguous a and b")

@@ -23,8 +23,8 @@ decay and the emitted h, one backward launch.
 
 from __future__ import annotations
 
-from ..common import (INT, PTR, CudaLibrary, dtype_code, on_card, smem_ok,
-                      stream_of)
+from ..common import (INT, META, PTR, CudaLibrary, dtype_code, meta_result,
+                      on_card, smem_ok, stream_of)
 
 # Threads a block of csrc/ssd_scan.cu: consecutive (p, n) elements of one bh.
 THREADS = 256
@@ -59,7 +59,11 @@ def ssd_chunk_scan(states, decay):
     BH, P, N): the kernel on the card, the plain version on the CPU."""
     import torch
     _check(states, decay)
-    if not on_card(states, decay):
+    where = on_card(states, decay)
+    if where is META:                       # one multiply-add an element
+        return meta_result(states.shape, states.dtype, (states, decay),
+                           flops=2.0 * states.numel())
+    if not where:
         return ssd_chunk_scan_plain(states, decay)
     if not (states.is_contiguous() and decay.is_contiguous()):
         raise ValueError("ssd_chunk_scan reads contiguous states and decay")

@@ -47,8 +47,8 @@ import ctypes
 import functools
 from typing import Sequence
 
-from ..common import (INT, INT64, NUM_SMS, PTR, SMEM_PER_BLOCK, CudaLibrary,
-                      dtype_code, on_card, stream_of)
+from ..common import (INT, INT64, META, NUM_SMS, PTR, SMEM_PER_BLOCK,
+                      CudaLibrary, dtype_code, meta_result, on_card, stream_of)
 
 
 # op code of each elementwise kind csrc/chain.cu replays, and the attrs
@@ -242,9 +242,18 @@ def fused_matmul_chain(a, w1, w2, *,
     a chunk of h, then their fixed-order sum.  Deterministic; no
     atomics."""
     import torch
-    if not on_card(a, w1, w2):
-        return matmul_chain_plain(
-            a, w1, w2, ew=ew.ew if isinstance(ew, ChainTail) else ew)
+    where = on_card(a, w1, w2)
+    stages = ew.ew if isinstance(ew, ChainTail) else ew
+    if where is META:
+        _check_shapes(a.shape, w1.shape, w2.shape, a.dtype, w1.dtype,
+                      w2.dtype)
+        (M, K), (N1, N2) = a.shape, w2.shape
+        gelus = sum(kind == "gelu" for kind, *_ in stages)
+        return meta_result((M, N2), a.dtype, (a, w1, w2),
+                           flops=2.0 * M * N1 * (K + N2),
+                           transcendentals=float(gelus * M * N1))
+    if not where:
+        return matmul_chain_plain(a, w1, w2, ew=stages)
     tail = ew if isinstance(ew, ChainTail) else ChainTail(ew)
     rows, scratch, shape, parts, code = _chain_plan(
         a.shape, w1.shape, w2.shape, a.dtype, w1.dtype, w2.dtype)
@@ -498,7 +507,11 @@ def fused_matmul_grad(a, w, *extras, ew: "Sequence[GradStage] | GradTail"):
     if tail.n_extras != len(extras):
         raise ValueError(f"the tail was built for {tail.n_extras} extras, "
                          f"got {len(extras)}")
-    if not on_card(a, w, *extras):
+    where = on_card(a, w, *extras)
+    if where is META:
+        return meta_result((a.shape[0], w.shape[1]), a.dtype, (a, w, *extras),
+                           flops=2.0 * a.shape[0] * a.shape[1] * w.shape[1])
+    if not where:
         return matmul_grad_plain(a, w, *extras, ew=tail.ew)
     M, K = a.shape
     N = w.shape[1]
@@ -623,7 +636,12 @@ def fused_softmax_matmul(s, v):
     through their strides.  On the CPU: :func:`softmax_matmul_plain`."""
     import torch
     _check_softmax_mm(s, v)
-    if not on_card(s, v):
+    where = on_card(s, v)
+    if where is META:                       # one exp a score
+        return meta_result((s.shape[0], v.shape[1]), s.dtype, (s, v),
+                           flops=2.0 * s.shape[0] * s.shape[1] * v.shape[1],
+                           transcendentals=float(s.numel()))
+    if not where:
         return softmax_matmul_plain(s, v)
     M, K = s.shape
     N = v.shape[1]

@@ -32,6 +32,7 @@ from ..common import all_f32, smem_ok
 from .chain import (MAX_EW, ChainTail, GradTail, fused_matmul_chain,
                     fused_matmul_grad, fused_softmax_matmul,
                     softmax_mm_smem_bytes)
+from .ref import pad_conv_relu_ref
 from .streamfuse import fused_pad_conv_relu
 
 # Elementwise spec kinds a kernel can replay on a tile: exactly one
@@ -42,6 +43,17 @@ EW_KINDS = frozenset({"relu", "gelu", "scale", "affine", "divc", "rdivc",
 # Gradient-epilogue kinds (backward chains): chain value first operand,
 # residual operands read alongside it at the same (row, column).
 GRAD_EW_KINDS = frozenset({"relu_grad", "gelu_grad", "softmax_grad"})
+
+
+def pad_conv_relu(x, w, *, use_kernel: bool = True):
+    """relu(conv2d(pad(x), w)), stride 1, SAME (the Fig. 2 motivating
+    chain).  ``use_kernel=False`` runs the oracle ``pad_conv_relu_ref``;
+    ``True`` runs :func:`fused_pad_conv_relu`: the kernel for operands on
+    the card, its plain version for operands on the CPU, and a raise for
+    operands on both."""
+    if not use_kernel:
+        return pad_conv_relu_ref(x, w)
+    return fused_pad_conv_relu(x, w)
 
 
 def _conv_feasible(graph, tasks) -> bool:
@@ -111,8 +123,10 @@ def _mm_chain_factory(graph, group, tasks, tile=None):
     tail = ChainTail(ew)
 
     def run(env):
-        return {out_buf: fused_matmul_chain(env[a_buf], env[w1_buf],
-                                            env[w2_buf], ew=tail)}
+        # The kernel reads row-major operands; a transpose task hands on a
+        # strided view (multi_head_attention's kᵀ as w2), copied here.
+        a, w1, w2 = (env[b].contiguous() for b in (a_buf, w1_buf, w2_buf))
+        return {out_buf: fused_matmul_chain(a, w1, w2, ew=tail)}
 
     return run
 

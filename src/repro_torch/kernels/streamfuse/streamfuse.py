@@ -28,8 +28,8 @@ from __future__ import annotations
 import functools
 import math
 
-from ..common import (INT, NUM_SMS, PTR, CudaLibrary, dtype_code, on_card,
-                      stream_of)
+from ..common import (INT, META, NUM_SMS, PTR, CudaLibrary, dtype_code,
+                      meta_result, on_card, stream_of)
 from .chain import tile_splits
 
 LIBRARY = CudaLibrary("pad_conv_relu.cu", {
@@ -105,7 +105,13 @@ def fused_pad_conv_relu(x, w):
     on the card, the plain version for tensors on the CPU."""
     import torch
     _check(x, w)
-    if not on_card(x, w):
+    where = on_card(x, w)
+    if where is META:
+        N, C, H, W = x.shape
+        CO, K = w.shape[0], w.shape[-1]
+        return meta_result((N, CO, H, W), x.dtype, (x, w),
+                           flops=2.0 * N * CO * H * W * C * K * K)
+    if not where:
         return pad_conv_relu_plain(x, w)
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("fused_pad_conv_relu reads contiguous NCHW x and "

@@ -228,7 +228,8 @@ class ShardedTrainStep:
 
         out = spmd.over_blocks(params, [(i * rows + r0, i * rows + r1)
                                         for i in range(accum)
-                                        for r0, r1 in blocks], grad, "sum")
+                                        for r0, r1 in blocks], grad, "sum",
+                               microbatches=accum)
         loss, acc = out["loss"], out["grads"]
         if accum > 1:
             acc = tree_map(lambda g: g / accum, acc)
