@@ -4810,6 +4810,28 @@ MESH_TRAIN_STEPS = 2
 MESH_ACCUM = 4
 MESH_WALLS = 3
 MESH_LOSS_RTOL = 1e-4
+# With compute split over `model` the sums run in another order, so the
+# step cannot be the unsharded one bit for bit.  Each comparison is
+# measured against the noise that a reordering of the unsharded step's own
+# sums makes, in this run: the unsharded step again with MESH_FLOOR_ACCUM
+# microbatches (the "floor"), held to the unsharded step by the same
+# measures.  For every parameter leaf, its distance from the unsharded
+# step's over the unsharded update's size, ||p - p_u|| / ||p_u - p0||,
+# must stay within MESH_FLOOR_TIMES the floor's or MESH_UPDATE_MIN, and
+# under MESH_UPDATE_CAP whatever the floor (a sign-flipped update is 2, an
+# update of twice the size 1), and the size of its update ||p - p0|| within
+# MESH_FLOOR_TIMES the floor's departure from the unsharded update's size
+# or MESH_SIZE_MIN (an update of half or twice the size is 0.5 off).  The
+# count of parameter elements more than one bfloat16 step from the
+# unsharded step's must stay within MESH_FLOOR_TIMES the floor's.  Each
+# m and v leaf must be within UPDATE_TOL in norm of the unsharded step's,
+# or MESH_FLOOR_TIMES its floor's distance, and under MESH_MV_CAP.
+MESH_FLOOR_ACCUM = 8
+MESH_FLOOR_TIMES = 4.0
+MESH_UPDATE_MIN = 0.25
+MESH_UPDATE_CAP = 0.75
+MESH_SIZE_MIN = 0.05
+MESH_MV_CAP = 0.25
 # (b) recurrentgemma-9b at full width, three layers deep (rglru, rglru,
 # attn), float32: the sharded prefill against the unsharded one.
 MESH_PREFILL = (4, 512)
@@ -4826,14 +4848,26 @@ MESH_PREFILL_LAYERS = 3
 MESH_SERVE = (8, 1024)
 MESH_SERVE_STEPS = 16
 MESH_SERVE_BAND = 2.5e-2
-# (d) The elastic restart: mamba2-780m one layer deep, float32, (4, 512);
+# The pull of the step on memory: its peak allocation above the resident
+# state must stay under the whole cache's bytes (the cache is read and
+# written where it lies, never gathered).  The walls of the serve step
+# with compute replicated over `model` and of ServeStep, as PERF.md records
+# them on an H100 80GB HBM3 at 700 W, printed beside this run's.
+MESH_SERVE_REPLICATED_MS = (24.738, 8.624)
+# (d) mixtral-8x22b at full width, MESH_MOE_LAYERS deep, float32: the
+# sharded prefill (experts split over `model`) against the unsharded one,
+# within LM_TOL of scale.  Two layers: the sharded state (about 20 GB), the
+# units' weights gathered over `data` and the unsharded copy fit on one card.
+MESH_MOE = (4, 512)
+MESH_MOE_LAYERS = 2
+# (e) The elastic restart: mamba2-780m one layer deep, float32, (4, 512);
 # a failure after step 2 with a checkpoint every two steps on 4 x 2, then
 # resume(shardings=...) onto 2 x 2 to step 4.
 MESH_RESTART_BATCH = (4, 512)
 MESH_RESTART_STEPS = 4
 MESH_RESTART_FAIL_AT = 2
 MESH_SMALL = ((2, 2), ("data", "model"))
-# (e) compressed_allreduce of a 4M-element gradient a position over 8.
+# (f) compressed_allreduce of a 4M-element gradient a position over 8.
 MESH_ALLREDUCE = (8, 4 * 1024 * 1024)
 MESH_ALLREDUCE_TOL = 0.02
 
@@ -4889,12 +4923,16 @@ def _timed(fn) -> float:
 def mesh_train(card: str, record: list) -> dict:
     """(a) mamba2-780m at full width and depth on the 4 x 2 mesh: the
     unsharded TrainStep (MESH_ACCUM microbatches, captured) and two
-    captured jit_train_step steps from the same state; the loss within
-    MESH_LOSS_RTOL, every gathered parameter within one bfloat16 step and
-    m / v within UPDATE_TOL in norm of the unsharded step's (bit for bit
-    counted); ssd_chunk_scan's forward and backward launches; every
-    position's state bytes beside its spec's share and the peak memory;
-    the captured steps bit for bit eager; walls and device time."""
+    captured jit_train_step steps from the same state, each model position
+    computing its heads; the loss within MESH_LOSS_RTOL, and the gathered
+    parameters, m and v held to the unsharded step's within bands set from
+    the floor, the unsharded step at MESH_FLOOR_ACCUM microbatches (bit
+    for bit counted, not required: the split sums in another order);
+    ssd_chunk_scan's forward and backward
+    launches, one a block, data block and model position, and the heads
+    each launch scans; every position's state bytes beside its spec's
+    share and the peak memory; the captured steps bit for bit eager; walls
+    and device time."""
     import importlib
 
     import numpy as np
@@ -4909,6 +4947,7 @@ def mesh_train(card: str, record: list) -> dict:
     from repro_torch.training import optimizer as opt
     from repro_torch.training import train_loop as tl
     sd = importlib.import_module("repro_torch.kernels.ssd.ssd")
+    ssd_ops = importlib.import_module("repro_torch.kernels.ssd.ops")
     cfg = get_config("mamba2-780m")
     B, S = MESH_TRAIN_BATCH
     source = SyntheticLM(cfg, DataConfig(seq_len=S, global_batch=B, seed=SEED,
@@ -4919,7 +4958,7 @@ def mesh_train(card: str, record: list) -> dict:
     p0 = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
     blocks = _scan_blocks(cfg)["ssd"]
     mesh = make_debug_mesh(*MESH_SHAPE)
-    data = mesh.shape["data"]
+    data, model = mesh.shape["data"], mesh.shape["model"]
     out = {"params": M.param_count(p0), "batch": list(MESH_TRAIN_BATCH)}
 
     # the unsharded step
@@ -4939,6 +4978,44 @@ def mesh_train(card: str, record: list) -> dict:
     del unsharded, pu, su
     clear_graphs()
     torch.cuda.empty_cache()
+    # the floor: the unsharded step over other microbatches
+    pf, sf = tree_map(torch.clone, p0), opt.adamw_init(p0)
+    floor_step = tl.TrainStep(cfg, pf, sf, oc, accum=MESH_FLOOR_ACCUM)
+    losses_f = [float(floor_step(batches[i])["loss"])
+                for i in range(MESH_TRAIN_STEPS)]
+    floor = {k: v.cpu() for k, v in _tree_paths(
+        {"params": pf, "m": sf["m"], "v": sf["v"]}).items()}
+    del floor_step, pf, sf
+    clear_graphs()
+    torch.cuda.empty_cache()
+    p0_cpu = {k: v.cpu() for k, v in _tree_paths({"params": p0}).items()}
+
+    def state_distance(got) -> dict:
+        """How far the state ``got(path)`` is from the unsharded step's:
+        the elements more than one bfloat16 step off and the most steps,
+        each parameter leaf's distance over its unsharded update's size
+        and its update's size over the unsharded one's, each m / v leaf's
+        distance in norm."""
+        out = {"far": 0, "steps": 0.0, "update": {}, "size": {}, "mv": {}}
+        for path, w in want.items():
+            g = got(path)
+            if path.startswith("/params"):
+                gf, wf = g.float(), w.float()
+                e = torch.floor(torch.log2(wf.abs().clamp(min=2.0 ** -126)))
+                out["far"] += int(((gf - wf).abs() > torch.exp2(e - 7)).sum())
+                out["steps"] = max(out["steps"], bf16_steps(g, w))
+                du = float((wf - p0_cpu[path].float()).norm())
+                if du > 0:
+                    out["update"][path] = float((gf - wf).norm()) / du
+                    out["size"][path] = float(
+                        (gf - p0_cpu[path].float()).norm()) / du
+            else:
+                out["mv"][path] = float((g.float() - w).norm()
+                                        / w.norm().clamp(min=1e-30))
+        return out
+
+    fl = state_distance(lambda path: floor[path])
+    del floor
 
     def placed_state():
         sh = tl.train_state_shardings(p0, mesh, cfg)
@@ -4958,62 +5035,115 @@ def mesh_train(card: str, record: list) -> dict:
     ptrs = _shard_ptrs({"p": ps, "o": ss})
     calls = {"backward": 0}
     real_bwd = sd.ssd_chunk_scan_backward
+    real_states = ssd_ops.ssd_states
+    block_rows = MESH_TRAIN_BATCH[0] // data
+    heads_seen = set()
 
     def counted(*a, **kw):
         calls["backward"] += 1
         return real_bwd(*a, **kw)
+
+    def states_seen(st, dec, **kw):
+        heads_seen.add(st.shape[1] // block_rows)
+        return real_states(st, dec, **kw)
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     losses_s, walls_s = [], []
     sd.ssd_chunk_scan_backward = counted
+    ssd_ops.ssd_states = states_seen
     try:
         for i in range(MESH_TRAIN_STEPS):
             walls_s.append(_timed(lambda i=i: losses_s.append(
                 float(step(ps, ss, batches[i])[2]["loss"]))))
     finally:
         sd.ssd_chunk_scan_backward = real_bwd
-    per_step = 3 * blocks * data
+        ssd_ops.ssd_states = real_states
+    heads = cfg.d_model * cfg.ssm.expand // cfg.ssm.head_dim
+    if heads_seen != {heads // model}:
+        fail(f"sharded train: ssd_chunk_scan scanned {sorted(heads_seen)} "
+             f"heads a launch, expected a model position's {heads // model}")
+    per_step = 3 * blocks * data * model
     launches = _held_launches("sharded mamba2-780m train steps",
                               {"ssd": per_step * MESH_TRAIN_STEPS})
     peak = torch.cuda.max_memory_allocated()
     # the first call runs eagerly and then captures (each calls the backward
-    # helper once a block); the replay runs what the capture recorded
+    # helper once a block and unit); the replay runs what the capture
+    # recorded
     bwd_launches = calls["backward"] // 2 * MESH_TRAIN_STEPS
-    if calls["backward"] != 2 * blocks * data:
+    if calls["backward"] != 2 * blocks * data * model:
         fail(f"sharded train: backward helper calls {calls['backward']}, "
-             f"expected one a block and data block, eager and captured")
+             f"expected one a block, data block and model position, eager "
+             f"and captured")
     if _shard_ptrs({"p": ps, "o": ss}) != ptrs:
         fail("sharded train: the state was not written in place")
     _shards_by_spec("sharded train", {"p": ps, "o": ss})
     if step.runner.program is None or step.runner.program.graphs() != 1:
         fail("sharded train: the step was not captured once")
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses_s, losses_u))
+    floor_loss_rel = max(abs(a - b) / abs(b)
+                         for a, b in zip(losses_f, losses_u))
     if not loss_rel <= MESH_LOSS_RTOL:
-        fail(f"sharded train: losses {losses_s} against {losses_u}")
-    got = _tree_paths({"params": ps, "m": ss["m"], "v": ss["v"]})
-    steps_max, norm_max, exact = 0.0, 0.0, 0
-    for path, w in want.items():
-        g = got[path].gather()
-        wc = w.to(g.device)
-        exact += int(torch.equal(g, wc))
-        if path.startswith("/params"):
-            steps_max = max(steps_max, bf16_steps(g, wc))
-        else:
-            n = float((g.float() - wc).norm() / wc.norm().clamp(min=1e-30))
-            norm_max = max(norm_max, n)
-        del g, wc
-    if not steps_max <= 1.0:
-        fail(f"sharded train: a parameter is {steps_max:.1f} bfloat16 steps "
-             f"from the unsharded step's")
-    if not norm_max <= UPDATE_TOL:
-        fail(f"sharded train: m / v differ by {norm_max:.2e} in norm "
-             f"(band {UPDATE_TOL:.0e})")
+        fail(f"sharded train: losses {losses_s} against {losses_u} "
+             f"({loss_rel:.3e}; the floor's {losses_f}, {floor_loss_rel:.3e})")
+    got = {k: v.gather().cpu() for k, v in _tree_paths(
+        {"params": ps, "m": ss["m"], "v": ss["v"]}).items()}
+    exact = sum(int(torch.equal(got[k], w)) for k, w in want.items())
+    sd = state_distance(lambda k: got[k])
+    del got
+
+    def worst(measure, band) -> tuple:
+        """(the leaf nearest its band, its value, its band) of a per-leaf
+        measure whose band ``band(leaf)`` is set from the floor."""
+        k = max(sd[measure], key=lambda k: sd[measure][k] / band(k))
+        return k, sd[measure][k], band(k)
+
+    band_update = {k: min(MESH_UPDATE_CAP, max(
+        MESH_UPDATE_MIN, MESH_FLOOR_TIMES * fl["update"].get(k, 0.0)))
+        for k in sd["update"]}
+    band_size = {k: max(MESH_SIZE_MIN, MESH_FLOOR_TIMES * abs(
+        fl["size"].get(k, 1.0) - 1.0)) for k in sd["size"]}
+    band_mv = {k: min(MESH_MV_CAP, max(
+        UPDATE_TOL, MESH_FLOOR_TIMES * fl["mv"][k])) for k in sd["mv"]}
+    for k in sd["size"]:
+        sd["size"][k] = abs(sd["size"][k] - 1.0)
+    w_up, w_sz, w_mv = (worst("update", band_update.get),
+                        worst("size", band_size.get),
+                        worst("mv", band_mv.get))
+    far_band = MESH_FLOOR_TIMES * fl["far"]
+    print(f"      against the unsharded step (the floor, accum "
+          f"{MESH_FLOOR_ACCUM} against {MESH_ACCUM}, in brackets): "
+          f"{sd['far']} parameter elements beyond one bfloat16 step "
+          f"({fl['far']}; band {far_band:.0f}), at most {sd['steps']:.1f} "
+          f"steps ({fl['steps']:.1f}); update distances up to "
+          f"{max(sd['update'].values()):.3e} ({max(fl['update'].values()):.3e}),"
+          f" nearest its band {w_up[0]} {w_up[1]:.3e} against {w_up[2]:.3e};"
+          f" update sizes off by up to {max(sd['size'].values()):.3e}, "
+          f"nearest its band {w_sz[0]} {w_sz[1]:.3e} against "
+          f"{w_sz[2]:.3e}; m / v up to {max(sd['mv'].values()):.3e} "
+          f"({max(fl['mv'].values()):.3e}), nearest its band {w_mv[0]} "
+          f"{w_mv[1]:.3e} against {w_mv[2]:.3e}")
+    if not sd["far"] <= far_band:
+        fail(f"sharded train: {sd['far']} parameter elements beyond one "
+             f"bfloat16 step of the unsharded step's, over {MESH_FLOOR_TIMES}"
+             f" x the floor's {fl['far']}")
+    for name, (k, v, band) in (("update distance", w_up),
+                               ("update size", w_sz), ("m / v", w_mv)):
+        if not v <= band:
+            fail(f"sharded train: {name} of {k} {v:.3e} beyond its band "
+                 f"{band:.3e}")
     record.append({"case": "mamba2-780m 4x2 sharded train vs unsharded",
-                   "loss_rel": loss_rel, "param_bf16_steps": steps_max,
-                   "mv_norm_rel": norm_max, "bit_identical_leaves": exact,
+                   "loss_rel": loss_rel, "floor_loss_rel": floor_loss_rel,
+                   "param_far": sd["far"],
+                   "param_bf16_steps": sd["steps"],
+                   "update_rel": sd["update"], "update_size_off": sd["size"],
+                   "mv_norm_rel_leaves": sd["mv"],
+                   "bands": {"far": far_band, "update": band_update,
+                             "size": band_size, "mv": band_mv},
+                   "floor": fl, "bit_identical_leaves": exact,
                    "leaves": len(want), "ok": True})
+    steps_max, norm_max = sd["steps"], max(sd["mv"].values())
 
     # the same steps eagerly, from the same state: bit for bit
     pe, se = placed_state()
@@ -5040,9 +5170,13 @@ def mesh_train(card: str, record: list) -> dict:
     rep_s = float(np.median(walls_s[1:]))
     out.update({
         "losses": losses_s, "losses_unsharded": losses_u,
+        "losses_floor": losses_f,
         "loss_rel": loss_rel, "param_bf16_steps": steps_max,
-        "mv_norm_rel": norm_max, "bit_identical_leaves": exact,
+        "param_far": sd["far"], "floor_param_far": fl["far"],
+        "mv_norm_rel": norm_max, "floor_mv_norm_rel": max(fl["mv"].values()),
+        "bit_identical_leaves": exact,
         "leaves": len(want), "launches": launches,
+        "ssd_heads_per_launch": heads // model,
         "ssd_per_step": per_step, "ssd_backward": bwd_launches,
         "ssd_forward": launches["ssd"] - bwd_launches,
         "held_bytes": [h for h, _ in held], "share_bytes": [s_ for _, s_ in
@@ -5055,14 +5189,18 @@ def mesh_train(card: str, record: list) -> dict:
         "profile": rows_s[:8], "profile_unsharded": rows[:8]})
     print(f"  (a) mamba2-780m ({out['params'] / 1e9:.3f} B parameters), "
           f"global batch {MESH_TRAIN_BATCH}, 4x2: losses {losses_s} against "
-          f"unsharded {losses_u} ({loss_rel:.2e}); parameters within "
-          f"{steps_max:.1f} bfloat16 steps, m / v within {norm_max:.2e} in "
-          f"norm, {exact} of {len(want)} leaves bit for bit; captured steps "
-          f"bit for bit eager")
+          f"unsharded {losses_u} ({loss_rel:.2e}; the floor's "
+          f"{floor_loss_rel:.2e}); {sd['far']} parameter "
+          f"elements beyond one bfloat16 step (floor {fl['far']}), m / v "
+          f"within {norm_max:.2e} in norm (floor "
+          f"{max(fl['mv'].values()):.2e}), {exact} of {len(want)} leaves bit "
+          f"for bit; captured steps bit for bit eager")
     print(f"      ssd_chunk_scan launches {launches['ssd']} in "
           f"{MESH_TRAIN_STEPS} steps ({per_step} a step: "
           f"{out['ssd_forward'] // MESH_TRAIN_STEPS} forward and remat, "
-          f"{bwd_launches // MESH_TRAIN_STEPS} backward); state a position "
+          f"{bwd_launches // MESH_TRAIN_STEPS} backward), each over "
+          f"{heads // model} of {heads} heads x {block_rows} rows (a model "
+          f"position's); state a position "
           f"{held[0][0] / 2**20:.1f} MiB (its specs' share "
           f"{held[0][1] / 2**20:.1f}; the whole state "
           f"{whole_bytes / 2**20:.1f} / 8 = {whole_bytes / 8 / 2**20:.1f});"
@@ -5081,8 +5219,9 @@ def mesh_prefill(card: str, record: list) -> dict:
     """(b) recurrentgemma-9b at full width, MESH_PREFILL_LAYERS deep,
     float32: jit_prefill_step at MESH_PREFILL on the 4 x 2 mesh against the
     unsharded prefill within LM_TOL of scale; rglru_scan launched once a
-    RG-LRU block and data block, each launch held against its plain
-    version at its shape; walls both ways."""
+    RG-LRU block, data block and model position, over that position's
+    channels, each launch held against its plain version at its shape;
+    walls both ways."""
     import dataclasses
 
     import numpy as np
@@ -5099,7 +5238,7 @@ def mesh_prefill(card: str, record: list) -> dict:
                               n_layers=MESH_PREFILL_LAYERS, dtype="float32")
     B, S = MESH_PREFILL
     mesh = make_debug_mesh(*MESH_SHAPE)
-    data = mesh.shape["data"]
+    data, model = mesh.shape["data"], mesh.shape["model"]
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(
         SEED))
     batch = M.make_batch(cfg, batch=B, seq=S, kind="prefill", seed=SEED)
@@ -5123,7 +5262,11 @@ def mesh_prefill(card: str, record: list) -> dict:
     torch.cuda.synchronize()
     rec_blocks = _scan_blocks(cfg)["rglru"]
     launches = _held_launches("sharded recurrentgemma-9b prefill",
-                              {"rglru": rec_blocks * data})
+                              {"rglru": rec_blocks * data * model})
+    channels = sorted({a.shape[-1] for a, _, _ in seen})
+    if channels != [cfg.d_model // model]:
+        fail(f"sharded prefill: rglru_scan over {channels} channels a "
+             f"launch, expected a model position's {cfg.d_model // model}")
     rel = check_scaled(record, "recurrentgemma-9b x3 4x2 prefill vs "
                                "unsharded", got, want, LM_TOL) / float(
         want.abs().max())
@@ -5147,12 +5290,14 @@ def mesh_prefill(card: str, record: list) -> dict:
     dev = sum(r["device_us"] for r in rows) / 1e3
     out = {"layers": cfg.n_layers, "params": M.param_count(params),
            "rel_err": rel, "launches": launches, "rglru": m,
+           "rglru_channels_per_launch": channels[0],
            "walls_ms": sharded_ms, "walls_unsharded_ms": plain_ms,
            "device_ms": dev, "profile": rows[:8]}
     print(f"  (b) recurrentgemma-9b x{cfg.n_layers} f32 prefill {MESH_PREFILL}"
           f", 4x2: logits within {rel:.2e} of scale of the unsharded prefill;"
           f" rglru_scan launches {launches['rglru']} ({rec_blocks} a data "
-          f"block)")
+          f"block and model position), each over {channels[0]} of "
+          f"{cfg.d_model} channels")
     print(f"      {card}: sharded {np.median(sharded_ms):.3f} ms (device "
           f"{dev:.3f}), unsharded {np.median(plain_ms):.3f} ms")
     del params, placed, want, got, seen
@@ -5162,13 +5307,16 @@ def mesh_prefill(card: str, record: list) -> dict:
 
 def mesh_serve(card: str, record: list) -> dict:
     """(c) gpt2-medium bfloat16: jit_serve_step at MESH_SERVE on the 4 x 2
-    mesh, MESH_SERVE_STEPS captured decode steps, against the unsharded
-    ServeStep fed the same tokens: the logits every step and every
-    gathered cache leaf after the last within MESH_SERVE_BAND of scale; a
-    token differs only at a top-2 margin within one bfloat16 step of the
-    top logit (printed); the control (one block's cache rows shifted to
-    its neighbour's) beyond the band; the cache shards written in place;
-    walls both ways."""
+    mesh, MESH_SERVE_STEPS captured decode steps (heads, d_ff and vocab
+    split over `model`), against the unsharded ServeStep fed the same
+    tokens: the logits every step and every gathered cache leaf after the
+    last within MESH_SERVE_BAND of scale; a token differs only at a top-2
+    margin within one bfloat16 step of the top logit (printed); the
+    control (one block's cache rows shifted to its neighbour's) beyond the
+    band; the cache shards written in place; the first call's peak
+    allocation above the resident state under the whole cache's bytes
+    (nothing of the cache gathered); walls both ways beside those of the
+    step with compute replicated over `model`."""
     import numpy as np
     import torch
     from repro_torch import models as M
@@ -5201,9 +5349,21 @@ def mesh_serve(card: str, record: list) -> dict:
 
     differ, margins, log_rels = 0, [], []
     walls_s, walls_u = [], []
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in _tree_paths(cache_u).values())
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     for i in range(MESH_SERVE_STEPS):
         t0 = time.perf_counter()
         nxt, logits, cache_s = step(placed, tok, cache_s)
+        if i == 0:
+            torch.cuda.synchronize()
+            step_peak = torch.cuda.max_memory_allocated() - resident
+            if not step_peak < cache_bytes:
+                fail(f"sharded serve: the step's peak {step_peak} B above "
+                     f"the resident state is not under the whole cache's "
+                     f"{cache_bytes} B")
         got = np.asarray(nxt)
         walls_s.append(1e3 * (time.perf_counter() - t0))
         t0 = time.perf_counter()
@@ -5270,6 +5430,7 @@ def mesh_serve(card: str, record: list) -> dict:
              f"band {MESH_SERVE_BAND}: the check cannot see a wrong cache")
     del shifted, plain, control_step
     record.append({"case": "gpt2-medium 4x2 sharded serve vs ServeStep",
+                   "step_peak_bytes": step_peak, "cache_bytes": cache_bytes,
                    "tokens_differ": differ, "logits_rel": log_rel,
                    "logits_rel_steps": log_rels, "cache_rel": cache_rel,
                    "control_rel": control, "band": MESH_SERVE_BAND,
@@ -5280,6 +5441,8 @@ def mesh_serve(card: str, record: list) -> dict:
     dev_u = sum(r["device_us"] for r in rows_u) / 1e3
     rep_s, rep_u = float(np.median(walls_s[1:])), float(np.median(walls_u[1:]))
     out = {"steps": MESH_SERVE_STEPS, "tokens_differ": differ,
+           "step_peak_bytes": step_peak, "cache_bytes": cache_bytes,
+           "resident_bytes": resident,
            "margins": margins, "logits_rel": log_rel,
            "logits_rel_steps": log_rels, "cache_rel": cache_rel,
            "control_rel": control, "band": MESH_SERVE_BAND,
@@ -5293,16 +5456,81 @@ def mesh_serve(card: str, record: list) -> dict:
           f" cache within {cache_rel[worst]:.3e} ({worst}), band "
           f"{MESH_SERVE_BAND}; control (rows shifted a block) {control:.3e};"
           f" cache shards written in place")
+    print(f"      first call's peak above the resident state "
+          f"{step_peak / 2**20:.1f} MiB, under the whole cache's "
+          f"{cache_bytes / 2**20:.1f} MiB (resident {resident / 2**30:.2f} "
+          f"GiB)")
     print(f"      {card}: step sharded {rep_s:.3f} ms (device {dev:.3f}), "
           f"unsharded {rep_u:.3f} ms (device {dev_u:.3f}); first call "
-          f"{walls_s[0]:.1f} ms (eager, then the capture)")
+          f"{walls_s[0]:.1f} ms (eager, then the capture); with compute "
+          f"replicated over model (PERF.md): {MESH_SERVE_REPLICATED_MS[0]}"
+          f" / {MESH_SERVE_REPLICATED_MS[1]} ms")
     del step, unsharded, placed, params, cache_s, cache_u
     torch.cuda.empty_cache()
     return out
 
 
+def mesh_moe(card: str, record: list) -> dict:
+    """(d) mixtral-8x22b at full width, MESH_MOE_LAYERS deep, float32:
+    jit_prefill_step at MESH_MOE on the 4 x 2 mesh, its eight experts
+    split four a model position (the router, top-k and dispatch every
+    position's, so the drops are the unsharded step's), against the
+    unsharded prefill within LM_TOL of scale; walls both ways."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import models as M
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import param_shardings, place
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import generator as gen
+    cfg = dataclasses.replace(get_config("mixtral-8x22b"),
+                              n_layers=MESH_MOE_LAYERS, dtype="float32")
+    B, S = MESH_MOE
+    mesh = make_debug_mesh(*MESH_SHAPE)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED))
+    n_params = M.param_count(params)
+    batch = M.make_batch(cfg, batch=B, seq=S, kind="prefill", seed=SEED)
+    want = tf.prefill(params, batch, cfg)
+    plain_ms = [_timed(lambda: tf.prefill(params, batch, cfg))
+                for _ in range(MESH_WALLS)]
+    placed = place(params, param_shardings(params, mesh, cfg))
+    spec = placed["groups"]["b0_attn"]["mlp"]["w_in"].sharding.spec
+    del params
+    torch.cuda.empty_cache()
+    if spec[1] != "model":
+        fail(f"sharded MoE: the experts are not split over model ({spec!r})")
+    step = gen.jit_prefill_step(cfg, mesh, placed, batch)
+    zero_counts()
+    got = step(placed, batch)
+    torch.cuda.synchronize()
+    _held_launches("sharded mixtral-8x22b prefill", {})
+    rel = check_scaled(record, f"mixtral-8x22b x{MESH_MOE_LAYERS} 4x2 "
+                               f"prefill vs unsharded", got, want,
+                       LM_TOL) / float(want.abs().max())
+    sharded_ms = [_timed(lambda: step(placed, batch))
+                  for _ in range(MESH_WALLS)]
+    rows = device_rows(lambda: step(placed, batch))
+    dev = sum(r["device_us"] for r in rows) / 1e3
+    out = {"layers": cfg.n_layers, "params": n_params, "rel_err": rel,
+           "expert_spec": list(map(str, spec)), "walls_ms": sharded_ms,
+           "walls_unsharded_ms": plain_ms, "device_ms": dev,
+           "profile": rows[:8]}
+    print(f"  (d) mixtral-8x22b x{cfg.n_layers} f32 ({n_params / 1e9:.2f} B "
+          f"parameters) prefill {MESH_MOE}, 4x2, experts {spec!r}: logits "
+          f"within {rel:.2e} of scale of the unsharded prefill")
+    print(f"      {card}: sharded {np.median(sharded_ms):.3f} ms (device "
+          f"{dev:.3f}), unsharded {np.median(plain_ms):.3f} ms")
+    del placed, want, got, step
+    torch.cuda.empty_cache()
+    return out
+
+
 def mesh_restart(card: str, record: list) -> dict:
-    """(d) The elastic restart: mamba2-780m one layer deep, float32,
+    """(e) The elastic restart: mamba2-780m one layer deep, float32,
     MESH_RESTART_BATCH: train on 4 x 2 with a checkpoint every two steps
     and a failure after step MESH_RESTART_FAIL_AT, resume(shardings=...)
     onto 2 x 2 to step MESH_RESTART_STEPS; the resumed losses within
@@ -5368,7 +5596,7 @@ def mesh_restart(card: str, record: list) -> dict:
             GRAD_TOL))
     record.append({"case": "mamba2-780m x1 restart 4x2 -> 2x2",
                    "loss_rel": rel, "state_rel": worst, "ok": True})
-    print(f"  (d) restart: failure after step {MESH_RESTART_FAIL_AT} on 4x2, "
+    print(f"  (e) restart: failure after step {MESH_RESTART_FAIL_AT} on 4x2, "
           f"resumed onto 2x2 to step {MESH_RESTART_STEPS}: losses "
           f"{rep.losses} against {want} ({rel:.2e}), state within "
           f"{worst:.2e} of scale of the uninterrupted run")
@@ -5377,7 +5605,7 @@ def mesh_restart(card: str, record: list) -> dict:
 
 
 def mesh_allreduce(card: str, record: list) -> dict:
-    """(e) compressed_allreduce under shard_map over 8 positions on the
+    """(f) compressed_allreduce under shard_map over 8 positions on the
     card against the plain sum: relative error under MESH_ALLREDUCE_TOL
     (the reference's test holds its own to the same), every position's
     result the same."""
@@ -5405,16 +5633,17 @@ def mesh_allreduce(card: str, record: list) -> dict:
     walls = [_timed(lambda: run(g)) for _ in range(MESH_WALLS)]
     record.append({"case": "compressed_allreduce 8 positions", "rel_err": err,
                    "tol": MESH_ALLREDUCE_TOL, "ok": True})
-    print(f"  (e) compressed_allreduce over 8 positions of "
+    print(f"  (f) compressed_allreduce over 8 positions of "
           f"{MESH_ALLREDUCE[1]} elements: {err:.3e} of the plain sum's scale "
           f"(band {MESH_ALLREDUCE_TOL}); {card}: {min(walls):.3f} ms a call")
     return {"rel_err": err, "walls_ms": walls}
 
 
 def mesh_phase(card: str, record: dict) -> dict:
-    """The LM stack on a 4 x 2 mesh of positions on the card: (a) sharded
-    training, (b) the sharded prefill, (c) the sharded serve step, (d) the
-    elastic restart, (e) the compressed all-reduce."""
+    """The LM stack on a 4 x 2 mesh of positions on the card, compute split
+    over `model`: (a) sharded training, (b) the sharded prefill, (c) the
+    sharded serve step, (d) the sharded MoE prefill, (e) the elastic
+    restart, (f) the compressed all-reduce."""
     import torch
     print(f"card: {card}")
     checks = record["checks"]
@@ -5424,6 +5653,7 @@ def mesh_phase(card: str, record: dict) -> dict:
             SEED + 410), checks)
     out["prefill"] = mesh_prefill(card, checks)
     out["serve"] = mesh_serve(card, checks)
+    out["moe"] = mesh_moe(card, checks)
     out["restart"] = mesh_restart(card, checks)
     out["allreduce"] = mesh_allreduce(card, checks)
     return out
@@ -5634,6 +5864,10 @@ def launch_dryrun_mesh(card: str, mesh_train_run: dict) -> dict:
           f" GiB; every position on one card "
           f"{mem['one_device_peak'] / 2**30:.2f} GiB; measured on the card "
           f"{measured_gib:.2f} GiB")
+    print(f"      flops_per_device {rec['flops_per_device']:.4e} (compute "
+          f"split over model: replicated_model_compute "
+          f"{rec['replicated_model_compute']}), collectives "
+          f"{rec['collective']['total']:.4e} B a position")
     print(f"      {card}: {rec['flops_one_device']:.4e} FLOPs a step (the "
           f"card's, every position) / {step_ms:.3f} ms replay = "
           f"{tflops:.2f} TFLOP/s, {100 * tflops / 989:.2f} % of 989 "
@@ -5754,12 +5988,13 @@ def launch_phase(card: str, record: dict, mesh_train_run: dict) -> dict:
 
 def _ssd_local_shape() -> tuple:
     """ssd_chunk_scan's (chunks, batch x heads, head dim, state) in the
-    sharded trainer: a data block's rows of MESH_TRAIN_BATCH."""
+    sharded trainer: a data block's rows of MESH_TRAIN_BATCH, a model
+    position's heads."""
     from repro_torch.configs import get_config
     cfg = get_config("mamba2-780m")
     s = cfg.ssm
     rows = MESH_TRAIN_BATCH[0] // MESH_SHAPE[0][0]
-    heads = cfg.d_model * s.expand // s.head_dim
+    heads = cfg.d_model * s.expand // s.head_dim // MESH_SHAPE[0][1]
     return (MESH_TRAIN_BATCH[1] // s.chunk, rows * heads, s.head_dim,
             s.d_state)
 

@@ -29,6 +29,14 @@ The PyTorch port of ``repro/distributed/collectives.py``.  Two halves:
   in position order, so ``rs_ag`` is bit for bit ``direct`` and the ring
   bit for bit the direct all-gather.
 
+* **Group collectives** of the LM stack's lockstep executor
+  (:mod:`~repro_torch.distributed.spmd`), which runs the positions of a
+  compute unit one after another in one thread: :func:`group_psum`,
+  :func:`group_pmax` and :func:`group_all_gather` take the group's values
+  in position order and give the one result every position of the group
+  holds (a replicated activation is one tensor there), reporting the
+  collective to the active cost walker.
+
 * **In-step collectives** for code running under the port's
   :func:`~repro_torch.distributed.sharding.shard_map`:
   :func:`run_positions` runs a function once a mesh position, one thread
@@ -47,7 +55,8 @@ from collections import defaultdict
 from repro_torch.distributed.plan import CollectiveStep, MeshSpec, ShardingPlan
 
 __all__ = ["all_gather", "attach", "build_steps", "env_partition_specs",
-           "make_collective", "pmax", "psum", "run_positions"]
+           "group_all_gather", "group_pmax", "group_psum", "make_collective",
+           "pmax", "psum", "run_positions"]
 
 _MIB = 1 << 20
 
@@ -198,6 +207,50 @@ def env_partition_specs(graph, plan: ShardingPlan):
     ins = {b.name: spec(b) for b in graph.inputs() + graph.weights()}
     outs = {b.name: spec(b) for b in graph.outputs()}
     return ins, outs
+
+
+# --------------------------------------------------------------------------
+# group collectives of the lockstep executor: one thread, the group's values
+# in position order, one result
+# --------------------------------------------------------------------------
+
+
+def _charge(op: str, result, group: int) -> None:
+    from ..launch import hlo_analysis
+    walker = hlo_analysis.active()
+    if walker is not None:
+        walker.collective(op, hlo_analysis.tensor_bytes(result), group,
+                          weight=walker.weight)
+
+
+def group_psum(xs: list):
+    """The sum of the group's values ``xs`` (position order), accumulated
+    in float32 in that order and given back in their dtype: an all-reduce
+    over the group (bit for bit :func:`psum` for float32 values)."""
+    out = xs[0] if len(xs) == 1 else _sum_on(
+        [x.float() for x in xs], xs[0].device).to(xs[0].dtype)
+    _charge("all-reduce", out, len(xs))
+    return out
+
+
+def group_pmax(xs: list):
+    """The elementwise maximum of the group's values: an all-reduce."""
+    import torch
+    out = xs[0]
+    for x in xs[1:]:
+        out = torch.maximum(out, x.to(out.device))
+    _charge("all-reduce", out, len(xs))
+    return out
+
+
+def group_all_gather(xs: list, dim: int):
+    """The group's values concatenated along ``dim`` in position order:
+    an all-gather over the group."""
+    import torch
+    out = xs[0] if len(xs) == 1 else torch.cat(
+        [x.to(xs[0].device) for x in xs], dim)
+    _charge("all-gather", out, len(xs))
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -11,19 +11,34 @@ position of a :class:`~repro_torch.launch.mesh.Mesh` in lockstep):
   ``param_specs`` (FSDP over ``data``, tensor-parallel dims over
   ``model``), the batch by ``batch_specs``, the decode cache by
   ``cache_specs``;
-* a step all-gathers the leaves it reads, runs the model once for each
-  *compute block* of the batch — one block a data-parallel shard, so the
-  positions that share data coordinates (and therefore batch and weights)
-  share one computation; computing along ``model`` is replicated —
-  reduces across the blocks in position order (:func:`over_blocks`, the
-  body that the train, serve and prefill steps share), and writes each
-  position's slice of the result into its own tensors, in place where the
-  reference donates them.
+* a *compute unit* is a data block of the batch and a position along
+  ``model``.  The positions that share data coordinates share one data
+  block (:func:`compute_blocks`); along ``model`` each computes the heads,
+  ``d_ff`` columns, experts, SSM heads, RG-LRU channels and vocab slice
+  its shards hold, as the reference's sharding rules lay the work out.
+  :func:`unit_params` gathers each weight over the data axes only (FSDP
+  gathers at use), one copy a model position that every data block
+  shares: a leaf split over ``model`` reaches the model code as
+  :class:`Shards`, one part a model position, and the layer forms of
+  ``models/`` run each position's part (:func:`per_position`) and combine
+  the partial results with the group collectives of
+  :mod:`~repro_torch.distributed.collectives` (``group_psum`` in position
+  order, ``group_pmax``, ``group_all_gather``).  Only the weights the
+  model forms read whole are gathered over ``model`` too: Mamba-2's
+  ``in_proj`` and ``conv`` (split at the middle of their packed columns,
+  not by head) and ``wk`` / ``wv`` where the KV heads do not divide;
+* the step reduces across the data blocks in position order
+  (:func:`over_blocks`, the body that the train, serve and prefill steps
+  share), and writes each position's slice of the result into its own
+  tensors, in place where the reference donates them.  The serve step
+  reads and writes every position's cache shard where it lies
+  (:func:`cache_view`).
 
 A MoE layer sizes its dispatch capacity per chunk of ``min(1024, T)``
 tokens of the whole batch, so blocks whose tokens share a chunk are
 computed together (:func:`compute_blocks`): the drops are those of the
-unsharded step.
+unsharded step.  Such a block's decode cache spans several data shards
+(:class:`Rows`), and the layers that read it run once a shard.
 
 :class:`LockstepStep` runs such a step: eagerly on the CPU or with
 ``jit=False``; on the card, with every position on that card, captured
@@ -39,12 +54,344 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
-from .sharding import PlacedArray, current_mesh, gather, use_mesh
+from .sharding import PlacedArray, current_mesh, use_mesh
 
-__all__ = ["LockstepStep", "compute_blocks", "moe_chunk", "over_blocks",
-           "shard_env", "whole_batch", "write_blocks"]
+__all__ = ["LockstepStep", "Rows", "Shards", "cache_view", "compute_blocks",
+           "local_grad", "moe_chunk", "over_blocks", "per_position",
+           "recomputed", "shard_env", "sync_replicas", "unit_leaves",
+           "unit_map", "unit_params", "whole_batch", "write_blocks"]
 
 ITEM_10 = "ROADMAP.md, Queue 1 item 10 (Multi-card meshes)"
+
+
+class Shards:
+    """One leaf of a compute unit split over a mesh axis: ``parts``, the
+    part each position along ``axis`` holds, in position order, and
+    ``dim``, the dim they split.  Along ``model`` a part is the weight (or
+    decode-cache rows) that model position computes with; along ``data``
+    (the weight-stationary decode, ``REPRO_DECODE_WSTAT``) a part is a
+    position's FSDP shard, contracted where it lies.  Indexing and
+    ``unbind`` act on every part, as on the stacked tensor they split, so
+    a stacked tree of them is sliced by layer as a tree of tensors is."""
+
+    __slots__ = ("parts", "dim", "axis")
+
+    def __init__(self, parts, dim: int, axis: str = "model"):
+        self.parts = list(parts)
+        self.dim = dim
+        self.axis = axis
+
+    @property
+    def n(self) -> int:
+        return len(self.parts)
+
+    def _inner(self, parts):
+        return Shards(parts, self.dim - 1, self.axis)
+
+    def __getitem__(self, i: int) -> "Shards":
+        if self.dim == 0:
+            raise IndexError("indexing the split dim of a Shards")
+        return self._inner([p[i] for p in self.parts])
+
+    def unbind(self, dim: int = 0) -> tuple:
+        if dim != 0 or self.dim == 0:
+            raise ValueError("Shards unbind their leading, unsplit dim only")
+        each = [p.unbind(0) for p in self.parts]
+        return tuple(self._inner([u[i] for u in each])
+                     for i in range(len(each[0])))
+
+    def __repr__(self) -> str:
+        return (f"Shards({self.n} x {tuple(_first(self).shape)} over "
+                f"{self.axis!r}, dim {self.dim})")
+
+
+def _first(t):
+    while isinstance(t, Shards):
+        t = t.parts[0]
+    return t
+
+
+class Rows:
+    """A decode-cache leaf of a compute block that spans several data
+    shards (a MoE block): ``blocks``, ``(lo, hi, leaf)`` for each shard in
+    order, ``lo:hi`` its rows within the block and ``leaf`` those rows as
+    they lie (a tensor or :class:`Shards` over ``model``)."""
+
+    __slots__ = ("blocks",)
+
+    def __init__(self, blocks):
+        self.blocks = list(blocks)
+
+    def __getitem__(self, i: int) -> "Rows":
+        return Rows([(lo, hi, t[i]) for lo, hi, t in self.blocks])
+
+
+def per_position(n: int, fn: Callable, like) -> list:
+    """``[fn(0), ..., fn(n - 1)]``: the share of each of ``n`` positions
+    of a group, one after another.  Under a cost walker each runs at
+    ``1 / n`` of the current share (a position computes its own), and the
+    autograd nodes it creates are tagged so that their backward runs at
+    that share too; on meta tensors (``like`` is one) the parts have one
+    shape, so position 0 runs for all and is charged ``n`` times, forward
+    and backward."""
+    from ..launch import hlo_analysis
+    walker = hlo_analysis.active()
+    if walker is None:
+        return [fn(m) for m in range(n)]
+    meta = _first(like).device.type == "meta"
+    out = []
+    with walker.share(walker.weight / n):
+        for m in range(1 if meta else n):
+            start = _next_node()
+            if meta:
+                with walker.times(n):
+                    out.append(fn(m))
+            else:
+                out.append(fn(m))
+            walker.tag_nodes(start, _next_node(), n if meta else 1)
+    return out * n if meta else out
+
+
+def recomputed(fn: Callable) -> Callable:
+    """``fn`` as a checkpointed region runs it: under a cost walker its
+    recompute, which runs inside the backward, is charged as forward
+    work."""
+    from ..launch import hlo_analysis
+    walker = hlo_analysis.active()
+    if walker is None:
+        return fn
+
+    def run(*a):
+        with walker.forward():
+            return fn(*a)
+
+    return run
+
+
+def _next_node() -> int:
+    """The sequence number the next autograd node of this thread takes."""
+    import torch
+
+    from ..launch import hlo_analysis
+    with torch.enable_grad(), hlo_analysis.muted():
+        return torch.zeros((), requires_grad=True).neg().grad_fn._sequence_nr()
+
+
+# --------------------------------------------------------------------------
+# a unit's parameters: gathered over the data axes, split over `model`
+# --------------------------------------------------------------------------
+
+
+def _model_dim(sharding) -> int | None:
+    """The dim ``sharding`` splits over ``model`` alone, or None."""
+    if sharding.mesh.shape.get("model", 1) < 2:
+        return None
+    for d, entry in enumerate(sharding.spec):
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        if "model" in axes:
+            return d if axes == ("model",) else None
+    return None
+
+
+def _data_dim(sharding) -> int | None:
+    for d, entry in enumerate(sharding.spec):
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        if "data" in axes:
+            return d if axes == ("data",) else None
+    return None
+
+
+def _holders(a: PlacedArray, fixed: dict) -> dict:
+    """{block: the first position holding it}, over the blocks whose
+    index along each dim of ``fixed`` is its value."""
+    out: dict = {}
+    for q in range(len(a.shards)):
+        b = a.sharding.block(q, a.ndim)
+        if all(b[d] == i for d, i in fixed.items()):
+            out.setdefault(b, q)
+    return out
+
+
+def _region(t, a: PlacedArray, block: tuple, dim: int | None, m: int):
+    """The view of ``t`` — the part of ``a`` that model position ``m``
+    holds along ``dim`` (the whole array when ``dim`` is None) — where the
+    shard of ``block`` lies."""
+    local = a.sharding.shard_shape(a.shape)
+    for d, n in enumerate(local):
+        if n != t.shape[d]:
+            off = block[d] * n - (m * t.shape[d] if d == dim else 0)
+            t = t.narrow(d, off, n)
+    return t
+
+
+def _model_local(a: PlacedArray, m: int, dim: int):
+    """What model position ``m`` holds of ``a``: its shards along ``dim``
+    gathered over the other axes (one all-gather over the data axes,
+    charged by the caller); the shard itself when it is all of it."""
+    import torch
+
+    from ..launch import hlo_analysis
+    holders = _holders(a, {dim: m})
+    shape = list(a.shape)
+    shape[dim] //= a.sharding.parts(dim)
+    first = a.shards[next(iter(holders.values()))]
+    if len(holders) == 1 and list(first.shape) == shape:
+        return first
+    out = torch.empty(shape, dtype=a.dtype, device=first.device)
+    with hlo_analysis.muted():
+        for b, q in holders.items():
+            _region(out, a, b, dim, m).copy_(a.shards[q])
+    return out
+
+
+def _data_parts(a: PlacedArray, m: int, dim: int | None, ddim: int):
+    """The FSDP shards of ``a`` along ``ddim`` that model position ``m``
+    holds (``dim`` its model dim, or None), as they lie."""
+    fixed = {} if dim is None else {dim: m}
+    parts = []
+    for j in range(a.sharding.parts(ddim)):
+        q = next(iter(_holders(a, {**fixed, ddim: j}).values()))
+        parts.append(a.shards[q])
+    return Shards(parts, ddim, "data")
+
+
+def _wstat_leaf(path: str) -> bool:
+    """The weights the weight-stationary decode contracts where they lie:
+    every dense ``.../w`` that the model reads through ``linear`` or the
+    LM head (the router and Mamba-2's column-sliced ``in_proj`` are
+    gathered)."""
+    return path.endswith("/w") and not path.endswith(("router/w",
+                                                      "in_proj/w"))
+
+
+def unit_params(params: Any, split: Callable[[str], bool], *,
+                wstat: bool = False) -> Any:
+    """The compute units' parameters: every placed leaf of ``params``
+    gathered over the data axes.  A leaf split over ``model`` whose path
+    ``split`` accepts (``models.transformer.tp_split``: the leaves the
+    model forms read split) becomes :class:`Shards` of the model
+    positions' parts (shared by every data block); any other leaf is
+    gathered whole.
+    With ``wstat`` the dense weights (:func:`_wstat_leaf`) stay where they
+    lie, as :class:`Shards` over ``data``.  Under a cost walker a
+    position's gather is one all-gather over the axes it spans."""
+    from ..launch import hlo_analysis
+    walker = hlo_analysis.active()
+
+    def leaf(path, a):
+        if not isinstance(a, PlacedArray):
+            return a
+        sh = a.sharding
+        dim = _model_dim(sh)
+        if dim is not None and not split(path):
+            dim = -1                                # gathered whole
+        ddim = _data_dim(sh) if wstat and _wstat_leaf(path) else None
+        if dim == -1 or (dim is None and ddim is None):
+            return a.gather()
+        n = sh.mesh.shape.get("model", 1) if dim is not None else 1
+        if ddim is not None:
+            return (_data_parts(a, 0, None, ddim) if dim is None else
+                    Shards([_data_parts(a, m, dim, ddim) for m in range(n)],
+                           dim))
+        parts = [_model_local(a, m, dim) for m in range(n)]
+        if walker is not None:
+            walker.collective("all-gather",
+                              hlo_analysis.tensor_bytes(parts[0]),
+                              len(_holders(a, {dim: 0})))
+        return Shards(parts, dim)
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            return {k: walk(v, f"{path}/{k}" if path else str(k))
+                    for k, v in t.items()}
+        return leaf(path, t)
+
+    return walk(params, "")
+
+
+def unit_map(fn: Callable, tree: Any, *rest) -> Any:
+    """``fn`` over the tensors of a unit tree (nested dicts whose leaves are
+    tensors or :class:`Shards`), ``rest`` nested alike."""
+    if isinstance(tree, dict):
+        return {k: unit_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, Shards):
+        return Shards([unit_map(fn, p, *(r.parts[i] for r in rest))
+                       for i, p in enumerate(tree.parts)], tree.dim, tree.axis)
+    return fn(tree, *rest)
+
+
+def unit_leaves(tree: Any) -> list:
+    """The tensors of a unit tree, the parts of a :class:`Shards` in
+    position order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in unit_leaves(v)]
+    if isinstance(tree, Shards):
+        return [x for p in tree.parts for x in unit_leaves(p)]
+    return [tree]
+
+
+def local_grad(a: PlacedArray, g, q: int):
+    """Position ``q``'s slice of ``g``, the gradient of leaf ``a`` in its
+    unit form (a whole tensor, or :class:`Shards` over ``model``)."""
+    b = a.sharding.block(q, a.ndim)
+    if isinstance(g, Shards):
+        return _region(g.parts[b[g.dim]], a, b, g.dim, b[g.dim])
+    return a.sharding.local(g, q)
+
+
+# --------------------------------------------------------------------------
+# the decode cache where it lies
+# --------------------------------------------------------------------------
+
+
+def cache_view(cache: Any, r0: int, r1: int, pos) -> Any:
+    """The decode cache of the compute block of rows ``r0:r1`` as the model
+    reads and writes it: every leaf as views of the positions' shards
+    where they lie (:class:`Shards` over ``model`` where it is split
+    there, else the first holder's rows; :class:`Rows` where the block
+    spans several data shards), ``pos`` as ``pos`` given.  Nothing is
+    gathered or copied."""
+    from .sharding import cache_batch_dim
+
+    def leaf(path, a):
+        bd = cache_batch_dim(path, a.ndim)
+        if bd is None:
+            return pos
+        rows = a.shape[bd] // a.sharding.parts(bd)
+        dim = _model_dim(a.sharding)
+        n = a.sharding.mesh.shape.get("model", 1) if dim is not None else 1
+        out = []
+        for j in range(r0 // rows, (r1 - 1) // rows + 1):
+            lo, hi = max(r0, j * rows), min(r1, (j + 1) * rows)
+
+            def part(m, j=j, lo=lo, hi=hi):
+                fixed = {bd: j} if dim is None else {bd: j, dim: m}
+                q = next(iter(_holders(a, fixed).values()))
+                return a.shards[q].narrow(bd, lo - j * rows, hi - lo)
+
+            out.append((lo - r0, hi - r0, part(0) if dim is None else
+                        Shards([part(m) for m in range(n)], dim)))
+        return out[0][2] if len(out) == 1 else Rows(out)
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            return {k: walk(v, f"{path}/{k}" if path else str(k))
+                    for k, v in t.items()}
+        return leaf(path, t)
+
+    return walk(cache, "")
+
+
+def sync_replicas(a: PlacedArray) -> None:
+    """Copy every block of ``a`` from the first position holding it to
+    the others that hold it (the step wrote the first one)."""
+    holders: dict = {}
+    for q in range(len(a.shards)):
+        holders.setdefault(a.sharding.block(q, a.ndim), []).append(q)
+    for qs in holders.values():
+        for q in qs[1:]:
+            a.shards[q].copy_(a.shards[qs[0]])
 
 
 def moe_chunk(cfg) -> int | None:
@@ -76,63 +423,71 @@ def compute_blocks(rows: int, parts: int, row_tokens: int,
 
 
 def over_blocks(params: Any, blocks: list[tuple[int, int]],
-                fn: Callable, combine: str, *, microbatches: int = 1) -> Any:
-    """The body of every sharded step: gather the placed leaves of
-    ``params`` once, run ``fn(whole_params, r0, r1)`` on each compute block
-    ``(r0, r1)`` in order, and combine its results (a dict of tensors each,
-    nested alike) leaf by leaf: ``"cat"`` concatenates them along dim 0,
-    ``"sum"`` adds them in float32 in block order into one running sum, so
-    one block's results are alive beside it at a time.  The gathered
-    parameters are dropped before it returns.
+                fn: Callable, combine: str, *, split: Callable[[str], bool],
+                wstat: bool = False, microbatches: int = 1) -> Any:
+    """The body of every sharded step: build the units' parameters of
+    ``params`` once (:func:`unit_params` with ``split`` and ``wstat``), run
+    ``fn(unit_params, r0, r1)`` on each compute block ``(r0, r1)`` in
+    order, and combine its results (a dict of tensors or :class:`Shards`
+    each, nested alike) leaf by leaf: ``"cat"`` concatenates them along
+    dim 0, ``"sum"`` adds them in float32 in block order into one running
+    sum, so one block's results are alive beside it at a time.  The
+    gathered parameters are dropped before it returns.
 
     ``blocks`` may span ``microbatches`` equal microbatches one after
     another.  Under a cost walker (:mod:`repro_torch.launch.hlo_analysis`)
     each block runs at the share of the positions that compute it (its
     rows over a microbatch's), and the combination is one collective over
     the data axes: the sum an all-reduce, the concatenation an
-    all-gather.  On meta parameters a block's result and cost follow from
-    its row count alone, so a block of a row count already run is charged
-    that block's cost again and returns its result
+    all-gather, of a position's part.  On meta parameters a block's result
+    and cost follow from its row count alone, so a block of a row count
+    already run is charged that block's cost again and returns its result
     (:meth:`~repro_torch.launch.hlo_analysis.CostWalker.repeat`)."""
     import torch
 
     from ..launch import hlo_analysis
-    from ..models.layers import tree_leaves, tree_map
     walker = hlo_analysis.active()
     rows = sum(r1 - r0 for r0, r1 in blocks) / microbatches
-    whole = gather(params)
-    on_meta = all(t.device.type == "meta" for t in tree_leaves(whole))
+    unit = unit_params(params, split, wstat=wstat)
+    on_meta = all(t.device.type == "meta" for t in unit_leaves(unit))
     parts, acc, ran = [], None, {}
     for r0, r1 in blocks:
         if walker is None:
-            out = fn(whole, r0, r1)
+            out = fn(unit, r0, r1)
         elif on_meta and (r1 - r0) in ran:
             out = walker.repeat(ran[r1 - r0])
         else:
             with walker.block() as blk, walker.share((r1 - r0) / rows):
-                out = fn(whole, r0, r1)
+                out = fn(unit, r0, r1)
             ran[r1 - r0] = blk.result(out)
         with hlo_analysis.muted():
             if combine == "cat":
                 parts.append(out)
             elif acc is None:
-                acc = tree_map(lambda t: t.float(), out)
+                acc = unit_map(lambda t: t.float(), out)
             else:
-                for a, t in zip(tree_leaves(acc), tree_leaves(out)):
+                for a, t in zip(unit_leaves(acc), unit_leaves(out)):
                     a.add_(t.float())
-    del whole
+    del unit
     with hlo_analysis.muted():
-        result = acc if combine == "sum" else tree_map(
+        result = acc if combine == "sum" else unit_map(
             lambda *ts: torch.cat(ts), *parts)
     if walker is not None:
         mesh = current_mesh()
         group = (hlo_analysis.group_size(mesh, _data_axes(mesh))
                  if mesh is not None else len(blocks) // microbatches)
-        nbytes = sum(hlo_analysis.tensor_bytes(t)
-                     for t in tree_leaves(result))
+        nbytes = sum(hlo_analysis.tensor_bytes(_first(t))
+                     for t in _unit_tops(result))
         walker.collective("all-reduce" if combine == "sum" else "all-gather",
                           nbytes, group)
     return result
+
+
+def _unit_tops(tree: Any) -> list:
+    """The leaves of a unit tree, a :class:`Shards` one leaf."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _unit_tops(v)]
+    return [tree]
 
 
 def _data_axes(mesh) -> tuple:

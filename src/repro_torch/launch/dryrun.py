@@ -32,13 +32,13 @@ above its inputs; ``peak_per_device`` by the reference's formula);
 ``compile_s`` and ``memory.generated_code_bytes`` have no counterpart
 and are null (``note`` says why); ``ops`` counts the aten ops charged.
 
-Per device: a position's share.  Until tensor-parallel compute over
-``model`` is ported (ROADMAP.md, Queue 1 item 11) every position that
-shares data coordinates computes its data block in full
-(``replicated_model_compute: true``), so ``flops_per_device`` is a data
-block's, not the reference's GSPMD share.  The executor's work outside
-the blocks (the AdamW update of every shard, the cache write-back) is
-charged evenly over the positions.
+Per device: a position's share.  Compute is split over ``model`` as the
+reference's GSPMD lays it out (``replicated_model_compute: false``): a
+position is charged its data block's work of its model position (a split
+layer at ``1 / model``, what every position computes whole in full), the
+sums over ``model`` as all-reduces over the ``model`` group and the
+vocab gathers as all-gathers.  The executor's work outside the blocks
+(the AdamW update of every shard) is charged evenly over the positions.
 """
 
 from __future__ import annotations
@@ -262,7 +262,7 @@ def run_cell(arch_name: str, shape_name: str, mesh_kind: str, *, mesh=None,
         rec.update(status="ok", lower_s=lower_s, compile_s=None,
                    **walk_cell(run, memory, mesh),
                    xla_flops_raw=None, xla_bytes_raw=None, hlo_bytes=None,
-                   replicated_model_compute=True, note=NOTE)
+                   replicated_model_compute=False, note=NOTE)
     except Exception as e:  # noqa: BLE001 — recorded, not swallowed
         rec.update(status="error", error=f"{type(e).__name__}: {e}",
                    traceback=traceback.format_exc()[-4000:])

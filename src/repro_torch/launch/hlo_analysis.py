@@ -21,9 +21,10 @@ what the reference gets by multiplying through trip counts.
 * Collectives — what the port's lockstep executor really does reports
   itself to the active walker (:func:`active`): ``PlacedArray.gather``
   (an all-gather), the reductions in position order of
-  ``spmd.over_blocks`` (an all-reduce; its concatenation an all-gather)
-  and the in-step ``psum`` / ``all_gather``.  Each is charged with the
-  reference's ring formulas (:func:`_collective_moved`) for its group
+  ``spmd.over_blocks`` (an all-reduce; its concatenation an all-gather),
+  the group collectives of the tensor-parallel layer forms (inside a
+  compute block, at its share) and the in-step ``psum`` /
+  ``all_gather``.  Each is charged with the reference's ring formulas (:func:`_collective_moved`) for its group
   size, and its result bytes are added to ``bytes``, as the reference
   adds them; the copies that carry it out are not charged again.
 * Kernels — a kernel wrapper called on meta tensors returns a meta
@@ -34,8 +35,11 @@ what the reference gets by multiplying through trip counts.
 Per device: ``share(w)`` scales what the ops inside it charge to
 :attr:`CostWalker.cost`.  The dry-run (:mod:`repro_torch.launch.dryrun`)
 runs a step at share ``1 / positions`` (the executor does the mesh's work
-once: each position's share of it) and ``spmd.over_blocks`` runs each
-compute block at the share of the positions that compute it.
+once: each position's share of it), ``spmd.over_blocks`` runs each
+compute block at the share of the positions that compute it, and
+``spmd.per_position`` each model position's part of a layer at ``1 / n``
+of that (:meth:`CostWalker.times` charges one part for all on meta
+tensors).
 :attr:`CostWalker.total` charges everything in full: the work of the
 whole step as one device runs it when every position sits on it.
 
@@ -190,6 +194,8 @@ class CostWalker:
         self.block_temp = 0                   # max over blocks(): peak above
         self.blocks = 0                       # the block's start
         self._muted = 0
+        self._forward = 0
+        self._node_share: dict[int, tuple] = {}
         self._seen: dict[int, int] = {}
         self._mode = None
 
@@ -250,6 +256,20 @@ class CostWalker:
             blk.cost.add(self.cost)
             blk.total.add(self.total)
 
+    @contextlib.contextmanager
+    def times(self, n: int):
+        """What the ops inside charge, charged ``n`` times over: one of
+        ``n`` computations alike (the model positions of a unit on meta
+        tensors) run for all of them."""
+        blk = _Block(self)
+        try:
+            yield self
+        finally:
+            blk.cost.add(self.cost)
+            blk.total.add(self.total)
+            self.cost.add(blk.cost, n - 1.0)
+            self.total.add(blk.total, n - 1.0)
+
     def repeat(self, ran: "tuple[HloCost, HloCost, object]"):
         """Charge a block already run (``_Block.result``) once more and
         return its result: a block on meta tensors whose shapes repeat."""
@@ -260,19 +280,62 @@ class CostWalker:
         return out
 
     # ---------------------------------------------------------- reporting
-    def collective(self, op: str, nbytes: float, group: int) -> None:
+    def collective(self, op: str, nbytes: float, group: int, *,
+                   weight: float = 1.0) -> None:
         """A collective of ``op`` whose result is ``nbytes`` over a group
-        of ``group`` positions; a group of one moves nothing."""
+        of ``group`` positions; a group of one moves nothing.  ``weight``
+        scales what :attr:`cost` is charged: a collective inside a compute
+        block, which a device runs for its own block only, is charged at
+        the block's share."""
         if group < 2:
             return
-        for c in (self.cost, self.total):
-            c.collective[op] += _collective_moved(op, nbytes, group)
-            c.collective["count"] += 1
-            c.bytes += nbytes
+        for c, w in ((self.cost, weight), (self.total, 1.0)):
+            c.collective[op] += w * _collective_moved(op, nbytes, group)
+            c.collective["count"] += w
+            c.bytes += w * nbytes
+
+    # ------------------------------------------------- the backward's share
+    @contextlib.contextmanager
+    def forward(self):
+        """Within this context ops are forward ops at the current share,
+        even inside a backward node (a checkpointed region recomputed)."""
+        self._forward += 1
+        try:
+            yield self
+        finally:
+            self._forward -= 1
+
+    def tag_nodes(self, start: int, stop: int, mult: float) -> None:
+        """The autograd nodes of sequence numbers ``start:stop`` (created
+        by one position's part, at the current share) run their backward
+        at that share times ``mult`` and count ``mult`` times in
+        :attr:`total`: ``mult`` positions alike whose one part was run
+        for all (meta tensors), else 1.  A node already tagged by an inner
+        part keeps its share and multiplies its count."""
+        for seq in range(start, stop):
+            if seq in self._node_share:
+                w, m = self._node_share[seq]
+                self._node_share[seq] = (w, m * mult)
+            else:
+                self._node_share[seq] = (self.weight * mult, mult)
+
+    def _shares(self) -> tuple:
+        """(the share a charge takes now, how many times it counts in
+        :attr:`total`): a backward node tagged by :meth:`tag_nodes` gives
+        its own, anything else the current share, once."""
+        if not self._forward and self._node_share:
+            import torch
+            node = torch._C._current_autograd_node()
+            if node is not None:
+                got = self._node_share.get(node._sequence_nr())
+                if got is not None:
+                    return got
+        return self.weight, 1.0
 
     def _charge(self, flops: float, nbytes: float,
                 transcendentals: float) -> None:
-        for c, w in ((self.cost, self.weight), (self.total, 1.0)):
+        share, times = self._shares()
+        for c, w in ((self.cost, share), (self.total, times)):
             c.flops += w * flops
             c.bytes += w * nbytes
             c.transcendentals += w * transcendentals

@@ -19,6 +19,18 @@ Shapes follow the minimal reference implementation:
 ``ssd_block_fn`` is the inter-chunk recurrence in the dataflow-frontend
 vocabulary, so the ``ssd_scan`` op reaches the same kernel through
 routing.
+
+Inside a sharded step (``distributed/spmd.py``) the heads are split over
+``model``: ``out_proj``'s rows arrive as
+:class:`~repro_torch.distributed.spmd.Shards`, ``in_proj`` and ``conv``
+whole (the reference's specs split their packed z|x|B|C|dt columns at
+the middle, not by head).  Each model position projects its heads' z, x
+and dt columns and the whole B and C (one group), runs the SSD (the
+``ssd_chunk_scan`` kernel at its heads), and ``out_proj``'s partial
+outputs are summed over ``model`` in float32 and rounded once.  The
+decode advances each position's conv-cache columns where they lie,
+gathers the conv outputs over ``model``, and updates each position's
+heads of the state in place.
 """
 
 from __future__ import annotations
@@ -29,8 +41,11 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
-from .layers import (Params, _device, _normal, apply_norm, dense_init,
-                     linear, norm_init)
+from ..distributed.collectives import group_all_gather
+from ..distributed.spmd import per_position
+from .layers import (Params, _Fan, _device, _normal, _part, _split,
+                     apply_norm, dense_init, linear, linear_part, norm_init,
+                     row_linear)
 
 
 def _segsum(a):
@@ -144,24 +159,72 @@ def _split_proj(cfg: ArchConfig, proj):
     return z, xbc, dt, d_in, nheads
 
 
-def ssm_block_train(p: Params, xin, cfg: ArchConfig):
+def _columns(w, ranges):
+    """``w``'s columns in the ``(start, stop)`` ranges, in order."""
+    return torch.cat([w[:, a:b] for a, b in ranges], dim=1)
+
+
+def _conv_silu(xbc, w):
+    """The causal depthwise conv of ``w`` (cw, columns) over time, then
+    SiLU."""
+    S, cw = xbc.shape[1], w.shape[0]
+    pad = F.pad(xbc, (0, 0, cw - 1, 0))
+    return F.silu(sum(pad[:, i:i + S, :] * w[i][None, None, :]
+                      for i in range(cw)))
+
+
+def _ssd_gated(p: Params, cfg: ArchConfig, x, z, dtp, Bm, Cm, heads):
+    """The SSD of the heads ``heads`` over a sequence — x (B, S, heads ·
+    P) after the conv, their gate z and dt projection, B and C float32 —
+    with the D skip, gated by SiLU(z): the block's output before
+    ``out_proj``."""
     s = cfg.ssm
-    Bsz, S, _ = xin.shape
+    Bsz, S = x.shape[:2]
+    x = x.reshape(Bsz, S, -1, s.head_dim)
+    dt = F.softplus(dtp.float() + p["dt_bias"][heads])
+    A = -torch.exp(p["A_log"][heads])
+    y, _ = ssd_chunked(x, dt, A, Bm, Cm, min(s.chunk, S))
+    y = y + x * p["D"][heads][None, None, :, None].to(x.dtype)
+    return y.reshape(Bsz, S, -1) * F.silu(z)
+
+
+def _ssm_train_tp(p: Params, xin, cfg: ArchConfig):
+    """:func:`ssm_block_train` on a unit's shards: each position projects
+    its heads' z, x and dt columns and the whole B and C (one group),
+    runs the SSD over its heads, and ``out_proj``'s partial outputs are
+    summed over ``model``."""
+    s = cfg.ssm
+    n = p["out_proj"]["w"].n
+    d_in, N = cfg.d_model * s.expand, s.d_state
+    dm, hm = d_in // n, d_in // s.head_dim // n
+    w_in, w_conv = p["in_proj"]["w"], p["conv"]
+    take = _Fan(apply_norm(p["norm"], xin, cfg.norm))
+    dt0 = 2 * d_in + 2 * N
+
+    def one(m):
+        cols = [(m * dm, (m + 1) * dm), (d_in + m * dm, d_in + (m + 1) * dm),
+                (2 * d_in, dt0), (dt0 + m * hm, dt0 + (m + 1) * hm)]
+        z, x, bc, dtp = torch.tensor_split(
+            linear_part({"w": _columns(w_in, cols)}, take),
+            [dm, 2 * dm, 2 * dm + 2 * N], dim=-1)
+        x = _conv_silu(x, w_conv[:, m * dm:(m + 1) * dm])
+        bc = _conv_silu(bc, w_conv[:, d_in:]).float()
+        return _ssd_gated(p, cfg, x, z, dtp, bc[..., :N], bc[..., N:],
+                          slice(m * hm, (m + 1) * hm))
+
+    return xin + row_linear([_part(p, m)["out_proj"] for m in range(n)],
+                            per_position(n, one, xin), xin.dtype)
+
+
+def ssm_block_train(p: Params, xin, cfg: ArchConfig):
+    if _split(p["out_proj"]["w"]):
+        return _ssm_train_tp(p, xin, cfg)
+    s = cfg.ssm
     h = apply_norm(p["norm"], xin, cfg.norm)
-    z, xbc, dtp, d_in, nheads = _split_proj(cfg, linear(p["in_proj"], h))
-    # causal depthwise conv over (x, B, C)
-    w = p["conv"]
-    pad = F.pad(xbc, (0, 0, s.conv_width - 1, 0))
-    conv = sum(pad[:, i:i + S, :] * w[i][None, None, :]
-               for i in range(s.conv_width))
-    conv = F.silu(conv)
+    z, xbc, dtp, d_in, _ = _split_proj(cfg, linear(p["in_proj"], h))
+    conv = _conv_silu(xbc, p["conv"])
     x, Bm, Cm = torch.tensor_split(conv, [d_in, d_in + s.d_state], dim=-1)
-    x = x.reshape(Bsz, S, nheads, s.head_dim)
-    dt = F.softplus(dtp.float() + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
-    y, _ = ssd_chunked(x, dt, A, Bm.float(), Cm.float(), min(s.chunk, S))
-    y = y + x * p["D"][None, None, :, None].to(x.dtype)
-    y = y.reshape(Bsz, S, d_in) * F.silu(z)
+    y = _ssd_gated(p, cfg, x, z, dtp, Bm.float(), Cm.float(), slice(None))
     return xin + linear(p["out_proj"], y)
 
 
@@ -182,25 +245,77 @@ def init_ssm_cache(cfg: ArchConfig, batch: int, layers: int,
     }
 
 
+def _ssd_step_gated(p: Params, cfg: ArchConfig, x, z, dtp, Bm, Cm, state,
+                    heads):
+    """:func:`_ssd_gated` for one token: x (B, heads · P) after the conv,
+    ``state`` those heads' (B, heads, P, N).  Returns (y, state)."""
+    s = cfg.ssm
+    Bsz = x.shape[0]
+    x = x.reshape(Bsz, -1, s.head_dim)
+    dt = F.softplus(dtp.float() + p["dt_bias"][heads])
+    A = -torch.exp(p["A_log"][heads])
+    y, state = ssd_decode_step(state, x.float(), dt, A, Bm, Cm)
+    y = y + x.float() * p["D"][heads][None, :, None]
+    return y.reshape(Bsz, 1, -1).to(x.dtype) * F.silu(z), state
+
+
+def _ssm_decode_tp(p: Params, xin, cfg: ArchConfig, *, state, conv_buf):
+    """:func:`ssm_block_decode` on a unit's shards, the state (heads) and
+    the conv buffer (packed x|B|C columns) split over ``model`` and written
+    in place where they lie."""
+    s = cfg.ssm
+    d_in = cfg.d_model * s.expand
+    N = s.d_state
+    h = apply_norm(p["norm"], xin, cfg.norm)
+    w_in = p["in_proj"]["w"]
+    cc = conv_buf.parts[0].shape[-1]
+
+    def advance(m):
+        # the position's conv-buffer columns: its slice of x|B|C
+        xbc = linear_part({"w": w_in[:, d_in + m * cc:d_in + (m + 1) * cc]},
+                          h[:, 0])
+        hist = torch.cat([conv_buf.parts[m], xbc[:, None]], dim=1)
+        conv = torch.einsum("bcw,cw->bw", hist.float(),
+                            p["conv"][:, m * cc:(m + 1) * cc].float())
+        conv_buf.parts[m].copy_(hist[:, 1:])
+        return F.silu(conv).to(xin.dtype)
+
+    conv = group_all_gather(per_position(conv_buf.n, advance, xin), -1)
+    n = state.n
+    dm, hm = d_in // n, d_in // s.head_dim // n
+    Bm, Cm = conv[:, d_in:d_in + N].float(), conv[:, d_in + N:].float()
+    dt0 = 2 * d_in + 2 * N
+
+    def one(m):
+        z = linear_part({"w": w_in[:, m * dm:(m + 1) * dm]}, h)
+        dtp = linear_part({"w": w_in[:, dt0 + m * hm:dt0 + (m + 1) * hm]},
+                          h[:, 0])
+        y, st = _ssd_step_gated(p, cfg, conv[:, m * dm:(m + 1) * dm], z, dtp,
+                                Bm, Cm, state.parts[m],
+                                slice(m * hm, (m + 1) * hm))
+        state.parts[m].copy_(st)
+        return y
+
+    return (xin + row_linear([_part(p, m)["out_proj"] for m in range(n)],
+                             per_position(n, one, xin), xin.dtype), state,
+            conv_buf)
+
+
 def ssm_block_decode(p: Params, xin, cfg: ArchConfig, *, state, conv_buf):
     """xin: (B, 1, D).  Returns (y, state, conv_buf)."""
+    if _split(p["out_proj"]["w"]):
+        return _ssm_decode_tp(p, xin, cfg, state=state, conv_buf=conv_buf)
     s = cfg.ssm
-    Bsz = xin.shape[0]
     h = apply_norm(p["norm"], xin, cfg.norm)
-    z, xbc, dtp, d_in, nheads = _split_proj(cfg, linear(p["in_proj"], h))
+    z, xbc, dtp, d_in, _ = _split_proj(cfg, linear(p["in_proj"], h))
     xbc = xbc[:, 0]                                   # (B, d_in+2N)
     hist = torch.cat([conv_buf, xbc[:, None]], dim=1)  # (B, cw, *)
     conv = torch.einsum("bcw,cw->bw", hist.float(), p["conv"].float())
     conv = F.silu(conv).to(xin.dtype)
     conv_buf = hist[:, 1:]
     x, Bm, Cm = torch.tensor_split(conv, [d_in, d_in + s.d_state], dim=-1)
-    x = x.reshape(Bsz, nheads, s.head_dim)
-    dt = F.softplus(dtp[:, 0].float() + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
-    y, state = ssd_decode_step(state, x.float(), dt, A, Bm.float(),
-                               Cm.float())
-    y = y + x.float() * p["D"][None, :, None]
-    y = y.reshape(Bsz, 1, d_in).to(xin.dtype) * F.silu(z)
+    y, state = _ssd_step_gated(p, cfg, x, z, dtp[:, 0], Bm.float(),
+                               Cm.float(), state, slice(None))
     return xin + linear(p["out_proj"], y), state, conv_buf
 
 

@@ -19,12 +19,20 @@ moonshot), ``ssm`` (mamba2), ``hybrid`` (recurrentgemma rglru:rglru:attn),
 ``audio`` (whisper enc-dec, frame embeddings stubbed), ``vlm`` (internvl,
 patch embeddings stubbed).
 
-``shard_hint`` is the identity (a position's activations are whole local
-tensors of its own program, ``distributed/sharding.py``), so the
-reference's ``REPRO_DECODE_WSTAT`` hint, which only places the decode
-step's embeddings over ``data``, changes no value and is not read: it
-comes back with tensor-parallel compute over ``model`` (``ROADMAP.md``,
-Queue 1 item 11).
+``shard_hint`` is the identity: a compute unit's activations are whole
+local tensors (``distributed/spmd.py``).  Inside a sharded step the
+parameters split over ``model`` reach the blocks as
+:class:`~repro_torch.distributed.spmd.Shards` (which leaves:
+:func:`tp_split`), and the layer forms of ``layers.py``, ``ssm.py`` and
+``rglru.py`` compute each model position's part; ``loss_sums`` takes the
+vocab-parallel cross-entropy, and the decode step reads and writes each
+position's cache shard where it lies (a block spanning several data
+shards of it decodes its cache layers once a shard).  Outside a mesh
+every function here is the plain form, unchanged.  ``REPRO_DECODE_WSTAT``
+(read at import) is the reference's weight-stationary decode: the sharded
+serve step leaves the dense weights where they lie over ``data``, each
+position contracts its FSDP shard of the hidden's model dim, and the
+partial sums are summed over ``data`` (``layers._mm``).
 
 ``remat`` is activation checkpointing where the reference wraps
 ``jax.checkpoint``: each pattern group of the backbone, each decoder layer
@@ -55,7 +63,11 @@ from .layers import (Params, _device, apply_norm, attention_decode,
                      attention_train, cross_attention, dense_init, embed,
                      encode_kv, ffn_apply, init_attention, init_embed,
                      init_ffn, init_moe, moe_apply, norm_init, tree_leaves,
-                     tree_map, unembed)
+                     tree_map, unembed, unembed_parts, vocab_parallel_nll)
+
+# REPRO_DECODE_WSTAT=1  the weight-stationary decode (read at import, as
+# the reference reads it at trace time; see the module docstring).
+_DECODE_WSTAT = os.environ.get("REPRO_DECODE_WSTAT", "0") == "1"
 
 # --------------------------------------------------------------------------
 # Per-block init/apply
@@ -123,6 +135,29 @@ def _block_train(p: Params, x, cfg: ArchConfig, kind: str, *, enc_out=None):
         h = apply_norm(p["norm2"], x, cfg.norm)
         return x + ffn_apply(p["mlp"], h, cfg)
     raise ValueError(kind)
+
+
+def tp_split(cfg: ArchConfig, n: int):
+    """Which parameter leaves (by path, ``groups/b0_attn/attn/wq/w``) the
+    tensor-parallel forms read split over ``n`` model positions: the
+    reference's ``param_specs`` split the others too, but their forms read
+    them whole (Mamba-2's ``in_proj`` / ``conv``, packed z|x|B|C|dt; K/V
+    where the KV heads do not divide; a layer whose heads do not divide)."""
+    def split(path: str) -> bool:
+        if n < 2:
+            return False
+        keys = path.split("/")
+        if "attn" in keys or "xattn" in keys:
+            if cfg.n_heads % n:
+                return False
+            return keys[-2] not in ("wk", "wv") or cfg.n_kv_heads % n == 0
+        if "ssm" in keys:
+            s = cfg.ssm
+            heads = cfg.d_model * s.expand // s.head_dim
+            return path.endswith("out_proj/w") and heads % n == 0
+        return "rec" in keys or "mlp" in keys or keys[0] in ("embed",
+                                                              "lm_head")
+    return split
 
 
 # --------------------------------------------------------------------------
@@ -227,13 +262,15 @@ def _checkpoint(fn, *args, policy: bool = True):
     ``jax.checkpoint``; its ``_checkpoint`` with ``policy``, which reads
     ``REPRO_REMAT_POLICY``)."""
     from torch.utils.checkpoint import checkpoint
+
+    from ..distributed.spmd import recomputed
     kw = {}
     if policy and _REMAT_POLICY == "dots":
         from torch.utils.checkpoint import \
             create_selective_checkpoint_contexts
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _dots_saveable)
-    return checkpoint(fn, *args, use_reentrant=False,
+    return checkpoint(recomputed(fn), *args, use_reentrant=False,
                       preserve_rng_state=False, **kw)
 
 
@@ -341,6 +378,11 @@ def loss_sums(params: Params, batch: dict, cfg: ArchConfig,
     c = _loss_chunk(S, loss_chunk)
 
     def chunk_nll(xc, lc):
+        parts = unembed_parts(params["embed"], params.get("lm_head"), xc, cfg)
+        if parts is not None:          # the head's vocab split over `model`
+            mask = (lc >= 0).float()
+            nll = vocab_parallel_nll(parts, torch.clamp(lc, min=0).long())
+            return (nll * mask).sum(), mask.sum()
         logits = unembed(params["embed"], params.get("lm_head"), xc, cfg)
         logits = shard_hint(logits, BATCH, None, "model").float()
         logz = torch.logsumexp(logits, dim=-1)
@@ -444,41 +486,66 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
     return cache
 
 
+def _by_rows(bc: Params, x, fn):
+    """``fn(x, bc)``; where the block's cache spans several data shards
+    (:class:`~repro_torch.distributed.spmd.Rows`), once a shard on its
+    rows of ``x``, the outputs concatenated."""
+    from ..distributed.spmd import Rows
+    first = tree_leaves(bc)[0]
+    if not isinstance(first, Rows):
+        return fn(x, bc)
+    outs = []
+    for j, (lo, hi, _) in enumerate(first.blocks):
+        outs.append(fn(x[lo:hi], tree_map(lambda r: r.blocks[j][2], bc)))
+    return torch.cat(outs)
+
+
+def _into(dst, src) -> None:
+    """Write a decode state into its cache leaf (the tensor-parallel forms
+    wrote theirs in place)."""
+    if src is not dst:
+        dst.copy_(src)
+
+
 def _block_decode(p: Params, x, cfg: ArchConfig, kind: str, bc: Params,
                   pos, enc_out=None):
     """Returns (x, the block cache ``bc`` written in place)."""
-    if kind == "attn":
+    if kind in ("attn", "xattn"):
         window = _attn_window(cfg, kind)
         h = apply_norm(p["norm1"], x, cfg.norm)
-        y, _, _ = attention_decode(p["attn"], h, cfg, k_cache=bc["k"],
-                                   v_cache=bc["v"], pos=pos, window=window)
-        x = x + y
+        x = x + _by_rows(bc, h, lambda hh, c: attention_decode(
+            p["attn"], hh, cfg, k_cache=c["k"], v_cache=c["v"], pos=pos,
+            window=window)[0])
+        if kind == "xattn":
+            h = apply_norm(p["norm_x"], x, cfg.norm)
+            ekv = encode_kv(p["xattn"], enc_out, cfg)
+            x = x + cross_attention(p["xattn"], h, ekv, cfg)
+            h = apply_norm(p["norm2"], x, cfg.norm)
+            return x + ffn_apply(p["mlp"], h, cfg), bc
         h = apply_norm(p["norm2"], x, cfg.norm)
         return x + _mlp(p["mlp"], h, cfg), bc
     if kind == "rglru":
-        x, hs, cb = rg.rglru_block_decode(p["rec"], x, cfg, h_state=bc["h"],
-                                          conv_buf=bc["conv"])
-        bc["h"].copy_(hs)
-        bc["conv"].copy_(cb)
+        def rec(xx, c):
+            y, hs, cb = rg.rglru_block_decode(p["rec"], xx, cfg,
+                                              h_state=c["h"],
+                                              conv_buf=c["conv"])
+            _into(c["h"], hs)
+            _into(c["conv"], cb)
+            return y
+
+        x = _by_rows(bc, x, rec)
         h = apply_norm(p["norm2"], x, cfg.norm)
         return x + ffn_apply(p["mlp"], h, cfg), bc
     if kind == "ssm":
-        x, st, cb = ssm_mod.ssm_block_decode(p["ssm"], x, cfg,
-                                             state=bc["state"],
-                                             conv_buf=bc["conv"])
-        bc["state"].copy_(st)
-        bc["conv"].copy_(cb)
-        return x, bc
-    if kind == "xattn":
-        h = apply_norm(p["norm1"], x, cfg.norm)
-        y, _, _ = attention_decode(p["attn"], h, cfg, k_cache=bc["k"],
-                                   v_cache=bc["v"], pos=pos, window=0)
-        x = x + y
-        h = apply_norm(p["norm_x"], x, cfg.norm)
-        ekv = encode_kv(p["xattn"], enc_out, cfg)
-        x = x + cross_attention(p["xattn"], h, ekv, cfg)
-        h = apply_norm(p["norm2"], x, cfg.norm)
-        return x + ffn_apply(p["mlp"], h, cfg), bc
+        def mix(xx, c):
+            y, st, cb = ssm_mod.ssm_block_decode(p["ssm"], xx, cfg,
+                                                 state=c["state"],
+                                                 conv_buf=c["conv"])
+            _into(c["state"], st)
+            _into(c["conv"], cb)
+            return y
+
+        return _by_rows(bc, x, mix), bc
     raise ValueError(kind)
 
 

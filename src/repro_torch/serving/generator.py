@@ -25,11 +25,15 @@ On a mesh, :func:`jit_serve_step` and :func:`jit_prefill_step` are the
 reference's steps with their in and out shardings (parameters by
 ``param_specs``, the cache by ``cache_specs``, the batch by
 ``batch_specs``), run by the lockstep executor of
-:mod:`~repro_torch.distributed.spmd`: the parameters gathered, the model
-run once for each data-parallel block of the batch.  The serve step's
-cache is donated: every position's cache shards are written in place,
-and the step is captured into one CUDA graph on the card as
-:class:`ServeStep` is.  Its tokens come back placed over the data axes,
+:mod:`~repro_torch.distributed.spmd`: the parameters gathered over the
+data axes, the model run once for each data-parallel block of the batch,
+each model position computing its part (heads, columns, experts, vocab
+slice).  The serve step's cache is donated: every position reads and
+writes its own cache shards where they lie, nothing of the cache is
+gathered, and the step is captured into one CUDA graph on the card as
+:class:`ServeStep` is.  Under ``REPRO_DECODE_WSTAT`` its dense weights are
+not gathered at all: each position contracts its FSDP shard and the
+partial sums meet over ``data``.  Its tokens come back placed over the data axes,
 its logits whole; the prefill step runs eagerly, as the unsharded prefill
 does, and returns its logits whole.
 """
@@ -46,7 +50,7 @@ from ..configs.base import ArchConfig
 from ..distributed import spmd
 from ..distributed.sharding import (BATCH, P, NamedSharding, PlacedArray,
                                     as_shardings, batch_specs,
-                                    cache_batch_dim, cache_specs,
+                                    cache_specs,
                                     param_specs, place, use_mesh)
 from ..models import transformer as tf
 from ..models.layers import (tree_from_paths, tree_leaves, tree_map,
@@ -119,8 +123,10 @@ class ShardedServeStep:
     donated, every position's shards written in place.  ``tokens`` (B,)
     is copied into the step's buffer, split over the data axes;
     ``next_tok`` comes back placed so, ``logits`` whole on the mesh's
-    first device.  Each data-parallel block of the batch decodes once on
-    the gathered parameters and its rows of the gathered cache."""
+    first device.  Each data-parallel block of the batch decodes once,
+    each model position computing its part against its own cache shards
+    (:func:`~repro_torch.distributed.spmd.cache_view`), read and written
+    where they lie."""
 
     def __init__(self, cfg: ArchConfig, mesh, pspecs, cspecs, *,
                  jit: bool = True):
@@ -137,18 +143,11 @@ class ShardedServeStep:
         params, tokens, cache = self._cur
         cfg = self.cfg
         tok = tokens.gather()
-        whole = tree_map(lambda a: a.gather(), cache)
-        paths = tree_paths(whole, "")
-        pos = whole["pos"]
+        pos = cache["pos"].shards[0]
 
-        def decode(full_p, r0, r1):
-            rows = {}
-            for path, leaf in paths.items():
-                d = cache_batch_dim(path.lstrip("/"), leaf.dim())
-                rows[path] = (pos.clone() if d is None
-                              else leaf.narrow(d, r0, r1 - r0))
-            lg, _ = tf.decode_step(full_p, tok[r0:r1],
-                                   tree_from_paths(whole, rows, ""), cfg)
+        def decode(unit, r0, r1):
+            view = spmd.cache_view(cache, r0, r1, pos.clone())
+            lg, _ = tf.decode_step(unit, tok[r0:r1], view, cfg)
             return {"next_tok": torch.argmax(lg, dim=-1).to(torch.int32),
                     "logits": lg}
 
@@ -156,10 +155,14 @@ class ShardedServeStep:
             params, spmd.compute_blocks(tok.shape[0],
                                         tokens.sharding.parts(0), 1,
                                         spmd.moe_chunk(cfg)),
-            decode, "cat")
-        pos.add_(1)
+            decode, "cat",
+            split=tf.tp_split(cfg, self.mesh.shape.get("model", 1)),
+            wstat=tf._DECODE_WSTAT)
+        for s_ in cache["pos"].shards:
+            s_.add_(1)
         for path, leaf in tree_paths(cache, "").items():
-            spmd.write_blocks(leaf, paths[path])
+            if not path.endswith(("/pos", "/enc_out")):   # enc_out: read only
+                spmd.sync_replicas(leaf)
         return out
 
     def __call__(self, params, tokens, cache):
@@ -199,7 +202,7 @@ class ShardedPrefillStep:
     """The prefill step of ``cfg`` on ``mesh``: ``step(params, batch) ->
     logits`` (B, vocab), whole.  Parameters placed by ``param_specs``; each
     data-parallel block of the batch (its shards by ``batch_specs``) runs
-    ``prefill`` once on the gathered parameters, eagerly."""
+    ``prefill`` once, each model position computing its part, eagerly."""
 
     def __init__(self, cfg: ArchConfig, mesh, pspecs, bspecs):
         self.cfg, self.mesh = cfg, mesh
@@ -217,9 +220,10 @@ class ShardedPrefillStep:
             batch["tokens"].shape[1] + cfg.n_patches, spmd.moe_chunk(cfg))
         with use_mesh(self.mesh):
             return spmd.over_blocks(
-                params, blocks, lambda full_p, r0, r1: tf.prefill(
-                    full_p, {k: v[r0:r1] for k, v in batch.items()}, cfg),
-                "cat")
+                params, blocks, lambda unit, r0, r1: tf.prefill(
+                    unit, {k: v[r0:r1] for k, v in batch.items()}, cfg),
+                "cat", split=tf.tp_split(cfg, self.mesh.shape.get("model",
+                                                                  1)))
 
 
 def jit_prefill_step(cfg: ArchConfig, mesh, params_or_shapes, batch_like

@@ -32,13 +32,18 @@ for tests, and restart (:func:`resume`).  ``train_compiled`` /
 On a mesh, :func:`jit_train_step` is the reference's step with its in and
 out shardings (parameters and AdamW state by ``param_specs``, the batch by
 ``batch_specs``): a :class:`ShardedTrainStep` run by the lockstep executor
-of :mod:`~repro_torch.distributed.spmd`.  It gathers the parameters, takes
+of :mod:`~repro_torch.distributed.spmd`.  It gathers the parameters over
+the data axes (the leaves split over ``model`` stay split: each model
+position computes its heads, columns, experts and vocab slice), takes
 the gradient of Σ nll·mask over each data-parallel block of the batch
 divided by the whole batch's Σ mask (the sums and counts reduced across
 the positions before the division, as the token-weighted mean needs),
 sums the blocks' gradients in float32 in position order, clips by the
 norm of that whole gradient (each element counted once), and writes
-every position's AdamW update of its own shards in place.  ``train``
+every position's AdamW update of its own shards in place.  A model
+position's gradient is its own part's; a leaf every position reads whole
+(norms, ``lam``, ``A_log``, the router) gathers its gradient from every
+position's use, the sum over ``model``.  ``train``
 runs it when the parameters it is given are placed on a mesh (``resume``
 with ``shardings`` places them), and checkpoints gathered leaves.
 ``build_train_step(compress_grads=True, dp_axes=...)`` all-reduces the
@@ -85,6 +90,20 @@ def value_and_grad(loss_of: Callable, params: Any, batch: dict):
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
     return loss.detach(), _unflatten(params, grads)
+
+
+def unit_value_and_grad(loss_of: Callable, unit: Any, batch: dict):
+    """:func:`value_and_grad` over a compute unit's parameters
+    (:func:`~repro_torch.distributed.spmd.unit_params`): the gradient of
+    every part of a leaf split over ``model``, in the unit tree's form."""
+    live = spmd.unit_map(lambda p: p.detach().requires_grad_(True), unit)
+    leaves = spmd.unit_leaves(live)
+    with torch.enable_grad():
+        loss = loss_of(live, batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    it = iter(torch.zeros_like(p) if g is None else g
+              for p, g in zip(leaves, grads))
+    return loss.detach(), spmd.unit_map(lambda _: next(it), unit)
 
 
 def build_train_step(cfg: ArchConfig, oc: OptConfig | None = None, *,
@@ -166,9 +185,10 @@ class ShardedTrainStep:
     (``loss``, ``grad_norm``, ``lr``) on the mesh's first device.
 
     Each data-parallel block of the batch (:func:`~repro_torch.
-    distributed.spmd.compute_blocks`) runs the model once on the gathered
-    parameters; see the module docstring for the reduction.  On one data
-    block the step is the unsharded step bit for bit."""
+    distributed.spmd.compute_blocks`) runs the model once, each model
+    position computing its part; see the module docstring for the
+    reduction.  On a 1 x 1 mesh the step is the unsharded step bit for
+    bit."""
 
     OUTPUTS = ("loss", "grad_norm", "lr")
 
@@ -216,23 +236,24 @@ class ShardedTrainStep:
                                      batch["tokens"].shape[1] + cfg.n_patches,
                                      spmd.moe_chunk(cfg))
 
-        def grad(full, r0, r1):
+        def grad(unit, r0, r1):
             cnt = cnts[r0 // rows]
 
             def loss_of(p, b):
                 return tf.loss_sums(p, b, cfg, remat=self.remat)[0] / cnt
 
-            loss, g = value_and_grad(
-                loss_of, full, {k: v[r0:r1] for k, v in batch.items()})
+            loss, g = unit_value_and_grad(
+                loss_of, unit, {k: v[r0:r1] for k, v in batch.items()})
             return {"loss": loss, "grads": g}
 
-        out = spmd.over_blocks(params, [(i * rows + r0, i * rows + r1)
-                                        for i in range(accum)
-                                        for r0, r1 in blocks], grad, "sum",
-                               microbatches=accum)
+        out = spmd.over_blocks(
+            params, [(i * rows + r0, i * rows + r1) for i in range(accum)
+                     for r0, r1 in blocks], grad, "sum",
+            split=tf.tp_split(cfg, self.mesh.shape.get("model", 1)),
+            microbatches=accum)
         loss, acc = out["loss"], out["grads"]
         if accum > 1:
-            acc = tree_map(lambda g: g / accum, acc)
+            acc = spmd.unit_map(lambda g: g / accum, acc)
             loss = loss / accum
         # every distinct block of every leaf updated once, on the first
         # position that holds it, then copied to the others that hold it
@@ -244,7 +265,7 @@ class ShardedTrainStep:
                 holders.setdefault(p.sharding.block(q, p.ndim), []).append(q)
             for qs in holders.values():
                 q0 = qs[0]
-                views.append((p.shards[q0], p.sharding.local(g, q0),
+                views.append((p.shards[q0], spmd.local_grad(p, g, q0),
                               m.shards[q0], v.shards[q0]))
                 held.append([(p.shards[q], m.shards[q], v.shards[q])
                              for q in qs[1:]])
@@ -252,7 +273,8 @@ class ShardedTrainStep:
         col = [dict(enumerate(x[j] for x in views)) for j in range(4)]
         metrics = adamw_update_(col[1], {"m": col[2], "v": col[3],
                                          "step": step0},
-                                col[0], self.oc, norm=global_norm(acc))
+                                col[0], self.oc, norm=global_norm(dict(
+                                    enumerate(spmd.unit_leaves(acc)))))
         for (p0, _, m0, v0), others in zip(views, held):
             for p_, m_, v_ in others:
                 p_.copy_(p0)

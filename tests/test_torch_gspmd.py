@@ -217,13 +217,15 @@ def test_moe_blocks_follow_the_dispatch_chunk(monkeypatch):
 
 
 def test_one_data_block_is_the_unsharded_step_bit_for_bit():
-    """On a mesh with one data position (1 x 2) the sharded step is the
+    """On a mesh of one position (1 x 1) the sharded step — placement,
+    units, the block reduction and the update of every shard — is the
     unsharded ``build_train_step`` bit for bit: the same gradient, norm and
-    update, each position writing its slice."""
+    update.  (With two model positions the split sums in another order:
+    ``test_one_data_block_over_two_model_positions_matches_reference``.)"""
     _, cfg, rp_np = _pair("recurrentgemma-9b")
     tp = M.params_from_numpy(rp_np, device="cpu")
     want_p, want_s = tree_map(torch.clone, tp), opt.adamw_init(tp)
-    step = tl.jit_train_step(cfg, _mesh((1, 2)), tp, _batch(cfg, 0),
+    step = tl.jit_train_step(cfg, _mesh((1, 1)), tp, _batch(cfg, 0),
                              opt.OptConfig(**OC))
     plain = tl.build_train_step(cfg, opt.OptConfig(**OC))
     p, s = tp, opt.adamw_init(tp)
@@ -237,6 +239,37 @@ def test_one_data_block_is_the_unsharded_step_bit_for_bit():
     for a, b in zip(tree_leaves(gather({"p": p, "s": s})),
                     tree_leaves({"p": want_p, "s": want_s})):
         assert torch.equal(a, b)
+
+
+def test_one_data_block_over_two_model_positions_matches_reference():
+    """One data block over two model positions (1 x 2): the heads, channels
+    and vocab split over ``model``, held to the reference's step within
+    the bands of ``test_sharded_train_steps_match_reference``."""
+    rcfg, cfg, rp_np = _pair("recurrentgemma-9b")
+    rp = jax.tree.map(jax.numpy.asarray, rp_np)
+    ro = ref_opt.adamw_init(rp)
+    rstep = ref_tl.jit_train_step(rcfg, _ref_mesh(), rp, _batch(cfg, 0),
+                                  ref_opt.OptConfig(**OC))
+    tp = M.params_from_numpy(rp_np, device="cpu")
+    to = opt.adamw_init(tp)
+    step = tl.jit_train_step(cfg, _mesh((1, 2)), tp, _batch(cfg, 0),
+                             opt.OptConfig(**OC))
+    for i in range(2):
+        b = _batch(cfg, i)
+        with ref_use_mesh(_ref_mesh()):
+            rp, ro, rm = rstep(rp, ro, {k: jax.numpy.asarray(v)
+                                        for k, v in b.items()})
+        tp, to, tm = step(tp, to, b)
+        assert float(tm["loss"]) == pytest.approx(float(rm["loss"]),
+                                                  rel=LOSS_RTOL)
+    got = _flat(tp)
+    for k, v in _flat(jax.device_get(rp)).items():
+        np.testing.assert_allclose(got[k], v, rtol=0, atol=PARAM_ATOL,
+                                   err_msg=k)
+    got = _flat({"m": to["m"], "v": to["v"]})
+    for k, v in _flat({"m": jax.device_get(ro["m"]),
+                       "v": jax.device_get(ro["v"])}).items():
+        assert _rel(got[k], v) <= GRAD_BAND, k
 
 
 def test_accumulated_sharded_step_matches_reference():

@@ -323,7 +323,8 @@ def test_dryrun_record_has_every_reference_key(smoke_records, arch, kind):
     for key in ("xla_flops_raw", "xla_bytes_raw", "hlo_bytes", "compile_s"):
         assert rec[key] is None
     assert rec["memory"]["generated_code_bytes"] is None
-    assert "hlo_bytes" in rec["note"] and rec["replicated_model_compute"]
+    assert "hlo_bytes" in rec["note"]
+    assert rec["replicated_model_compute"] is False
     assert rec["ops"] > 0 and rec["flops_per_device"] > 0
     assert rec["collective"]["total"] == sum(
         v for k, v in rec["collective"].items() if k not in ("count", "total"))

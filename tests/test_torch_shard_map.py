@@ -25,9 +25,9 @@ collectives, ``compressed_allreduce`` and the mesh forms of the
 * ``REPRO_ATTN_SEQSHARD`` and ``REPRO_ATTN_OPT`` (module globals patched
   in both packages) through ``jit_prefill_step`` at (2, 4096), where the
   attention is blockwise, against the reference's ``jit_prefill_step``
-  under the same switches; the reference's ``REPRO_DECODE_WSTAT`` through
-  ``jit_serve_step`` (the port reads no such switch: its placement hint
-  changes no value).
+  under the same switches; ``REPRO_DECODE_WSTAT`` (patched in both)
+  through ``jit_serve_step``, where the port contracts its dense weights
+  where they lie over ``data``.
 """
 
 import numpy as np
@@ -332,9 +332,9 @@ def test_compressed_train_step_under_shard_map_matches_reference():
 def test_attention_switches_on_a_mesh_match_reference(monkeypatch, switches):
     """The sharded prefill at (2, 4096) on a 2 x 2 mesh (blockwise
     attention, eight q blocks) against the reference's
-    ``jit_prefill_step`` under the same switches.  The port's activations
-    are whole local tensors, so its plain loop over q blocks is what it
-    runs under them."""
+    ``jit_prefill_step`` under the same switches: the port splits the q
+    block groups over its two model positions (``REPRO_ATTN_SEQSHARD``),
+    each repeating its KV heads to its query heads (``REPRO_ATTN_OPT``)."""
     for name in switches:
         for mod in (ref_layers, layers):
             monkeypatch.setattr(mod, name, True)
@@ -352,10 +352,12 @@ def test_attention_switches_on_a_mesh_match_reference(monkeypatch, switches):
 
 
 def test_decode_wstat_on_a_mesh_matches_reference(monkeypatch):
-    """The reference's weight-stationary decode (``REPRO_DECODE_WSTAT``,
-    a placement hint over ``data``) against the port's sharded serve
-    step, which has no placement to make and reads no such switch."""
+    """The weight-stationary decode (``REPRO_DECODE_WSTAT``) in both
+    packages: the reference's placement hint over ``data`` against the
+    port's sharded serve step contracting each dense weight's FSDP shards
+    where they lie, the partial sums summed over ``data``."""
     monkeypatch.setattr(ref_tf, "_DECODE_WSTAT", True)
+    monkeypatch.setattr(tf, "_DECODE_WSTAT", True)
     arch = "recurrentgemma-9b"
     rcfg, cfg = ref_get_config(arch).smoke(), get_config(arch).smoke()
     rp = RM.init_params(rcfg, jax.random.PRNGKey(0))
