@@ -1871,7 +1871,8 @@ def ssd_operands(nc, BH, P, N, g):
 def check_slice(record: list) -> None:
     """The four kernels of the recurrence / attention-tail slice against
     their plain versions: the reference sweep's shapes, ragged edges and
-    the route shapes; rglru also across chunk lengths, one launch a call
+    the route shapes, ssd's reverse kernel too (twice bit for bit); rglru
+    also across chunk lengths, one launch a call
     and twenty calls bit for bit the same at the route, and a grid far
     larger than the card's resident blocks; the tail with a
     transposed s and N wider than a block's columns, matmul in bfloat16
@@ -1883,7 +1884,10 @@ def check_slice(record: list) -> None:
     from repro_torch.kernels.rglru import rglru_scan, rglru_scan_plain
     from repro_torch.kernels.rglru.rglru import (STATE_HEADER, chunk_length,
                                                  state_words)
-    from repro_torch.kernels.ssd import ssd_chunk_scan, ssd_chunk_scan_plain
+    from repro_torch.kernels.ssd import (ssd_chunk_scan,
+                                         ssd_chunk_scan_backward,
+                                         ssd_chunk_scan_backward_plain,
+                                         ssd_chunk_scan_plain)
     from repro_torch.kernels.streamfuse import (fused_softmax_matmul,
                                                 softmax_matmul_plain)
     g = torch.Generator(device="cuda").manual_seed(SEED + 40)
@@ -1944,6 +1948,43 @@ def check_slice(record: list) -> None:
         route = " route" if shape == SSD_SHAPE else ""
         check(record, f"ssd{route} {'x'.join(map(str, shape))}",
               ssd_chunk_scan(st, dec), ssd_chunk_scan_plain(st, dec), SSD_TOL)
+    # The reverse kernel at the sweep's shapes, P·N past one cluster's
+    # 8192 elements (nine and sixteen 1024-element groups over eight
+    # blocks), the route, and bfloat16 (ragged P·N too): both outputs
+    # against the plain reverse loop within each one's scale, twice on the
+    # same operands bit for bit (ddecay summed in a fixed order); a
+    # non-contiguous cotangent raises (no fallback).
+    for shape, dtype in [((8, 4, 16, 32), torch.float32),
+                         ((4, 8, 8, 16), torch.float32),
+                         ((16, 2, 32, 8), torch.float32),
+                         ((5, 3, 7, 9), torch.float32),
+                         ((3, 2, 64, 130), torch.float32),
+                         ((6, 5, 64, 256), torch.float32),
+                         (SSD_SHAPE, torch.float32),
+                         ((7, 4, 8, 16), torch.bfloat16),
+                         ((5, 3, 7, 9), torch.bfloat16)]:
+        st, dec = (t.to(dtype) for t in ssd_operands(*shape, g))
+        h = ssd_chunk_scan(st, dec)
+        cot = (0.1 * rn(*shape)).to(dtype)
+        text = "x".join(map(str, shape)) + f" {str(dtype)[6:]}"
+        got = ssd_chunk_scan_backward(cot, dec, h)
+        tol = TOL["f32"] if dtype == torch.float32 else TOL["bf16"]
+        for part, a, b in zip(("dstates", "ddecay"), got,
+                              ssd_chunk_scan_backward_plain(cot, dec, h)):
+            check_scaled(record, f"ssd_backward {text} {part}", a, b, tol)
+        again = ssd_chunk_scan_backward(cot, dec, h)
+        same(record, f"ssd_backward {text}", torch.cat(
+            [t.flatten() for t in got]), torch.cat(
+            [t.flatten() for t in again]))
+        if not record[-1]["ok"]:
+            fail(f"ssd_chunk_scan_backward {text}: two calls differ")
+    loose = cot.transpose(2, 3).contiguous().transpose(2, 3)
+    try:
+        ssd_chunk_scan_backward(loose, dec, h)
+    except ValueError as e:
+        print(f"  ssd_backward on a non-contiguous cotangent raises: {e}")
+    else:
+        fail("ssd_chunk_scan_backward took a non-contiguous cotangent")
     for M, K, N in [(128, 256, 64), (256, 128, 32), (64, 64, 96)]:
         for dtype, tol in [(torch.float32, TOL["f32"]),
                            (torch.bfloat16, TOL["bf16"])]:
@@ -2362,6 +2403,8 @@ def slice_train_path(seed, name, fn, specs, wrt, group, lib_name, per_step,
         walls.append(1e3 * (time.perf_counter() - t))
         metrics.append(m)
     launches = {k: lib.launches for k, lib in all_libraries().items()}
+    entries = (dict(all_libraries()[lib_name].entry_launches) if lib_name
+               else {})
     expected = {k: TRAIN_STEPS * per_step if k == lib_name else 0
                 for k in launches}
     if launches != expected:
@@ -2388,6 +2431,7 @@ def slice_train_path(seed, name, fn, specs, wrt, group, lib_name, per_step,
               "compile_s": compile_s, "step_ms": walls,
               "launches": launches,
               "kernel_launches": launches[lib_name] if lib_name else 0,
+              "entry_launches": entries,
               "launches_per_step": per_step, "metrics": values,
               "verify_band": TRAIN_BAND, "verify": verify,
               "verify_grad_rel_err": rel, "grad_tol": GRAD_TOL}
@@ -4318,6 +4362,20 @@ def lm_phase(card: str, record: dict) -> dict:
 # chunks over 2 x 48 heads of (64, 128).
 TRAIN_RGLRU = (1, 2048, 4096)
 TRAIN_SSD = (8, 96, 64, 128)
+# (a) ssd_chunk_scan's forward and reverse kernels at the LM path's shapes
+# (nc, BH, P, N): the ssd_block route; the mamba2-780m trainer's (2, 2048)
+# batch; a 4 x 2 mesh unit (a data block's 2 sequences x a model position's
+# 24 heads); a (1, 512) prefill.  L2-cold: SSD_FLUSH_BYTES written before
+# each call (the L2 holds 50 MB, the 8 x 96 operands 25 MB each).
+SSD_LM_SHAPES = [(16, 96, 64, 128), (8, 96, 64, 128), (8, 48, 64, 128),
+                 (2, 48, 64, 128)]
+SSD_FLUSH_BYTES = 100 * 2**20
+# The mamba2-780m step walls (ms; NVIDIA H100 80GB HBM3, 700.00 W) while
+# ssd_chunk_scan's backward was the forward kernel on flipped operands with
+# the flips, products and sum around it: printed beside this run's walls,
+# read by no check (the scans are ~1-2 % of a step).
+COMPOSED_BACKWARD_WALLS_MS = {"mamba2-780m": 560.874,
+                              "mamba2-780m 4x2": 2341.300}
 # (b) Float32 at full width, one block-pattern group deep, a (1, 512)
 # SyntheticLM batch: loss_fn's value and every gradient, card against CPU.
 TRAIN_WIDE = {"mamba2-780m": 1, "recurrentgemma-9b": 3}
@@ -4348,17 +4406,20 @@ COMPILED_ARGS = ["--compiled", "--seq", "128", "--d-model", str(D_MODEL),
 @contextlib.contextmanager
 def plain_scans():
     """Within this context the scans' helpers call the plain versions in
-    the kernels' place: the plain form of each backward."""
+    the kernels' place: the plain form of each backward (rglru's forward
+    scan on reversed operands, ssd's reverse loop)."""
     import importlib
     rg = importlib.import_module("repro_torch.kernels.rglru.rglru")
     sd = importlib.import_module("repro_torch.kernels.ssd.ssd")
-    real = (rg.rglru_scan, sd.ssd_chunk_scan)
-    rg.rglru_scan, sd.ssd_chunk_scan = (rg.rglru_scan_plain,
-                                        sd.ssd_chunk_scan_plain)
+    real = (rg.rglru_scan, sd.ssd_chunk_scan, sd.ssd_chunk_scan_backward)
+    (rg.rglru_scan, sd.ssd_chunk_scan,
+     sd.ssd_chunk_scan_backward) = (rg.rglru_scan_plain,
+                                    sd.ssd_chunk_scan_plain,
+                                    sd.ssd_chunk_scan_backward_plain)
     try:
         yield
     finally:
-        rg.rglru_scan, sd.ssd_chunk_scan = real
+        rg.rglru_scan, sd.ssd_chunk_scan, sd.ssd_chunk_scan_backward = real
 
 
 def _scan_entry(name, kernel, plain, flops, nbytes, err) -> dict:
@@ -4375,10 +4436,10 @@ def _scan_entry(name, kernel, plain, flops, nbytes, err) -> dict:
 def scan_autograd(kind: str, shape: tuple, g, record: list) -> dict:
     """One scan (``"rglru"`` at (B, S, D) or ``"ssd"`` at (nc, BH, P, N))
     through its autograd Function: one forward launch and one backward
-    launch, the output and both gradients against autograd through the
-    plain version, within TOL["f32"] of each tensor's scale; the forward
-    and the backward helper timed beside the plain forms and their byte
-    bounds."""
+    launch (ssd's: its reverse kernel), the output and both gradients
+    against autograd through the plain version, within TOL["f32"] of each
+    tensor's scale; the forward and the backward helper timed beside the
+    plain forms and their byte bounds."""
     import importlib
 
     import torch
@@ -4414,6 +4475,10 @@ def scan_autograd(kind: str, shape: tuple, g, record: list) -> dict:
     grads = torch.autograd.grad(got, ins, cot)
     torch.cuda.synchronize()
     _held_launches(f"{fn} forward and backward", {kind: 2})
+    if kind == "ssd" and dict(sd.LIBRARY.entry_launches) != {
+            "codo_ssd_chunk_scan": 1, "codo_ssd_chunk_scan_backward": 1}:
+        fail(f"{fn}: expected one forward and one backward kernel launch, "
+             f"got {dict(sd.LIBRARY.entry_launches)}")
     want = plain(*ins)
     want_grads = torch.autograd.grad(want, ins, cot)
     err = check_scaled(record, f"{fn} {text} autograd forward",
@@ -4455,6 +4520,117 @@ def train_scans(record: list) -> dict:
     g = torch.Generator(device="cuda").manual_seed(SEED + 300)
     return {"rglru": scan_autograd("rglru", TRAIN_RGLRU, g, record),
             "ssd": scan_autograd("ssd", TRAIN_SSD, g, record)}
+
+
+def l2_cold_ms(fn, iters: int = 10) -> tuple[float, float]:
+    """(event ms, device ms) of one call of ``fn`` with SSD_FLUSH_BYTES
+    written before it, so its operands come from device memory.  Each
+    call's events bracket it alone, with the device held back
+    (``torch.cuda._sleep``) until the host has queued it, so host time does
+    not count; the device time is the profiler's over the calls, the
+    flushes' fill kernels left out."""
+    import torch
+    flush = torch.empty(SSD_FLUSH_BYTES // 4, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for start, end in events:
+        flush.zero_()
+        torch.cuda._sleep(300_000)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    event = sum(a.elapsed_time(b) for a, b in events) / iters
+
+    def run():
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+
+    dev = sum(r["device_us"] for r in device_rows(run)
+              if "FillFunctor" not in r["name"]) / iters / 1e3
+    del flush
+    return event, dev
+
+
+def _held_exact(record: list, name: str, got, want, tol: float) -> float:
+    """:func:`check_scaled`, or bit for bit where the plain version is all
+    zero (ddecay over two chunks: h_0 = 0 and μ_nc = 0)."""
+    import torch
+    if bool(want.float().abs().max() > 0):
+        return check_scaled(record, name, got, want, tol)
+    ok = bool(torch.equal(got, want))
+    record.append({"case": name, "bit_identical": ok, "ok": ok})
+    print(f"  {name:<48s} all zero as the plain version: {ok}")
+    if not ok:
+        fail(f"{name}: the plain version is all zero, the kernel's is not")
+    return 0.0
+
+
+def ssd_shapes(record: list) -> dict:
+    """(a) ssd_chunk_scan's forward and reverse kernels at SSD_LM_SHAPES:
+    each held against its plain version (SSD_TOL; TOL["f32"] of each
+    output's scale) and twice bit for bit, then timed L2-warm (calls back
+    to back in turns with the plain version: CUDA events a call, and the
+    profiled device time) and L2-cold
+    (:func:`l2_cold_ms`), beside their byte bounds and the backward as it
+    was composed before it had a kernel of its own — the forward kernel on
+    flipped operands, flipped back, μ·h summed in float32 — as a
+    yardstick."""
+    import torch
+    from repro_torch.kernels.ssd import ssd as sd
+    g = torch.Generator(device="cuda").manual_seed(SEED + 301)
+    out = {}
+    for shape in SSD_LM_SHAPES:
+        st, dec = ssd_operands(*shape, g)
+        cot = 0.1 * torch.randn(shape, generator=g, device="cuda")
+        text = "x".join(map(str, shape))
+        h = sd.ssd_chunk_scan(st, dec)
+        errs = {"forward": check(record, f"ssd_chunk_scan {text}", h,
+                                 sd.ssd_chunk_scan_plain(st, dec), SSD_TOL)}
+        got = sd.ssd_chunk_scan_backward(cot, dec, h)
+        want = sd.ssd_chunk_scan_backward_plain(cot, dec, h)
+        errs["backward"] = max(
+            _held_exact(record, f"ssd_chunk_scan_backward {text} {part}", a,
+                        b, TOL["f32"])
+            for part, a, b in zip(("dstates", "ddecay"), got, want))
+        again = sd.ssd_chunk_scan_backward(cot, dec, h)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"ssd_chunk_scan_backward {text}: two calls differ")
+
+        def composed():
+            mu = sd.ssd_chunk_scan(cot.flip(0), dec.flip(0)).flip(0)
+            return mu, (mu * h).sum(dim=(-2, -1), keepdim=True)
+
+        n, m = st.numel(), dec.numel()
+        cases = {
+            "forward": (lambda: sd.ssd_chunk_scan(st, dec),
+                        lambda: sd.ssd_chunk_scan_plain(st, dec), 2.0 * n,
+                        4.0 * (2 * n + m)),
+            "backward": (lambda: sd.ssd_chunk_scan_backward(cot, dec, h),
+                         lambda: sd.ssd_chunk_scan_backward_plain(cot, dec,
+                                                                  h),
+                         4.0 * n, 4.0 * (3 * n + 2 * m)),
+            "composed backward": (composed, None, 4.0 * n,
+                                  4.0 * (3 * n + 2 * m))}
+        out[text] = {}
+        for kind, (fn, plain, flops, nbytes) in cases.items():
+            b, by = bound_ms(flops, nbytes)
+            warm, plain_ms = (in_turns(plain, fn, 10) if plain else
+                              (time_ms(fn, 10), None))
+            warm_dev = device_ms(fn, 10)
+            cold, cold_dev = l2_cold_ms(fn)
+            out[text][kind] = dict(
+                ms=warm, device_ms=warm_dev, cold_ms=cold,
+                cold_device_ms=cold_dev, plain_ms=plain_ms, library_ms=None,
+                bound_ms=b, bound_by=by, flops=flops, bytes=nbytes,
+                max_abs_err=errs.get(kind, errs["backward"]))
+            print(f"  ssd {kind:<17s} {text:<15s} L2-warm {warm:.4f} ms "
+                  f"(device {warm_dev:.4f})  L2-cold {cold:.4f} (device "
+                  f"{cold_dev:.4f})  bound {b:.4f} ({by})")
+    return out
 
 
 def train_wide(record: list) -> dict:
@@ -4656,6 +4832,10 @@ def train_trainer(name: str, args: list) -> dict:
           f"median {replay:.3f} ms, device {dev:.3f} ms, idle "
           f"{100 * out['idle']:.1f} %; peak memory {out['peak_memory_gib']:.2f}"
           f" GiB; launches {launches}; {wall_s:.1f} s in all")
+    if name in COMPOSED_BACKWARD_WALLS_MS:
+        print(f"      replays median {replay:.3f} ms; with the composed ssd "
+              f"backward {COMPOSED_BACKWARD_WALLS_MS[name]:.3f} ms (an "
+              f"earlier run)")
     del step, batch, seen
     torch.cuda.empty_cache()
     return out
@@ -4776,6 +4956,9 @@ def train_phase(card: str, record: dict, expected_mmgrad: int) -> dict:
     print(f"  (a) the scans through autograd at full width, "
           f"{TRAIN_RGLRU} and {TRAIN_SSD}:")
     out["scans"] = train_scans(checks)
+    print(f"      ssd_chunk_scan's kernels at {SSD_LM_SHAPES}, L2-warm and "
+          f"L2-cold, the composed backward beside them:")
+    out["ssd_shapes"] = ssd_shapes(checks)
     print(f"  (b) float32 gradients at full width, one group deep, "
           f"{TRAIN_WIDE_BATCH}, card against CPU:")
     out["wide"] = train_wide(checks)
@@ -5209,6 +5392,9 @@ def mesh_train(card: str, record: list) -> dict:
           f"{dev_s:.3f}, idle {100 * out['idle']:.1f} %), unsharded "
           f"{rep_u:.3f} ms (device {dev_u:.3f}); first calls "
           f"{walls_s[0]:.1f} / {walls_u[0]:.1f} ms (eager, then the capture)")
+    print(f"      sharded replays {rep_s:.3f} ms; with the composed ssd "
+          f"backward {COMPOSED_BACKWARD_WALLS_MS['mamba2-780m 4x2']:.3f} ms "
+          f"(an earlier run)")
     del step, ps, ss, p0, want
     clear_graphs()
     torch.cuda.empty_cache()
@@ -6233,7 +6419,17 @@ def main() -> int:
          + "x".join(map(str, SSD_SHAPE)) + "]",
          "src/repro_torch/csrc/ssd_scan.cu",
          "src/repro/kernels/ssd/ssd.py:45", slice_measured["ssd"],
-         train_slices["ssd_block"]["kernel_launches"]),
+         train_slices["ssd_block"]["entry_launches"].get(
+             "codo_ssd_chunk_scan", 0)),
+        # Its grad op's reverse kernel, measured at the same shape by the
+        # train phase's ssd_shapes.
+        ("ssd_chunk_scan_backward[ssd_block train step "
+         + "x".join(map(str, SSD_SHAPE)) + "]",
+         "src/repro_torch/csrc/ssd_scan.cu",
+         "src/repro/kernels/ssd/ssd.py:45",
+         train["ssd_shapes"]["x".join(map(str, SSD_SHAPE))]["backward"],
+         train_slices["ssd_block"]["entry_launches"].get(
+             "codo_ssd_chunk_scan_backward", 0)),
         ("flash_attention[mha_batched " + "x".join(map(str, MHA_SHAPE)) + "]",
          *source["flash"][1:], slice_measured["flash_mha"],
          slices["mha_batched"]["kernel_launches"])]

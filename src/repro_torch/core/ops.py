@@ -735,9 +735,8 @@ def _ssd_scan_grad(spec: OpSpec, env: dict) -> dict:
     """``(dstates, ddecay)`` of the carried-in recurrence ``h_{c+1} =
     h_c·dec_c + st_c`` (outputs ``h_c``): ``h`` from one ``ssd_chunk_scan``
     (the kernel on the card, its plain version on the CPU), then ``μ_c =
-    g_c + dec_c·μ_{c+1}`` from ``μ_nc = 0`` by one more scan of the
-    reversed operands
-    (:func:`~repro_torch.kernels.ssd.ssd.ssd_chunk_scan_backward`);
+    g_c + dec_c·μ_{c+1}`` from ``μ_nc = 0`` by one launch of the reverse
+    kernel (:func:`~repro_torch.kernels.ssd.ssd.ssd_chunk_scan_backward`);
     ``dst_c = μ_{c+1}``, ``ddec_c = Σ_{P,N} μ_{c+1}·h_c`` (kept at (BH, 1,
     1))."""
     from ..kernels.ssd.ssd import ssd_chunk_scan, ssd_chunk_scan_backward

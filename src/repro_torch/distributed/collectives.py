@@ -54,9 +54,9 @@ from collections import defaultdict
 
 from repro_torch.distributed.plan import CollectiveStep, MeshSpec, ShardingPlan
 
-__all__ = ["all_gather", "attach", "build_steps", "env_partition_specs",
-           "group_all_gather", "group_pmax", "group_psum", "make_collective",
-           "pmax", "psum", "run_positions"]
+__all__ = ["all_gather", "attach", "build_steps", "charge_backward",
+           "env_partition_specs", "group_all_gather", "group_pmax",
+           "group_psum", "make_collective", "pmax", "psum", "run_positions"]
 
 _MIB = 1 << 20
 
@@ -223,6 +223,34 @@ def _charge(op: str, result, group: int) -> None:
                           weight=walker.weight)
 
 
+def charge_backward(op: str, t, group: int) -> None:
+    """When autograd computes ``t``'s gradient, charge the walker active
+    now, at the share in force now, the collective ``op`` that carries it
+    over the group's ``group`` positions: ``"all-reduce"`` of the gradient
+    (the sum of the partial gradients of a value the positions all read),
+    or ``"reduce-scatter"`` of it into the positions' shards.
+    Nothing is charged for a value made inside the backward (a checkpointed
+    region's recompute): no gradient flows through it, and an input it
+    shares with the first pass already carries that pass's hook."""
+    import torch
+
+    from ..launch import hlo_analysis
+    walker = hlo_analysis.active()
+    if (walker is None or group < 2 or not t.requires_grad
+            or torch._C._current_autograd_node() is not None):
+        return
+    weight = walker.weight
+
+    def hook(grad):
+        if hlo_analysis.active() is walker:
+            nbytes = hlo_analysis.tensor_bytes(grad)
+            if op == "reduce-scatter":           # its result: one shard
+                nbytes /= group
+            walker.collective(op, nbytes, group, weight=weight)
+
+    t.register_hook(hook)
+
+
 def group_psum(xs: list):
     """The sum of the group's values ``xs`` (position order), accumulated
     in float32 in that order and given back in their dtype: an all-reduce
@@ -245,11 +273,13 @@ def group_pmax(xs: list):
 
 def group_all_gather(xs: list, dim: int):
     """The group's values concatenated along ``dim`` in position order:
-    an all-gather over the group."""
+    an all-gather over the group (its gradient back to the positions a
+    reduce-scatter, as the walker is charged)."""
     import torch
     out = xs[0] if len(xs) == 1 else torch.cat(
         [x.to(xs[0].device) for x in xs], dim)
     _charge("all-gather", out, len(xs))
+    charge_backward("reduce-scatter", out, len(xs))  # its transpose
     return out
 
 

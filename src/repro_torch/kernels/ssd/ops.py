@@ -2,7 +2,7 @@
 ``repro/kernels/ssd/ops.py``): the kernel for tensors on the card, its
 plain version for tensors on the CPU, or the oracle on request.  The
 kernel's form is differentiable on both devices: autograd runs its
-backward through the same kernel (:func:`.ssd.ssd_chunk_scan_backward`)."""
+backward through the reverse kernel (:func:`.ssd.ssd_chunk_scan_backward`)."""
 
 from __future__ import annotations
 

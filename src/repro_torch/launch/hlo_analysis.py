@@ -23,8 +23,10 @@ what the reference gets by multiplying through trip counts.
   (an all-gather), the reductions in position order of
   ``spmd.over_blocks`` (an all-reduce; its concatenation an all-gather),
   the group collectives of the tensor-parallel layer forms (inside a
-  compute block, at its share) and the in-step ``psum`` /
-  ``all_gather``.  Each is charged with the reference's ring formulas (:func:`_collective_moved`) for its group
+  compute block, at its share) with, in the backward, what carries their
+  gradients back (``collectives.charge_backward``: the sum of a shared
+  activation's partial gradients, an all-gather's transpose), and the
+  in-step ``psum`` / ``all_gather``.  Each is charged with the reference's ring formulas (:func:`_collective_moved`) for its group
   size, and its result bytes are added to ``bytes``, as the reference
   adds them; the copies that carry it out are not charged again.
 * Kernels — a kernel wrapper called on meta tensors returns a meta

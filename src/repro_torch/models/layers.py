@@ -50,8 +50,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
-from ..distributed.collectives import (group_all_gather, group_pmax,
-                                       group_psum)
+from ..distributed.collectives import (charge_backward, group_all_gather,
+                                       group_pmax, group_psum)
 from ..distributed.spmd import Shards, per_position
 
 Params = dict
@@ -186,19 +186,22 @@ def _part(p: Params, m: int) -> Params:
 
 
 class _Fan:
-    """An activation that several model positions read.  A low-precision
+    """An activation that the ``n`` model positions read.  A low-precision
     one that a gradient flows back through is held as one float32 copy
     (``shared``): the positions' products take it as it is
     (:func:`linear_part`), so their gradients meet there in float32 and
-    are rounded once, as one unsplit product accumulates them.  Calling
-    it gives the activation in its own dtype, for the other reads."""
+    are rounded once, as one unsplit product accumulates them; that sum
+    is an all-reduce over ``model``, charged to the cost walker when
+    autograd computes it.  Calling it gives the activation in its own
+    dtype, for the other reads."""
 
     __slots__ = ("dtype", "shared")
 
-    def __init__(self, x):
+    def __init__(self, x, n: int):
         self.dtype = x.dtype
         low = x.dtype in (torch.bfloat16, torch.float16)
         self.shared = x.float() if x.requires_grad and low else x
+        charge_backward("all-reduce", self.shared, n)
 
     def __call__(self):
         return self.shared.to(self.dtype)
@@ -552,7 +555,7 @@ def _blockwise_groups(q, k, v, *, causal: bool, window: int, n: int,
     kb = k.reshape(B, nk, bk, Hkv, hd).permute(1, 0, 3, 2, 4)
     vb = v.reshape(B, nk, bk, Hkv, hd).permute(1, 0, 3, 2, 4)
     base = torch.arange(bq, device=q.device)
-    take_k, take_v = _Fan(kb), _Fan(vb)
+    take_k, take_v = _Fan(kb, n), _Fan(vb, n)
 
     def group(m):
         qi = torch.arange(m, nq, n, device=q.device)
@@ -588,7 +591,7 @@ def _attention_train_tp(p: Params, x, cfg: ArchConfig, *, causal: bool,
     def rope(t):
         return apply_rope(t, pos, cfg.rope_theta) if cfg.pos == "rope" else t
 
-    take = _Fan(x)
+    take = _Fan(x, n)
 
     def q_of(m):
         return rope(linear_part(_part(p, m)["wq"], take).reshape(
@@ -602,7 +605,7 @@ def _attention_train_tp(p: Params, x, cfg: ArchConfig, *, causal: bool,
     if not kv_split:
         k_all = rope(linear(p["wk"], x).reshape(B, S, hkv, hd))
         v_all = linear(p["wv"], x).reshape(B, S, hkv, hd)
-        take_k, take_v = _Fan(k_all), _Fan(v_all)
+        take_k, take_v = _Fan(k_all, n), _Fan(v_all, n)
 
     if S > 2048 and _ATTN_SEQSHARD and (S // min(512, S)) % n == 0:
         q = group_all_gather(per_position(n, q_of, x), 2)
@@ -812,9 +815,9 @@ def cross_attention(p: Params, x, enc_kv, cfg: ArchConfig):
     if _split(p["wq"]["w"]):
         n = p["wq"]["w"].n
         hq = cfg.n_heads // n
-        take = _Fan(x)
+        take = _Fan(x, n)
         if not isinstance(k, list):
-            take_k, take_v = _Fan(k), _Fan(v)
+            take_k, take_v = _Fan(k, n), _Fan(v, n)
 
         def one(m):
             pm = _part(p, m)
@@ -836,7 +839,7 @@ def encode_kv(p: Params, enc_out, cfg: ArchConfig):
     if _split(p["wk"]["w"]):
         n = p["wk"]["w"].n
         hkv = cfg.n_kv_heads // n
-        take = _Fan(enc_out)
+        take = _Fan(enc_out, n)
         kv = per_position(n, lambda m: tuple(
             linear_part(_part(p, m)[w], take).reshape(B, Fr, hkv, cfg.hd)
             for w in ("wk", "wv")), enc_out)
@@ -874,7 +877,8 @@ def ffn_apply(p: Params, x, cfg: ArchConfig):
     if not _split(p["w_in"]["w"]):
         return linear(p["w_out"], _ffn_hidden(p, x, cfg, linear))
     # d_ff split over `model`; w_out's rows summed
-    n, take = p["w_in"]["w"].n, _Fan(x)
+    n = p["w_in"]["w"].n
+    take = _Fan(x, n)
     hs = per_position(n, lambda m: _ffn_hidden(_part(p, m), take, cfg,
                                                linear_part), x)
     return row_linear([_part(p, m)["w_out"] for m in range(n)], hs, x.dtype)
@@ -986,7 +990,7 @@ def _moe_experts_tp(p: Params, xe, comb, cfg: ArchConfig):
             ye = _experts(_part(p, m), xe[sl], cfg)
             return torch.einsum("cep,epd->cd", comb[:, sl], ye.float())
     else:
-        take = _Fan(xe)
+        take = _Fan(xe, n)
 
         def one(m):
             ye = _experts(_part(p, m), take(), cfg)
@@ -1075,7 +1079,7 @@ def unembed_parts(embed_p: Params, head_p: Params | None, x,
     w = embed_p["tok"] if tied else head_p["w"]
     if not _split(w):
         return None
-    take = _Fan(x)
+    take = _Fan(x, w.n)
     return per_position(w.n, lambda m: linear_part(
         {"w": w.parts[m].T if tied else w.parts[m]}, take), x)
 

@@ -132,7 +132,7 @@ def _channel_part(p: Params, m: int, n: int) -> Params:
 
 def _rglru_train_tp(p: Params, xin, cfg: ArchConfig):
     n = p["in_x"]["w"].n
-    take = _Fan(apply_norm(p["norm"], xin, cfg.norm))
+    take = _Fan(apply_norm(p["norm"], xin, cfg.norm), n)
 
     def branch(m):
         pm = _part(p, m)
@@ -140,7 +140,7 @@ def _rglru_train_tp(p: Params, xin, cfg: ArchConfig):
         return gate, _conv1d(pm, linear_part(pm["in_x"], take))
 
     gx = per_position(n, branch, xin)
-    take_all = _Fan(group_all_gather([x for _, x in gx], -1))
+    take_all = _Fan(group_all_gather([x for _, x in gx], -1), n)
 
     def scan(m):
         gate, x = gx[m]

@@ -198,7 +198,7 @@ def _ssm_train_tp(p: Params, xin, cfg: ArchConfig):
     d_in, N = cfg.d_model * s.expand, s.d_state
     dm, hm = d_in // n, d_in // s.head_dim // n
     w_in, w_conv = p["in_proj"]["w"], p["conv"]
-    take = _Fan(apply_norm(p["norm"], xin, cfg.norm))
+    take = _Fan(apply_norm(p["norm"], xin, cfg.norm), n)
     dt0 = 2 * d_in + 2 * N
 
     def one(m):

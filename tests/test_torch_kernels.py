@@ -983,6 +983,50 @@ def test_ssd_rejects_bad_operands():
         ssd_pkg.ssd_chunk_scan(st, torch.zeros(4, 2, 1, 1).double())
 
 
+def test_ssd_backward_rejects_bad_operands():
+    g, dec = torch.zeros(4, 2, 3, 5), torch.zeros(4, 2, 1, 1)
+    with pytest.raises(ValueError, match="shaped as h"):
+        ssd_pkg.ssd_chunk_scan_backward(g[:, :, :2], dec, g)
+    with pytest.raises(ValueError, match="decay must be"):
+        ssd_pkg.ssd_chunk_scan_backward(g, dec[:3], g)
+    with pytest.raises(ValueError, match="4-D"):
+        ssd_pkg.ssd_chunk_scan_backward(g[0], dec[0], g[0])
+    with pytest.raises(TypeError):
+        ssd_pkg.ssd_chunk_scan_backward(g, dec.double(), g.double())
+    with pytest.raises(TypeError, match="share"):     # h not decay's type
+        ssd_pkg.ssd_chunk_scan_backward(g, dec, g.bfloat16())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ssd_pkg.ssd_chunk_scan_backward(g, dec, g.to("meta"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_ssd_backward_on_meta_charges_its_kernel(dtype, monkeypatch):
+    """On meta tensors the backward wrapper returns meta ``(dstates,
+    ddecay)`` and charges one kernel: g, decay and h read once, both
+    results written once, four flops an element (μ·dec + g, μ·h and its
+    sum); the plain version never runs."""
+    from repro_torch.launch import hlo_analysis as ha
+    mod = importlib.import_module("repro_torch.kernels.ssd.ssd")
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain backward ran on meta tensors")
+
+    monkeypatch.setattr(mod, "ssd_chunk_scan_backward_plain", refuse)
+    nc, BH, P, N = 5, 3, 7, 9
+    g, h = (torch.empty(nc, BH, P, N, dtype=dtype, device="meta")
+            for _ in range(2))
+    dec = torch.empty(nc, BH, 1, 1, dtype=dtype, device="meta")
+    with ha.CostWalker() as walker:
+        ds, dd = mod.ssd_chunk_scan_backward(g, dec, h)
+    assert ds.device.type == dd.device.type == "meta"
+    assert ds.shape == g.shape and dd.shape == dec.shape
+    assert ds.dtype == dd.dtype == dtype
+    n, size = g.numel(), g.element_size()
+    assert walker.cost.bytes == size * (3 * n + 2 * dec.numel())
+    assert walker.cost.flops == 4.0 * n and walker.cost.ops == 1
+
+
 # --------------------------------------------------------------------------
 # the blocked matmul
 # --------------------------------------------------------------------------
@@ -1068,6 +1112,8 @@ def test_cpu_tensors_run_the_new_plain_versions_and_launch_nothing():
     fused_softmax_matmul(x[0], x[1])
     rglru_pkg.rglru_scan(x, x, chunk=4)
     ssd_pkg.ssd_chunk_scan(x[:, :, None], x[:, :, :1, None])
+    ssd_pkg.ssd_chunk_scan_backward(x[:, :, None], x[:, :, :1, None],
+                                    x[:, :, None])
     mm_pkg.matmul(x[0], x[1])
     assert [lib.launches for lib in libs] == before
     assert all(lib._lib is None for lib in libs)

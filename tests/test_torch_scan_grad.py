@@ -2,10 +2,11 @@
 the CPU.
 
 ``rglru_scan`` and ``ssd_chunk_scan`` are ``torch.autograd.Function``s in
-the port (``kernels/{rglru,ssd}``): one forward launch, and a backward
-that runs the same scan once more on reversed operands
-(``rglru_scan_backward`` / ``ssd_chunk_scan_backward``).  On the CPU both
-launches are the kernels' plain versions.  Held here:
+the port (``kernels/{rglru,ssd}``): one forward launch, and one backward
+launch — rglru's forward scan once more on reversed operands
+(``rglru_scan_backward``), ssd's reverse kernel
+(``ssd_chunk_scan_backward``).  On the CPU both launches are the kernels'
+plain versions.  Held here:
 
 * the wrappers' autograd gradients against ``jax.vjp`` of the reference's
   sequential ``_rglru_reference`` / ``_ssd_reference`` and the kernels'
@@ -16,6 +17,8 @@ launches are the kernels' plain versions.  Held here:
   λ is rounded to bfloat16 before ``da = λ·h``);
 * the wrappers are differentiable and each backward is one more scan
   (the fault that lost the recurrent branch's gradients on the card);
+* ``ssd_chunk_scan_backward_plain`` itself against ``jax.vjp`` at ragged
+  P·N, one chunk and bfloat16;
 * ``core/ops.py``'s ``rglru_scan_grad`` / ``ssd_scan_grad`` against the
   reference registry's on the same inputs (``test_torch_ops.py``'s band);
 * the models: every gradient of ``rglru_block_train`` (``lam``, ``w_a``,
@@ -161,11 +164,53 @@ def test_ssd_backward_matches_jax_vjp(case, ref):
     assert _rel(_np(tdec.grad), _jnp32(dd_w)) <= band
 
 
+# The reverse kernel's plain version, called directly: ragged P·N (not a
+# multiple of the kernel's four elements a thread, and past one block's
+# 1024), one chunk, and bfloat16 (μ rounded to it before μ·h).
+SSD_PLAIN_CASES = {"ragged": ((5, 3, 7, 9), "f32"),
+                   "wide": ((4, 2, 33, 37), "f32"),
+                   "one_chunk": ((1, 2, 3, 4), "f32"),
+                   "bf16": ((6, 3, 8, 16), "bf16"),
+                   "bf16_ragged": ((5, 3, 7, 9), "bf16")}
+
+
+@pytest.mark.parametrize("ref", ["sequential", "oracle"])
+@pytest.mark.parametrize("case", sorted(SSD_PLAIN_CASES))
+def test_ssd_backward_plain_matches_jax_vjp(case, ref):
+    """``ssd_chunk_scan_backward_plain`` — the reverse loop the backward
+    kernel runs — against ``jax.vjp`` of the reference's sequential
+    ``_ssd_reference`` and of the oracle ``ssd_chunk_scan_ref``, within
+    the bands of :func:`test_ssd_backward_matches_jax_vjp`."""
+    shape, dt = SSD_PLAIN_CASES[case]
+    jd, td = DTYPES[dt]
+    st, dec, g = _ssd_inputs(shape, seed=11)
+    fn = ref_ops._ssd_reference if ref == "sequential" else ssd_chunk_scan_ref
+    jst, jdec = jnp.asarray(st).astype(jd), jnp.asarray(dec).astype(jd)
+    if ref == "sequential" and dt == "bf16":
+        # the registry's reference carries its state in the operands' type
+        jst, jdec = jst.astype(jnp.float32), jdec.astype(jnp.float32)
+    ds_w, dd_w = _vjp(fn, jst, jdec, jnp.asarray(g).astype(jst.dtype))
+    ts, tdec, tg = (torch.from_numpy(x).to(td) for x in (st, dec, g))
+    h = ssd_mod.ssd_chunk_scan_plain(ts, tdec)
+    ds, dd = ssd_mod.ssd_chunk_scan_backward_plain(tg, tdec, h)
+    assert ds.dtype == dd.dtype == td
+    assert tuple(dd.shape) == tuple(dec.shape)
+    band = F32_BAND if dt == "f32" else BF16_BAND
+    assert _rel(_np(ds), _jnp32(ds_w)) <= band
+    assert _rel(_np(dd), _jnp32(dd_w)) <= band
+    # the wrapper on the CPU is its plain version, bit for bit
+    for got, want in zip(ssd_mod.ssd_chunk_scan_backward(tg, tdec, h),
+                         (ds, dd)):
+        assert torch.equal(got, want)
+
+
 def test_wrappers_are_differentiable_with_one_scan_each_way(monkeypatch):
     """Each wrapper's output has a backward, and that backward is exactly
-    one more scan (on the card: one more launch of the same kernel)."""
+    one more scan: rglru's one more launch of its forward kernel, ssd's one
+    call of its reverse kernel's wrapper (on the card: one launch)."""
     calls = []
-    for mod, name in ((rglru_mod, "rglru_scan"), (ssd_mod, "ssd_chunk_scan")):
+    for mod, name in ((rglru_mod, "rglru_scan"), (ssd_mod, "ssd_chunk_scan"),
+                      (ssd_mod, "ssd_chunk_scan_backward")):
         real = getattr(mod, name)
         monkeypatch.setattr(mod, name, lambda *a, _r=real, _n=name, **k:
                             calls.append(_n) or _r(*a, **k))
@@ -182,8 +227,9 @@ def test_wrappers_are_differentiable_with_one_scan_each_way(monkeypatch):
     st.requires_grad_(), dec.requires_grad_()
     h = ssd_pkg.ssd_states(st, dec)
     assert type(h.grad_fn).__name__ == "SsdChunkScanBackward"
+    assert calls[2:] == ["ssd_chunk_scan"]
     h.backward(g)
-    assert calls[2:] == ["ssd_chunk_scan"] * 2
+    assert calls[2:] == ["ssd_chunk_scan", "ssd_chunk_scan_backward"]
     assert bool(st.grad.abs().max() > 0) and bool(dec.grad.abs().max() > 0)
 
 

@@ -26,7 +26,9 @@ the bands of ``tests/test_torch_gspmd.py`` and
   leaf: the cache is read and written where it lies;
 * the cost walker's ``flops_per_device`` on a (1, 2) meta mesh for
   gpt2-medium and mamba2-780m, against the products of the config's
-  shapes worked out here: split layers at half, replicated parts whole.
+  shapes worked out here: split layers at half, replicated parts whole;
+  and its train-step ``collective`` record against the collectives of
+  both passes counted from the shapes.
 """
 
 import dataclasses
@@ -543,6 +545,65 @@ def test_walker_charges_the_backward_at_each_positions_share(arch):
     two = recs["train", (1, 2)]
     assert two["flops_one_device"] == pytest.approx(
         2 * two["flops_per_device"], rel=0.01)
+
+
+def _train_collectives(cfg, B, S, n) -> dict:
+    """The link bytes a position moves in ``cfg``'s train step at (B, S) on
+    a (1, ``n``) mesh, by collective, from the config's shapes and the
+    ring formulas (an all-reduce of X moves 2(n−1)/n·X, an all-gather of
+    X (n−1)/n·X, a reduce-scatter of X into shards of X/n as much), with
+    how many there are (``count``).  Float32 at ``smoke()``.
+
+    The first pass: the vocab-parallel lookup's sum, each row-split
+    product's sum (attention's ``wo`` and the FFN's ``w_out``, or
+    ``out_proj``), the loss's pmax and two sums over (B, S), the learned
+    position table's gather (its d_model split) and Mamba-2's ``in_proj``
+    and ``conv`` gathered whole (one gather a leaf of the stacked layers).  The recompute of each checkpointed region
+    up to its last saved value: the attention's sum and the loss's three
+    (not the block's final sum).  The backward: each activation that the
+    positions read through ``_Fan`` (attention's and the FFN's x, the SSM
+    block's normed x, the head's x) gets its partials summed, and the
+    position table's gather its transpose, a reduce-scatter."""
+    D, L, f4 = cfg.d_model, cfg.n_layers, 4.0
+    act, small = B * S * D * f4, B * S * f4
+    ar, g = 2 * (n - 1) / n, (n - 1) / n
+    if cfg.ssm is None:
+        reduces = [act] + [act] * 2 * L + [small] * 3       # first pass
+        reduces += [act] * L + [small] * 3                  # recompute
+        reduces += [act] * (2 * L + 1)                      # backward
+        table = S * D * f4
+        gathers, scatters = [table], [table]
+    else:
+        s = cfg.ssm
+        d_in = D * s.expand
+        in_proj = D * (2 * d_in + 2 * s.d_state + d_in // s.head_dim) * f4
+        conv = s.conv_width * (d_in + 2 * s.d_state) * f4
+        reduces = [act] + [act] * L + [small] * 3
+        reduces += [small] * 3
+        reduces += [act] * (L + 1)
+        gathers, scatters = [L * in_proj, L * conv], []   # stacked layers
+    return {"all-reduce": ar * sum(reduces), "all-gather": g * sum(gathers),
+            "reduce-scatter": g * sum(scatters),
+            "count": len(reduces) + len(gathers) + len(scatters)}
+
+
+@pytest.mark.parametrize("arch", ["gpt2-medium", "mamba2-780m"])
+def test_walker_charges_the_backward_collectives(arch):
+    """A train step on (1, 2) is charged the collectives its backward runs
+    over ``model`` beside its forward's: the float32 sum of each replicated
+    activation's gradient partials (an all-reduce) and each all-gather's
+    transpose (a reduce-scatter), as the reference's compiled step holds
+    them; the record equals the count from the shapes
+    (:func:`_train_collectives`)."""
+    cfg = get_config(arch).smoke()
+    shape = ShapeSpec("train_smoke", 64, 4, "train")
+    rec = dryrun.run_cell(arch, shape.name, "1x2",
+                          mesh=dryrun.meta_mesh((1, 2), ("data", "model")),
+                          cfg=cfg, shape=shape, accum=1)
+    assert rec["status"] == "ok", rec.get("traceback")
+    want = _train_collectives(cfg, 4, 64, 2)
+    got = {k: rec["collective"][k] for k in want}
+    assert got == pytest.approx(want, rel=1e-9), (got, want)
 
 
 # --------------------------------------------------------------------------
