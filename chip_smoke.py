@@ -223,7 +223,26 @@ failing (non-zero exit, no result line) at the first problem:
     ...)`` onto 2 x 2, the losses and state against the uninterrupted
     run; (e) ``compressed_allreduce`` under ``shard_map`` over eight
     positions against the plain sum, within 0.02;
-18. the launch phase: the port's last entry points, the card line
+18. the rank phase: the 4 x 2 mesh split over ranks, one process a card
+    (``repro_torch.launch.ranks.spawn``, ``launch.mesh.rank_mesh``), the
+    card line printed first: (a) one NCCL rank runs mamba2-780m at full
+    width and depth, two captured steps from the seeded state the mesh
+    phase's (a) starts from, bit for bit the same steps eager on the rank
+    and the single-process captured step run in the same process (loss,
+    parameters, m and v), its all-gathers captured into the graph (at one
+    rank NCCL's all-gather is a device copy, no NCCL kernel names it),
+    step walls and device time beside the mesh phase's single-process
+    step; (b) the same rank compiles gpt2_block at (128, 1024) on the
+    rank mesh with ``jit=True``, strategies ``replicate`` and ``dp_tp``:
+    ``verify()``, one graph, answers bit for bit the single-process
+    program's, the chain (and, replicated, flash) launched, the
+    all-gathers captured,
+    request walls both ways; (c) two gloo ranks on the one card run the
+    trainer eagerly, four layers deep, bit for bit the single-process
+    step; (d) with two cards or more, NCCL ranks over min(count, 4) cards
+    with (a) and (b), NCCL kernels in each rank's profiled replay, else
+    one line saying it did not run;
+19. the launch phase: the port's last entry points, the card line
     printed first.  Subprocesses run side by side (their walls printed):
     (a) ``python -m repro_torch.api`` for ``feed_forward``,
     ``multi_head_attention`` and ``conv3_block`` with ``--run`` and a fresh
@@ -245,9 +264,9 @@ failing (non-zero exit, no result line) at the first problem:
     step over the measured replay wall; (e) ``python -m
     repro_torch.launch.perf`` on the cell with ``base`` and
     ``REPRO_REMAT_POLICY=dots``, both rows printed;
-19. no fallback: a step that reads a device value on the host raises
+20. no fallback: a step that reads a device value on the host raises
     ``CaptureError`` naming the step;
-20. prints the card line, the ``kernels`` JSON line (the scans' entries
+21. prints the card line, the ``kernels`` JSON line (the scans' entries
     five times: their serving, their train-path, the LM prefills', the
     trainers' and the mesh phase's launches, the trainers' split into the
     forward and the backward helper; flash's also at the serving batch;
@@ -5845,6 +5864,422 @@ def mesh_phase(card: str, record: dict) -> dict:
     return out
 
 
+# The rank phase: the mesh split over ranks, one process a card
+# (src/repro_torch/launch/ranks.py: spawn, launch/mesh.py: rank_mesh).
+# (a) one NCCL rank: mamba2-780m at full width and depth on 4 x 2,
+# RANK_STEPS captured steps from the seeded state mesh_train starts from,
+# bit for bit the same steps eager on the rank and the single-process
+# captured step run in the same process; the all-gathers captured into
+# the graph; walls and device time.  (b) gpt2_block (RANK_PROGRAM_S, 1024)
+# on 4 x 2 over one NCCL rank with jit=True, strategies replicate (flash
+# and the chain routed) and dp_tp (the chain routed, the plan's psums and
+# gathers through NCCL): verify(), bit for bit the single-process
+# program, the routed kernels launched.  (c) two gloo ranks on the one
+# card, eagerly: mamba2-780m RANK_GLOO_LAYERS layers deep (the depth cut:
+# two processes each hold an eager step's temporaries) bit for bit the
+# single-process step.  (d) with two cards or more, NCCL over
+# min(count, 4) cards with (a) and (b); otherwise one line says why not.
+RANK_STEPS = 2
+RANK_WALLS = 3
+RANK_GLOO_LAYERS = 4
+RANK_PROGRAM_S = 128
+RANK_PROGRAM_STRATEGIES = ("replicate", "dp_tp")
+RANK_TIMEOUT = 900
+
+
+def _rank_setup() -> None:
+    """A rank's process as main() sets the parent's: forced routing, full
+    float32 matmuls, the kernels loaded from the parent's build."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    os.environ["CODO_FORCE_PALLAS"] = "1"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if "jax" in sys.modules:
+        fail("a rank imported jax")
+
+
+def _nccl_rows(rows: list) -> list:
+    return [r for r in rows if "nccl" in r["name"].lower()]
+
+
+@contextlib.contextmanager
+def counting_all_gathers():
+    """Count the ``torch.distributed.all_gather`` calls made inside this
+    context (every cross-rank move of the port is one), those made while
+    the current stream captures apart: at one rank NCCL runs an
+    all-gather as a device copy, no kernel of its own names it in a
+    replay, so the captured calls show that the graph holds them."""
+    import torch
+    import torch.distributed as dist
+    seen = {"eager": 0, "captured": 0}
+    real = dist.all_gather
+
+    def counted(*a, **kw):
+        seen["captured" if torch.cuda.is_current_stream_capturing()
+             else "eager"] += 1
+        return real(*a, **kw)
+
+    dist.all_gather = counted
+    try:
+        yield seen
+    finally:
+        dist.all_gather = real
+
+
+def _copies(rows: list) -> int:
+    """The device copies a profiled replay ran (a captured copy runs as a
+    ``memcpy32_post`` kernel)."""
+    return sum(r["count"] for r in rows if "memcpy" in r["name"].lower())
+
+
+def _rank_rows(run) -> list:
+    """Device time by kernel over one profiled call of ``run``: exactly
+    one call, so every rank makes the same collectives (device_rows may
+    call again after a miss); an empty list when the profiler missed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        dev = getattr(e, "device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "cuda_time_total", 0.0)
+        if dev and getattr(e, "device_type", None) == \
+                torch.autograd.DeviceType.CUDA:
+            rows.append({"name": e.key[:80], "count": e.count,
+                         "device_us": float(dev)})
+    return sorted(rows, key=lambda r: -r["device_us"])
+
+
+def _rank_walls(run) -> dict:
+    """REQUESTS timed calls after a warm one and one profiled call, the
+    same calls on every rank."""
+    import numpy as np
+    run()
+    walls = [_timed(run) for _ in range(REQUESTS)]
+    rows = _rank_rows(run)
+    dev = sum(r["device_us"] for r in rows) / 1e3 if rows else None
+    return {"wall_ms": walls, "median_ms": float(np.median(walls)),
+            "device_ms": dev, "idle": None if dev is None else
+            1.0 - dev / float(np.median(walls)), "profile": rows[:8],
+            "nccl": _nccl_rows(rows)}
+
+
+def rank_train(rank: int, world: int, layers, jit: bool) -> dict:
+    """One rank of the sharded mamba2-780m trainer on the 4 x 2 rank mesh:
+    RANK_STEPS steps (captured with ``jit``) from the seeded state, then,
+    with ``jit``, the same steps eager on the rank mesh, both held shard
+    by shard; rank 0 runs the single-process step on its card and holds
+    the rank run's gathered state, loss and metrics to it bit for bit;
+    then RANK_WALLS more steps timed and one profiled."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    _rank_setup()
+    from repro_torch import models as M
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.distributed.sharding import place
+    from repro_torch.launch.mesh import make_debug_mesh, rank_mesh
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_loop as tl
+    cfg = get_config("mamba2-780m")
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    B, S = MESH_TRAIN_BATCH
+    source = SyntheticLM(cfg, DataConfig(seq_len=S, global_batch=B, seed=SEED,
+                                         mask_boundaries=False))
+    batches = [source.batch(i) for i in range(RANK_STEPS + RANK_WALLS + 1)]
+    oc = opt.OptConfig()
+    p0 = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    from repro_torch.distributed.plan import MeshSpec
+    spec, axes = MESH_SHAPE
+    mesh = rank_mesh(MeshSpec(tuple(zip(axes, spec))))
+    if any(d.type != "cuda" for d in mesh.devices):
+        fail(f"rank {rank}: the rank mesh is not on the card: {mesh!r}")
+    out = {"rank": rank, "world": world, "layers": cfg.n_layers,
+           "device": torch.cuda.get_device_name(), "jit": jit}
+
+    def steps(m, jit):
+        sh = tl.train_state_shardings(p0, m, cfg)
+        ps, ss = place(p0, sh["params"]), place(opt.adamw_init(p0), sh["opt"])
+        step = tl.jit_train_step(cfg, m, p0, batches[0], oc, jit=jit)
+        losses, walls = [], []
+        for i in range(RANK_STEPS):
+            walls.append(_timed(lambda i=i: losses.append(
+                float(step(ps, ss, batches[i])[2]["loss"]))))
+        return step, {"p": ps, "m": ss["m"], "v": ss["v"],
+                      "step": ss["step"]}, losses, walls
+
+    torch.cuda.reset_peak_memory_stats()
+    with counting_all_gathers() as gathers:
+        step, state, losses, walls = steps(mesh, jit)
+    out["all_gathers"] = gathers
+    out.update(losses=losses, first_walls_ms=walls,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               graphs=step.runner.program.graphs()
+               if step.runner.program is not None else 0)
+    leaves = _tree_paths(state)
+    if jit:
+        _, eager, losses_e, _ = steps(mesh, False)
+        differ = [k for k, a in _tree_paths(eager).items()
+                  if not all(torch.equal(x, y) for x, y in zip(
+                      a.local_shards().values(),
+                      leaves[k].local_shards().values()))]
+        out["eager_bit_for_bit"] = not differ and losses_e == losses
+        out["eager_differ"] = differ[:4]
+        del eager
+        torch.cuda.empty_cache()
+    single = one_step = None
+    if rank == 0:
+        one_step, single, losses_1, _ = steps(
+            make_debug_mesh(spec, axes), jit)
+        out["single_losses"] = losses_1
+    differ = []
+    for k, a in leaves.items():          # every rank: a collective
+        whole = a.gather()
+        if single is not None and not torch.equal(whole,
+                                                  single_whole(single, k)):
+            differ.append(k)
+        del whole
+    if rank == 0:
+        out["single_bit_for_bit"] = (not differ
+                                     and out["single_losses"] == losses)
+        out["single_differ"] = differ[:4]
+        if one_step.runner.program is not None:
+            one_step.runner.program.release()
+        single = one_step = None
+        torch.cuda.empty_cache()
+    out["leaves"] = len(leaves)
+    replays = []
+    for j in range(RANK_WALLS):
+        replays.append(_timed(lambda j=j: float(step(
+            *_state_args(state), batches[RANK_STEPS + j])[2]["loss"])))
+    rows = _rank_rows(lambda: step(*_state_args(state), batches[-1]))
+    out.update(replay_walls_ms=replays,
+               replay_median_ms=float(np.median(replays)),
+               device_ms=sum(r["device_us"] for r in rows) / 1e3 if rows
+               else None, nccl=_nccl_rows(rows), copies=_copies(rows),
+               profile=rows[:8])
+    return out
+
+
+def single_whole(tree: dict, path: str):
+    return _tree_paths(tree)[path].gather()
+
+
+def _state_args(state: dict) -> tuple:
+    return state["p"], {"m": state["m"], "v": state["v"],
+                        "step": state["step"]}
+
+
+def rank_program(rank: int, world: int) -> dict:
+    """One rank of gpt2_block (RANK_PROGRAM_S, 1024) on the 4 x 2 rank
+    mesh with jit=True, for each of RANK_PROGRAM_STRATEGIES: verify(), a
+    first call (eager, then the capture) and a replay bit for bit the
+    single-process program's (jit=True, the same seeded weights and
+    input), the kernels the rank launched in the replays, NCCL in a
+    profiled replay, and request walls both ways."""
+    import numpy as np
+    import torch
+    _rank_setup()
+    import codo_torch
+    from repro_torch.launch.mesh import make_debug_mesh, rank_mesh
+    from repro_torch.models.dataflow_models import gpt2_block_fn
+    from repro_torch.distributed.plan import MeshSpec
+    spec, axes = SHARD_MESH
+    mesh = rank_mesh(MeshSpec(tuple(zip(axes, spec))))
+    S = RANK_PROGRAM_S
+    out = {"rank": rank, "world": world, "S": S, "strategies": {}}
+    for strategy in RANK_PROGRAM_STRATEGIES:
+        rng = np.random.default_rng(SEED + 330)
+        made = {}
+        for name, m in (("ranks", mesh),
+                        ("single", make_debug_mesh(spec, axes))):
+            made[name] = codo_torch.compile(gpt2_block_fn, (S, D_MODEL),
+                                            mesh=m,
+                                            sharding_strategy=strategy)
+        weights = seeded_weights(made["ranks"].graph, rng)
+        x = torch.as_tensor(rng.standard_normal((S, D_MODEL))
+                            .astype(np.float32), device="cuda")
+        for program in made.values():
+            program.bind(**{k: torch.as_tensor(v, device="cuda")
+                            for k, v in weights.items()})
+        ours, single = made["ranks"], made["single"]
+        ours.verify(x)
+        with counting_all_gathers() as gathers:
+            first = ours(x)
+        torch.cuda.synchronize()
+        zero_counts()
+        replays = [ours(x) for _ in range(REQUESTS)]
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in counts().items() if v}
+        want = single(x)
+        bits = all(torch.equal(y, want) for y in [first, *replays])
+        timing = {"ranks": _rank_walls(lambda: ours(x)),
+                  "single": _rank_walls(lambda: single(x))}
+        out["strategies"][strategy] = {
+            "resolved": ours.sharding.strategy,
+            "digest": ours.sharding.digest(),
+            "vias": sorted({(s.kind, s.via) for s in ours.sharding.steps}),
+            "verify": True, "bit_for_bit": bits, "launches": launches,
+            "graphs": ours.lower(jit=True).fn.graphs(),
+            "all_gathers": gathers, "nccl": timing["ranks"]["nccl"],
+            "request": timing}
+    return out
+
+
+def rank_one(rank: int, world: int) -> dict:
+    """(a) then (b) in one process a rank: the trainer's graphs released
+    before the program's."""
+    import torch
+    train = rank_train(rank, world, None, True)
+    from repro_torch.core.capture import clear_graphs
+    clear_graphs()
+    torch.cuda.empty_cache()
+    return {"train": train, "program": rank_program(rank, world)}
+
+
+def _in_the_graph(world: int, gathers: dict, nccl: list, profile: list,
+                  label: str) -> None:
+    """Fail unless the captured step holds its NCCL collectives: the
+    all-gathers made while capturing, and across ranks NCCL's kernels in
+    the profiled replay too (at one rank NCCL's all-gather is a device
+    copy); a line says so where the profiler missed."""
+    if not gathers["captured"]:
+        fail(f"{label}: no all-gather captured ({gathers})")
+    if world == 1:
+        return
+    if not profile:
+        print(f"  {label}: NCCL kernels in the replay not checked (the "
+              f"profiler saw no device time); {gathers['captured']} "
+              f"all-gathers captured")
+    elif not nccl:
+        fail(f"{label}: no NCCL kernel in the profiled replay "
+             f"{[r['name'] for r in profile]}")
+
+
+def _rank_checks(label: str, run: dict, record: list, nccl: bool) -> None:
+    """Fail unless the rank trainer's steps were bit for bit (captured ones
+    against eager too), with its NCCL collectives in the graph."""
+    ok = run.get("single_bit_for_bit", True)
+    if run["jit"]:
+        ok = ok and run["eager_bit_for_bit"] and run["graphs"] == 1
+    if nccl:
+        _in_the_graph(run["world"], run["all_gathers"], run["nccl"],
+                      run["profile"], label)
+    if not ok:
+        fail(f"{label}: not bit for bit: {run}")
+    record.append({"case": label, "bit_for_bit": True, "ok": True})
+
+
+def _train_line(label: str, run: dict, card: str) -> str:
+    nccl = sum(r["device_us"] for r in run["nccl"]) / 1e3
+    device = ("device not measured (the profiler missed)"
+              if run["device_ms"] is None else
+              f"device {run['device_ms']:.3f} ms, NCCL {nccl:.3f} ms in "
+              f"{sum(r['count'] for r in run['nccl'])} kernels "
+              f"{sorted({r['name'][:40] for r in run['nccl']})}, "
+              f"{run['copies']} device copies")
+    return (f"  {label}: losses {run['losses']} bit for bit the "
+            f"single-process step's"
+            + (" and its own eager run's" if run["jit"] else "")
+            + f"; all-gathers {run['all_gathers']} (eager first step, then "
+            f"captured); {card}: steps {run['replay_median_ms']:.3f} ms "
+            f"(median of "
+            f"{RANK_WALLS}; first {run['first_walls_ms'][0]:.1f} ms), "
+            f"{device}; peak {run['peak_gib']:.2f} GiB")
+
+
+def _program_checks(label: str, run: dict, record: list, card: str) -> None:
+    for strategy, r in run["strategies"].items():
+        want = {"mmchain"} | ({"flash"} if r["resolved"] == "replicate"
+                              else set())
+        if not r["bit_for_bit"] or r["graphs"] != 1 or not want <= set(
+                r["launches"]):
+            fail(f"{label} {strategy}: {r}")
+        _in_the_graph(run["world"], r["all_gathers"], r["nccl"],
+                      r["request"]["ranks"]["profile"],
+                      f"{label} {strategy}")
+        req = r["request"]
+        print(f"  {label} gpt2_block ({run['S']}, {D_MODEL}) {strategy}: "
+              f"verify ok, bit for bit the single-process program, one "
+              f"graph, launches {r['launches']} in {REQUESTS} replays, "
+              f"collectives {r['vias']}, all-gathers {r['all_gathers']} "
+              f"(eager first call, then captured), NCCL kernels "
+              f"{sum(x['count'] for x in r['nccl'])}; {card}: request "
+              f"{wall_text(req['ranks'])} against single-process "
+              f"{wall_text(req['single'])}")
+        record.append({"case": f"{label} gpt2_block {strategy}",
+                       "bit_for_bit": True, "ok": True})
+
+
+def rank_phase(card: str, record: dict, mesh_train_run: dict) -> dict:
+    """(a)-(d) of the rank phase (see above RANK_STEPS)."""
+    import torch
+
+    from repro_torch.core.capture import clear_graphs
+    from repro_torch.launch import ranks
+    clear_graphs()
+    torch.cuda.empty_cache()
+    checks = record["checks"]
+    print(f"card: {card}")
+    out = {}
+    t = time.perf_counter()
+    (one,) = ranks.spawn(rank_one, 1, timeout_s=RANK_TIMEOUT)
+    out["one_rank_s"] = time.perf_counter() - t
+    _rank_checks("(a) one NCCL rank, mamba2-780m 4x2", one["train"], checks,
+                 nccl=True)
+    print(_train_line("(a) one NCCL rank, mamba2-780m 4x2 full depth",
+                      one["train"], card)
+          + f"; the single-process step in mesh_train "
+          f"{mesh_train_run['replay_median_ms']:.3f} ms (device "
+          f"{mesh_train_run['device_ms']:.3f})")
+    _program_checks("(b) one NCCL rank", one["program"], checks, card)
+    out["one"] = one
+    t = time.perf_counter()
+    gloo = ranks.spawn(rank_train, 2, RANK_GLOO_LAYERS, False,
+                       backend="gloo", timeout_s=RANK_TIMEOUT)
+    out["gloo_s"] = time.perf_counter() - t
+    label = (f"(c) two gloo ranks on one card, mamba2-780m 4x2 "
+             f"{RANK_GLOO_LAYERS} layers, eager")
+    for run in gloo:
+        _rank_checks(label, run, checks, nccl=False)
+    print(_train_line(label + " (rank 0)", gloo[0], card))
+    out["gloo"] = gloo
+    out["cards"] = rank_cards(card, checks)
+    return out
+
+
+def rank_cards(card: str, checks: list) -> dict:
+    """(d): with two cards or more, (a) and (b) over min(count, 4) NCCL
+    ranks, one a card; otherwise one line saying it did not run."""
+    import torch
+
+    from repro_torch.launch import ranks
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"  (d) NCCL over several cards: not run, this host has "
+              f"{cards} card")
+        return {"ran": False, "count": cards}
+    n = min(cards, 4)
+    t = time.perf_counter()
+    many = ranks.spawn(rank_one, n, timeout_s=RANK_TIMEOUT)
+    wall = time.perf_counter() - t
+    for run in many:
+        _rank_checks(f"(d) {n} NCCL ranks, mamba2-780m 4x2", run["train"],
+                     checks, nccl=True)
+        _program_checks(f"(d) {n} NCCL ranks", run["program"], checks, card)
+    print(_train_line(f"(d) {n} NCCL ranks on {n} cards, mamba2-780m 4x2 "
+                      f"(rank 0)", many[0]["train"], card))
+    return {"ran": True, "count": cards, "ranks": many, "wall_s": wall}
+
+
 # The launch phase.  (a) the API smoke CLI's workloads and the kernel each
 # must launch in process under forced routing: multi_head_attention's
 # chains route streamfuse.mmchain in both packages (no Table II workload
@@ -6347,6 +6782,9 @@ def main() -> int:
           "4x2 mesh of positions on the card:")
     mesh = mesh_phase(card, record)
     record["mesh_phase"] = mesh
+    print("the mesh over ranks, one process a card (launch/ranks.py: spawn, "
+          "launch/mesh.py: rank_mesh):")
+    record["rank_phase"] = rank_phase(card, record, mesh["train"])
     print("the launch entry points: the API smoke CLI, pad_conv_relu, the "
           "examples, the dry-run over meta positions and perf:")
     launch = launch_phase(card, record, mesh["train"])

@@ -62,7 +62,10 @@ A :class:`~repro_torch.launch.mesh.Mesh` names the positions' devices
 (``make_debug_mesh`` puts them all on one device); a pure-data
 :class:`~repro_torch.distributed.plan.MeshSpec` is placed at the first
 lowering, on the CPU for a CPU program and on one card a position
-otherwise.
+otherwise.  Inside ranks (one process a card, :mod:`repro_torch.launch.
+ranks`) the mesh is a :func:`~repro_torch.launch.mesh.rank_mesh`: each
+rank runs its own positions and gets the whole outputs, and ``verify()``
+checks them on every rank.
 """
 
 from __future__ import annotations

@@ -64,6 +64,10 @@ def _to_numpy(leaf) -> np.ndarray:
 
     from ..distributed.sharding import PlacedArray
     if isinstance(leaf, PlacedArray):
+        if leaf.sharding.mesh.distributed:
+            raise NotImplementedError(
+                "checkpoints of a mesh split over ranks are not ported yet "
+                "(ROADMAP.md, Queue 1 item 10 (Multi-card meshes))")
         leaf = leaf.gather()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()

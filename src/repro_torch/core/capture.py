@@ -31,6 +31,13 @@ instead of one launch and its Python for every task:
   step over the positions with its collectives, and the reassembly of
   the outputs.  When every position sits on the card of the env, the
   whole lockstep run is one graph.
+* **A rank of a mesh split over ranks** (one process a card,
+  :func:`~repro_torch.launch.mesh.rank_mesh`) captures its own positions'
+  steps with their NCCL collectives inside the graph.  The first call's
+  eager run on the side stream makes the communicators and runs every
+  collective once before the capture begins; every rank runs the same
+  program, so every rank captures the same collective sequence, and a
+  replay is bit for bit the eager run.
 * **No fallback.**  A step that cannot be captured (one that reads a
   device value on the host, say) raises :class:`CaptureError` naming the
   step; the call never runs eagerly instead.

@@ -231,7 +231,10 @@ def place_sharding(sharding, mesh=None, device=None):
     on: ``mesh`` when given (its shape must be the plan's); else every
     position on the CPU for a CPU ``device``, and otherwise the first
     cards, one a position (``mesh_from_spec``, which raises on a host with
-    fewer cards — there is no fallback to the CPU)."""
+    fewer cards — there is no fallback to the CPU).  Inside a process
+    group the mesh is the group's :func:`~repro_torch.launch.mesh.
+    rank_mesh` (a ``mesh`` given may be one), each rank running its own
+    positions."""
     import torch
 
     from repro_torch.launch.mesh import Mesh, mesh_from_spec
@@ -243,6 +246,10 @@ def place_sharding(sharding, mesh=None, device=None):
             raise ValueError(f"the plan is for mesh {sharding.mesh.axes}, "
                              f"got a mesh of {mesh.spec.axes}")
         return mesh
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        from repro_torch.launch.mesh import rank_mesh
+        return rank_mesh(sharding.mesh, device=device)
     if device is not None and torch.device(device).type == "cpu":
         return Mesh(sharding.mesh, ["cpu"] * sharding.mesh.size)
     return mesh_from_spec(sharding.mesh)
@@ -265,24 +272,32 @@ def _shard(value, spec, mesh, coords: dict, device):
 
 def _assemble(name: str, spec, mesh, coords: list, scopes: list, device):
     """The global value of an output from its positions' local blocks (the
-    positions at coordinate 0 of every axis the spec does not use)."""
+    positions at coordinate 0 of every axis the spec does not use).  On a
+    mesh split over ranks ``scopes`` holds this rank's positions' (None
+    for the others), the blocks come through one exchange, and every rank
+    gets the whole output, as the reference's global array."""
     import torch
+
+    from repro_torch.distributed.collectives import exchange
+    used = {axis for axis in spec.dims if axis is not None}
+    sources = [p for p, c in enumerate(coords)
+               if not any(c[a] for a in c if a not in used)]
+    local = next(sc for sc in scopes if sc is not None)[name]
+    values = exchange(mesh, {p: scopes[p][name] for p in sources
+                             if scopes[p] is not None}, sources,
+                      ranks=range(mesh.world), like=local)
     if spec.is_replicated:
-        return scopes[0][name].to(device)
-    local = scopes[0][name]
+        return values[0].to(device)
     shape = [n * (1 if axis is None else mesh.shape[axis])
              for n, axis in zip(local.shape, spec.dims)]
     out = torch.empty(shape, dtype=local.dtype, device=device)
-    used = {axis for axis in spec.dims if axis is not None}
-    for c, scope in zip(coords, scopes):
-        if any(c[a] for a in c if a not in used):
-            continue
+    for p, value in zip(sources, values):
         block = out
         for d, axis in enumerate(spec.dims):
             if axis is not None:
                 n = local.shape[d]
-                block = block.narrow(d, c[axis] * n, n)
-        block.copy_(scope[name])
+                block = block.narrow(d, coords[p][axis] * n, n)
+        block.copy_(value)
     return out
 
 
@@ -296,7 +311,13 @@ def _sharded_steps(graph: DataflowGraph, steps, outputs: list[str],
     positions along their axis, runs on every position, and applies those
     anchored "after" it (psum, reduce_scatter + all_gather, the ring); a
     last step reassembles the outputs by their specs on the mesh's first
-    device.  The reference's ``_sharded_program`` over ``shard_map``."""
+    device.  The reference's ``_sharded_program`` over ``shard_map``.
+
+    On a mesh split over ranks each rank splits the env (whole on every
+    rank) onto its own positions, runs their steps, applies each
+    collective across ranks (:func:`~repro_torch.distributed.collectives.
+    make_collective` given the group) and assembles the whole outputs on
+    its own card."""
     from repro_torch.distributed import collectives as _coll
 
     before, after = _coll.attach(sharding.steps)
@@ -309,7 +330,8 @@ def _sharded_steps(graph: DataflowGraph, steps, outputs: list[str],
     groups = {axis: mesh.groups(axis) for axis in mesh.axis_names}
     in_specs, out_specs = _coll.env_partition_specs(graph, sharding)
     coords = [mesh.coords(p) for p in range(mesh.size)]
-    home = mesh.devices[0]
+    mine = set(mesh.local_positions)
+    home = mesh.devices[min(mine)]
 
     def split(scope: dict) -> dict:
         extra = set(scope) - set(in_specs)
@@ -320,10 +342,12 @@ def _sharded_steps(graph: DataflowGraph, steps, outputs: list[str],
         if absent:
             raise GraphError(f"sharded program is missing env keys "
                              f"{sorted(absent)}")
-        scopes = [{} for _ in range(mesh.size)]
+        scopes = [{} if p in mine else None for p in range(mesh.size)]
         for name, spec in in_specs.items():
             blocks: dict = {}           # positions holding the same block
             for c, device, local in zip(coords, mesh.devices, scopes):
+                if local is None:       # another rank's position
+                    continue
                 key = (device,
                        tuple(None if a is None else c[a] for a in spec.dims))
                 if key not in blocks:
@@ -334,8 +358,11 @@ def _sharded_steps(graph: DataflowGraph, steps, outputs: list[str],
     def collective(s, scopes: list) -> None:
         fn = fns[id(s)]
         for group in groups[s.axis]:
-            got = fn([scopes[p][s.buffer] for p in group])
-            for p, value in zip(group, got):
+            here = [p for p in group if p in mine]
+            if not here:                # another rank's group
+                continue
+            got = fn([scopes[p][s.buffer] for p in here], group)
+            for p, value in zip(here, got):
                 scopes[p][s.buffer] = value
 
     def lockstep(name: str, f: Callable) -> Callable:
@@ -346,7 +373,8 @@ def _sharded_steps(graph: DataflowGraph, steps, outputs: list[str],
             for s in pre:
                 collective(s, scopes)
             for local in scopes:
-                local.update(f(local))
+                if local is not None:
+                    local.update(f(local))
             for s in post:
                 collective(s, scopes)
             return {}
@@ -391,15 +419,19 @@ def lower(compiled: CompiledDataflow, jit: bool = True,
     placed = ()
     if sharding is not None:
         mesh = place_sharding(sharding, mesh, device)
+        local = mesh.local_devices
         if device is None:
-            device = mesh.devices[0]
-        if jit and len(mesh.distinct_devices) > 1:
+            device = local[0]
+        if jit and len(local) > 1:
             raise CaptureError(
                 f"jit=True on {mesh!r}: capturing a sharded program whose "
-                f"positions sit on several devices is not ported yet "
-                f"(ROADMAP.md, Queue 1 item 10 (Multi-card meshes)); lower "
-                f"it with jit=False, or place every position on one card")
-        placed = (sharding.digest(), tuple(str(d) for d in mesh.devices))
+                f"positions sit on several devices of one process is not "
+                f"ported (ROADMAP.md, Queue 1 item 10 (Multi-card meshes)); "
+                f"run one process a card (repro_torch/launch/ranks.py: "
+                f"spawn, then launch.mesh.rank_mesh), lower it with "
+                f"jit=False, or place every position on one card")
+        placed = (sharding.digest(), tuple(str(d) for d in mesh.devices),
+                  mesh.ranks, mesh.rank)
     backend = routing_backend(device)
     key = (graph.structural_hash(), bool(jit), bool(use_registered_kernels),
            *routing_state_key(backend), _ops_epoch(), placed)

@@ -64,6 +64,10 @@ def pipeline_fn(stage_fns: Sequence[Callable[[Any, Any], Any]], mesh,
     ``len(stage_fns)`` positions; each stage's position is the one at that
     coordinate of ``axis`` (and 0 on any other axis).
     """
+    if mesh.distributed:
+        raise NotImplementedError(
+            f"pipeline_fn on {mesh!r}: the pipeline across ranks is not "
+            f"ported yet (ROADMAP.md, Queue 1 item 10 (Multi-card meshes))")
     num_stages = mesh.shape[axis]
     if len(stage_fns) != num_stages:
         raise ValueError(f"{len(stage_fns)} stage functions for a {axis!r} "

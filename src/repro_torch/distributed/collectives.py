@@ -44,6 +44,17 @@ The PyTorch port of ``repro/distributed/collectives.py``.  Two halves:
   axes are rendezvous of those threads: every position of the group
   leaves its value, and each takes the group's reduction in position
   order (bit for bit :func:`make_collective`'s direct form).
+
+* **Across ranks** (a mesh split over processes,
+  :func:`~repro_torch.launch.mesh.rank_mesh`): each rank passes its local
+  positions' values, and :func:`exchange` brings the remote ones with one
+  ``all_gather`` of equal-shaped tensors over the ranks of the group
+  (NCCL on the card, gloo on the CPU).  The arithmetic that follows is
+  the single-process form's, in position order on every rank, so every
+  result is bit for bit the single-process one.  No sum goes through a
+  reducing collective: NCCL's ``all_reduce`` adds in ring order.  The
+  plan's ``via`` forms move their bytes through the same ``all_gather``
+  for now.
 """
 
 from __future__ import annotations
@@ -55,8 +66,9 @@ from collections import defaultdict
 from repro_torch.distributed.plan import CollectiveStep, MeshSpec, ShardingPlan
 
 __all__ = ["all_gather", "attach", "build_steps", "charge_backward",
-           "env_partition_specs", "group_all_gather", "group_pmax",
-           "group_psum", "make_collective", "pmax", "psum", "run_positions"]
+           "env_partition_specs", "exchange", "group_all_gather",
+           "group_pmax", "group_psum", "make_collective", "pmax", "psum",
+           "run_positions"]
 
 _MIB = 1 << 20
 
@@ -173,18 +185,105 @@ def _ring_all_gather(xs: list, dim: int) -> list:
 def make_collective(step: CollectiveStep, mesh):
     """One plan step as a function from the list of local shards along
     ``step.axis`` (one group of positions, in position order) to the list
-    after the collective."""
+    after the collective.
+
+    Called ``fn(xs, group)``, ``group`` is the group's positions in order
+    and ``xs`` the values of this process's positions among them; it
+    returns their results.  On a mesh split over ranks the remote values
+    come through :func:`exchange`, and the form runs on the whole list as
+    it does in one process."""
     n = MeshSpec.of(mesh).axis_size(step.axis)
     if step.kind == "psum":
+        form = _psum
         if step.via == "rs_ag" and n > 1:
-            return lambda xs: _all_gather(_reduce_scatter(xs), 0)
-        return _psum
-    if step.kind == "all_gather":
+            def form(xs):
+                return _all_gather(_reduce_scatter(xs), 0)
+    elif step.kind == "all_gather":
         dim = step.dim
         if step.via == "ring" and n > 1:
-            return lambda xs: _ring_all_gather(xs, dim)
-        return lambda xs: _all_gather(xs, dim)
-    raise ValueError(f"cannot execute collective kind {step.kind!r}")
+            def form(xs):
+                return _ring_all_gather(xs, dim)
+        else:
+            def form(xs):
+                return _all_gather(xs, dim)
+    else:
+        raise ValueError(f"cannot execute collective kind {step.kind!r}")
+
+    def run(xs: list, group: list | None = None) -> list:
+        if group is None:
+            return form(xs)
+        out = form(_across(xs, group, mesh))
+        return [y for p, y in zip(group, out) if mesh.is_local(p)]
+
+    return run
+
+
+# --------------------------------------------------------------------------
+# the one primitive across ranks
+# --------------------------------------------------------------------------
+
+
+def exchange(mesh, values: dict, positions, *, ranks=None, like=None,
+             rank_of=None) -> list:
+    """The values of ``positions`` in that order, on a mesh split over
+    ranks: ``values`` holds this rank's positions' (any of ``positions``
+    it holds), and the others come from their ranks through one
+    ``all_gather`` over the process group of ``ranks`` (by default the
+    ranks holding ``positions``; every one of them calls it at the same
+    point of its program).  Each rank sends its positions' values stacked
+    (equal shapes and dtype), padded to the most any rank holds, moved as
+    bytes; a rank that holds none of them sends padding shaped as
+    ``like``.  Every value comes back from the received bytes (this
+    rank's own too), laid out as ``like`` (:func:`_laid_out`), so what the
+    callers compute from them is bit for bit what one process computes,
+    and a fault of the transport shows in the results.
+
+    On a single-process mesh, and where this rank holds every position of
+    a group of one rank of several, nothing moves.  A mesh of one rank
+    moves its values through the group all the same, so that one card
+    runs, captures and checks the transport several cards use.  ``rank_of``
+    maps a key of ``positions`` to its rank where the keys are not mesh
+    positions (the data blocks of a step)."""
+    import torch
+    import torch.distributed as dist
+    positions = list(positions)
+    if not mesh.distributed:
+        return [values[p] for p in positions]
+    rank_of = rank_of or mesh.rank_of
+    ranks = tuple(sorted(set(ranks if ranks is not None
+                             else (rank_of(p) for p in positions))))
+    if ranks == (mesh.rank,) and mesh.world > 1:
+        return [values[p] for p in positions]
+    held = {r: [p for p in positions if rank_of(p) == r] for r in ranks}
+    slots = max(len(ps) for ps in held.values())
+    mine = [values[p] for p in held.get(mesh.rank, [])]
+    like = mine[0] if mine else like
+    if like is None:
+        raise ValueError("exchange: this rank holds none of the positions; "
+                         "pass like= for its padding")
+    pad = [torch.zeros_like(like)] * (slots - len(mine))
+    send = torch.stack([*mine, *pad]).contiguous()
+    wire = send.view(torch.uint8)
+    recv = [torch.empty_like(wire) for _ in ranks]
+    dist.all_gather(recv, wire, group=mesh.process_group(ranks))
+    got = {}
+    for r, buf in zip(ranks, recv):
+        buf = buf.view(send.dtype)
+        for i, p in enumerate(held[r]):
+            got[p] = _laid_out(buf[i], like)
+    return [got[p] for p in positions]
+
+
+def _laid_out(value, like):
+    """``value`` (contiguous) in ``like``'s memory layout, where that is
+    another dense one: the order a later reduction walks a tensor in
+    follows its strides, so a received value must lie as the sender's
+    did (every position's value of one collective lies alike) for what is
+    computed from it to be bit for bit the single-process result."""
+    import torch
+    if like.is_contiguous():
+        return value
+    return torch.empty_like(like).copy_(value)
 
 
 def attach(steps):
@@ -251,19 +350,37 @@ def charge_backward(op: str, t, group: int) -> None:
     t.register_hook(hook)
 
 
-def group_psum(xs: list):
+def _across(xs: list, group, mesh) -> list:
+    """The group's values in position order: ``xs`` as given on one
+    process; on a mesh split over ranks ``xs`` are this rank's positions'
+    among ``group`` and the others come through :func:`exchange`."""
+    if group is None:
+        return xs
+    from .sharding import current_mesh
+    mesh = mesh if mesh is not None else current_mesh()
+    local = [p for p in group if mesh.is_local(p)]
+    return exchange(mesh, dict(zip(local, xs)), group)
+
+
+def group_psum(xs: list, group=None, mesh=None):
     """The sum of the group's values ``xs`` (position order), accumulated
     in float32 in that order and given back in their dtype: an all-reduce
-    over the group (bit for bit :func:`psum` for float32 values)."""
+    over the group (bit for bit :func:`psum` for float32 values).  With
+    ``group`` (its positions on ``mesh``, the ambient mesh by default)
+    ``xs`` are this rank's positions' values and the others come from
+    their ranks."""
+    xs = _across(xs, group, mesh)
     out = xs[0] if len(xs) == 1 else _sum_on(
         [x.float() for x in xs], xs[0].device).to(xs[0].dtype)
     _charge("all-reduce", out, len(xs))
     return out
 
 
-def group_pmax(xs: list):
-    """The elementwise maximum of the group's values: an all-reduce."""
+def group_pmax(xs: list, group=None, mesh=None):
+    """The elementwise maximum of the group's values: an all-reduce
+    (``group`` and ``mesh`` as :func:`group_psum` takes them)."""
     import torch
+    xs = _across(xs, group, mesh)
     out = xs[0]
     for x in xs[1:]:
         out = torch.maximum(out, x.to(out.device))
@@ -271,11 +388,13 @@ def group_pmax(xs: list):
     return out
 
 
-def group_all_gather(xs: list, dim: int):
+def group_all_gather(xs: list, dim: int, group=None, mesh=None):
     """The group's values concatenated along ``dim`` in position order:
     an all-gather over the group (its gradient back to the positions a
-    reduce-scatter, as the walker is charged)."""
+    reduce-scatter, as the walker is charged; ``group`` and ``mesh`` as
+    :func:`group_psum` takes them)."""
     import torch
+    xs = _across(xs, group, mesh)
     out = xs[0] if len(xs) == 1 else torch.cat(
         [x.to(xs[0].device) for x in xs], dim)
     _charge("all-gather", out, len(xs))

@@ -427,9 +427,13 @@ class NamedSharding:
 
     def local(self, full, position: int):
         """The position's shard of the whole array ``full`` (a view)."""
+        return self.local_block(full, self.block(position, full.dim()))
+
+    def local_block(self, full, block: tuple):
+        """The shard of block index ``block`` of the whole array ``full``
+        (a view)."""
         t = full
-        for d, (i, n) in enumerate(zip(self.block(position, full.dim()),
-                                       self.shard_shape(full.shape))):
+        for d, (i, n) in enumerate(zip(block, self.shard_shape(full.shape))):
             if n != full.shape[d]:
                 t = t.narrow(d, i * n, n)
         return t
@@ -479,7 +483,8 @@ class PlacedArray:
     position's device and of the sharding's local shape).  Positions that
     hold the same block hold equal tensors of their own.  The reference's
     ``jax.Array`` with a sharding: :meth:`gather` / ``numpy()`` give the
-    whole array."""
+    whole array.  On a mesh split over ranks a rank holds its own
+    positions' shards only; the other slots are None and never touched."""
 
     def __init__(self, sharding: NamedSharding, shape, shards: list):
         self.sharding = sharding
@@ -489,9 +494,16 @@ class PlacedArray:
             raise ValueError(f"{len(self.shards)} shards for a mesh of "
                              f"{sharding.mesh.size} positions")
 
+    def local_shards(self) -> dict:
+        """{position: shard} of the positions this process holds."""
+        return {p: s for p, s in enumerate(self.shards) if s is not None}
+
+    def _first_local(self):
+        return next(s for s in self.shards if s is not None)
+
     @property
     def dtype(self):
-        return self.shards[0].dtype
+        return self._first_local().dtype
 
     @property
     def ndim(self) -> int:
@@ -505,18 +517,50 @@ class PlacedArray:
             out.setdefault(self.sharding.block(p, self.ndim), p)
         return out
 
+    def block_shards(self, keep: Callable | None = None) -> dict:
+        """{block index: its shard} for every distinct block (those
+        ``keep(block)`` accepts), each from its first holder.  On a mesh
+        split over ranks a collective that every rank calls alike: a block
+        every rank holds is read where it lies, and the others come from
+        their first holders through :func:`~repro_torch.distributed.
+        collectives.exchange` (every block does on a mesh of one rank; on
+        one process nothing moves)."""
+        from .collectives import exchange
+        firsts = {b: p for b, p in self.blocks().items()
+                  if keep is None or keep(b)}
+        mesh = self.sharding.mesh
+        held: dict = {}
+        for q in range(len(self.shards)):
+            held.setdefault(self.sharding.block(q, self.ndim),
+                            set()).add(mesh.rank_of(q))
+        near = {}
+        for q in mesh.local_positions:
+            near.setdefault(self.sharding.block(q, self.ndim), q)
+        moved = [b for b in firsts
+                 if mesh.world == 1 or len(held[b]) < mesh.world]
+        out = {b: self.shards[near[b]] for b in firsts if b not in moved}
+        if moved:
+            got = exchange(
+                mesh, {firsts[b]: self.shards[firsts[b]] for b in moved
+                       if mesh.is_local(firsts[b])},
+                [firsts[b] for b in moved], ranks=range(mesh.world),
+                like=self._first_local())
+            out.update(zip(moved, got))
+        return out
+
     def gather(self, device=None):
-        """The whole array, on ``device`` (position 0's by default): each
-        block once, from the first position that holds it.  Under a cost
-        walker it is one all-gather over the spec's axes."""
+        """The whole array, on ``device`` (this process's first shard's by
+        default): each block once (:meth:`block_shards`; a collective on a
+        mesh split over ranks, which gives every rank the whole array).
+        Under a cost walker it is one all-gather over the spec's axes."""
         import torch
 
         from ..launch import hlo_analysis
-        device = device or self.shards[0].device
+        device = device or self._first_local().device
         full = torch.empty(self.shape, dtype=self.dtype, device=device)
         with hlo_analysis.muted():
-            for p in self.blocks().values():
-                self.sharding.local(full, p).copy_(self.shards[p])
+            for b, shard in self.block_shards().items():
+                self.sharding.local_block(full, b).copy_(shard)
         walker = hlo_analysis.active()
         if walker is not None:
             axes = [a for d in range(self.ndim) for a in self.sharding._axes(d)]
@@ -556,12 +600,14 @@ def _place_leaf(x, sharding):
     if isinstance(x, PlacedArray) and x.sharding == sharding:
         return x
     from ..launch import hlo_analysis
-    devices = sharding.mesh.devices
+    mesh = sharding.mesh
     with hlo_analysis.muted():          # an argument's transfer, not a step's
         full = _whole(x)
-        return PlacedArray(sharding, full.shape, [
-            sharding.local(full, p).to(devices[p], copy=True).contiguous()
-            for p in range(sharding.mesh.size)])
+        shards = [None] * mesh.size
+        for p in mesh.local_positions:
+            shards[p] = sharding.local(full, p).to(
+                mesh.devices[p], copy=True).contiguous()
+        return PlacedArray(sharding, full.shape, shards)
 
 
 def place(tree: Any, shardings: Any) -> Any:
@@ -570,7 +616,9 @@ def place(tree: Any, shardings: Any) -> Any:
     :class:`NamedSharding` — one sharding for every leaf, or a tree of
     them mirroring ``tree`` (``None`` leaves stay as they are) — into a
     :class:`PlacedArray` whose shards are fresh tensors on the positions'
-    devices.  A leaf already placed by its sharding is kept."""
+    devices.  A leaf already placed by its sharding is kept.  On a mesh
+    split over ranks each rank places its own positions' shards of the
+    whole leaf it is given."""
     if isinstance(shardings, NamedSharding):
         return _map_leaves(lambda x: _place_leaf(x, shardings), tree)
     return _map_leaves(lambda x, s: _place_leaf(x, s), tree, shardings)
@@ -637,6 +685,10 @@ def shard_map(f, *, mesh, in_specs, out_specs, **kwargs):
     if kwargs:
         raise TypeError(f"shard_map got unexpected arguments {sorted(kwargs)}")
     from .collectives import run_positions
+    if mesh.distributed:
+        raise NotImplementedError(
+            f"shard_map on {mesh!r}: shard_map across ranks is not ported "
+            f"yet (ROADMAP.md, Queue 1 item 10 (Multi-card meshes))")
 
     def mapped(*args):
         specs = _flat_specs(in_specs, len(args))

@@ -46,8 +46,18 @@ into one CUDA graph through :class:`~repro_torch.core.capture.
 CapturedProgram` with every shard bound (read and written where it lies,
 never copied).  A step that cannot be captured raises
 :class:`~repro_torch.core.capture.CaptureError`, and so does ``jit=True``
-on a mesh over several cards, whose collectives between cards are not
-ported yet.
+on a mesh whose positions one process drives on several cards.
+
+A mesh split over ranks, one process a card (:func:`~repro_torch.launch.
+mesh.rank_mesh`), runs the same steps: a rank holds its positions' shards
+only, computes the blocks whose data shard it holds (:func:`block_owner`),
+gathers what it needs of the others' shards and blocks through
+:func:`~repro_torch.distributed.collectives.exchange` and combines them
+in the single-process order, so every rank's result is the
+single-process one bit for bit; on the card each rank's step is one CUDA
+graph with NCCL inside.  A rank computes every model position of the
+blocks it holds; a rank that holds no block raises (the model axis split
+over ranks is not ported).
 """
 
 from __future__ import annotations
@@ -202,10 +212,11 @@ def _data_dim(sharding) -> int | None:
 
 
 def _holders(a: PlacedArray, fixed: dict) -> dict:
-    """{block: the first position holding it}, over the blocks whose
-    index along each dim of ``fixed`` is its value."""
+    """{block: the first position of this process holding it}, over the
+    blocks whose index along each dim of ``fixed`` is its value (on a
+    mesh split over ranks, the blocks this rank holds)."""
     out: dict = {}
-    for q in range(len(a.shards)):
+    for q in a.local_shards():
         b = a.sharding.block(q, a.ndim)
         if all(b[d] == i for d, i in fixed.items()):
             out.setdefault(b, q)
@@ -227,20 +238,21 @@ def _region(t, a: PlacedArray, block: tuple, dim: int | None, m: int):
 def _model_local(a: PlacedArray, m: int, dim: int):
     """What model position ``m`` holds of ``a``: its shards along ``dim``
     gathered over the other axes (one all-gather over the data axes,
-    charged by the caller); the shard itself when it is all of it."""
+    charged by the caller; across ranks, :meth:`PlacedArray.block_shards`);
+    the shard itself when it is all of it."""
     import torch
 
     from ..launch import hlo_analysis
-    holders = _holders(a, {dim: m})
+    shards = a.block_shards(lambda b: b[dim] == m)
     shape = list(a.shape)
     shape[dim] //= a.sharding.parts(dim)
-    first = a.shards[next(iter(holders.values()))]
-    if len(holders) == 1 and list(first.shape) == shape:
+    first = next(iter(shards.values()))
+    if len(shards) == 1 and list(first.shape) == shape:
         return first
     out = torch.empty(shape, dtype=a.dtype, device=first.device)
     with hlo_analysis.muted():
-        for b, q in holders.items():
-            _region(out, a, b, dim, m).copy_(a.shards[q])
+        for b, shard in shards.items():
+            _region(out, a, b, dim, m).copy_(shard)
     return out
 
 
@@ -282,6 +294,10 @@ def unit_params(params: Any, split: Callable[[str], bool], *,
         if not isinstance(a, PlacedArray):
             return a
         sh = a.sharding
+        if wstat and sh.mesh.distributed:
+            raise NotImplementedError(
+                f"the weight-stationary decode across ranks is not ported "
+                f"yet ({ITEM_10})")
         dim = _model_dim(sh)
         if dim is not None and not split(path):
             dim = -1                                # gathered whole
@@ -384,10 +400,12 @@ def cache_view(cache: Any, r0: int, r1: int, pos) -> Any:
 
 
 def sync_replicas(a: PlacedArray) -> None:
-    """Copy every block of ``a`` from the first position holding it to
-    the others that hold it (the step wrote the first one)."""
+    """Copy every block of ``a`` from the first position of this process
+    holding it to the others of this process that hold it (the step wrote
+    the first one; on a mesh split over ranks every rank computed the
+    same block)."""
     holders: dict = {}
-    for q in range(len(a.shards)):
+    for q in a.local_shards():
         holders.setdefault(a.sharding.block(q, a.ndim), []).append(q)
     for qs in holders.values():
         for q in qs[1:]:
@@ -422,6 +440,81 @@ def compute_blocks(rows: int, parts: int, row_tokens: int,
     return [(i * per * k, (i + 1) * per * k) for i in range(parts // k)]
 
 
+def block_owner(mesh, r0: int, rows: int) -> int:
+    """The rank that computes the compute block starting at row ``r0`` of
+    a microbatch of ``rows`` rows: the rank of the first position holding
+    its data shard (the batch split over the data axes by
+    ``batch_specs``)."""
+    axes = _data_axes(mesh)
+    parts = 1
+    for a in axes:
+        parts *= mesh.shape[a]
+    if rows % parts:                    # one block: compute_blocks' rule
+        return mesh.rank_of(0)
+    j = (r0 % rows) // (rows // parts)
+    for p in range(mesh.size):
+        c, i = mesh.coords(p), 0
+        for a in axes:
+            i = i * mesh.shape[a] + c[a]
+        if i == j:
+            return mesh.rank_of(p)
+    raise AssertionError(j)
+
+
+def block_rows(a: PlacedArray, r0: int, r1: int):
+    """Rows ``r0:r1`` of the placed batch leaf ``a`` (split over dim 0)
+    from a shard of this process, as it lies: a rank reads only its own
+    blocks' rows."""
+    n = a.shape[0] // a.sharding.parts(0)
+    j = r0 // n
+    for q, shard in a.local_shards().items():
+        if a.sharding.block(q, a.ndim)[0] == j and r1 <= (j + 1) * n:
+            return shard.narrow(0, r0 - j * n, r1 - r0)
+    raise NotImplementedError(
+        f"rows {r0}:{r1} span data shards this rank does not hold (a MoE "
+        f"block merged across ranks is not ported yet: {ITEM_10})")
+
+
+def _combine_across(mesh, skeleton: Any, folded: list | None, held: dict,
+                    owners: list, combine: str) -> Any:
+    """The blocks' results combined on a mesh split over ranks.
+    ``owners`` is the rank of every block; ``held`` maps this rank's
+    blocks to their leaves, or, where one rank holds every block of a
+    sum, ``folded`` holds the leaves of their float32 running sum.  Leaf
+    by leaf, one exchange brings every block's value (or the folded sum),
+    each rank sending its own; then the leaf is summed in float32 in block
+    order or concatenated in order: the single-process arithmetic on
+    every rank.  ``skeleton`` is the results' tree with None for
+    leaves."""
+    import torch
+
+    from .collectives import exchange
+    mine = {-1: folded} if folded is not None else dict(held)
+    if not mine:
+        raise NotImplementedError(
+            f"rank {mesh.rank} computes no data block of this batch; a "
+            f"rank without one is not ported yet ({ITEM_10})")
+    keys = [-1] if folded is not None else range(len(owners))
+    combined = []
+    for k in range(len(next(iter(mine.values())))):
+        send = {i: v[k] for i, v in mine.items()}
+        for v in mine.values():         # one leaf of the blocks at a time
+            v[k] = None
+        got = exchange(mesh, send, keys, ranks=range(mesh.world),
+                       rank_of=lambda i: owners[max(i, 0)])
+        del send
+        if combine == "cat":
+            combined.append(torch.cat(got))
+        else:
+            acc = got[0].float()
+            for t in got[1:]:
+                acc.add_(t.float())
+            combined.append(acc)
+        del got
+    it = iter(combined)
+    return unit_map(lambda _: next(it), skeleton)
+
+
 def over_blocks(params: Any, blocks: list[tuple[int, int]],
                 fn: Callable, combine: str, *, split: Callable[[str], bool],
                 wstat: bool = False, microbatches: int = 1) -> Any:
@@ -442,13 +535,46 @@ def over_blocks(params: Any, blocks: list[tuple[int, int]],
     all-gather, of a position's part.  On meta parameters a block's result
     and cost follow from its row count alone, so a block of a row count
     already run is charged that block's cost again and returns its result
-    (:meth:`~repro_torch.launch.hlo_analysis.CostWalker.repeat`)."""
+    (:meth:`~repro_torch.launch.hlo_analysis.CostWalker.repeat`).
+
+    On a mesh split over ranks (the ambient mesh) a rank runs the blocks
+    whose data shard it holds (:func:`block_owner`; a single rank folds
+    every block into the running sum as one process does), and the
+    results meet across ranks leaf by leaf
+    (:func:`_combine_across`): every rank gets the single-process
+    combination bit for bit."""
     import torch
 
     from ..launch import hlo_analysis
     walker = hlo_analysis.active()
     rows = sum(r1 - r0 for r0, r1 in blocks) / microbatches
     unit = unit_params(params, split, wstat=wstat)
+    mesh = current_mesh()
+    if mesh is not None and mesh.distributed:
+        owners = [block_owner(mesh, r0, int(rows)) for r0, _ in blocks]
+        # one rank holding every block of a sum folds them as one process
+        # does; across ranks each holds as many blocks as the others, and
+        # a folded float32 sum would move more bytes than its blocks
+        fold = combine == "sum" and mesh.world == 1
+        skeleton, acc, held = None, None, {}
+        for i, (r0, r1) in enumerate(blocks):
+            if owners[i] != mesh.rank:
+                continue
+            out = fn(unit, r0, r1)
+            if skeleton is None:
+                skeleton = unit_map(lambda _: None, out)
+            leaves = unit_leaves(out)
+            del out
+            if not fold:
+                held[i] = leaves
+            elif acc is None:
+                acc = [t.float() for t in leaves]
+            else:
+                for a, t in zip(acc, leaves):
+                    a.add_(t.float())
+            del leaves
+        del unit
+        return _combine_across(mesh, skeleton, acc, held, owners, combine)
     on_meta = all(t.device.type == "meta" for t in unit_leaves(unit))
     parts, acc, ran = [], None, {}
     for r0, r1 in blocks:
@@ -520,7 +646,7 @@ def shard_env(tree: Any, prefix: str) -> dict:
             for k, v in t.items():
                 walk(v, f"{path}/{k}")
         elif isinstance(t, PlacedArray):
-            for p, s in enumerate(t.shards):
+            for p, s in t.local_shards().items():
                 out[f"{path}@{p}"] = s
         else:
             out[path] = t
@@ -531,10 +657,9 @@ def shard_env(tree: Any, prefix: str) -> dict:
 
 def write_blocks(placed: PlacedArray, full) -> None:
     """Write every position's slice of the whole array ``full`` into its
-    shard, in place: each block computed once, then copied to every
-    position that holds it."""
+    shard, in place (this process's positions only)."""
     sh = placed.sharding
-    for p, s in enumerate(placed.shards):
+    for p, s in placed.local_shards().items():
         s.copy_(sh.local(full, p))
 
 
@@ -546,7 +671,10 @@ class LockstepStep:
     the mesh ambient.  With ``jit`` and every position on one card the
     step is captured into one CUDA graph at its first call (which runs
     eagerly), every env entry bound, and replayed after; the CPU and
-    ``jit=False`` run it eagerly."""
+    ``jit=False`` run it eagerly.  On a mesh split over ranks the step
+    runs the rank's positions, and is captured per rank on its one card
+    with the NCCL collectives inside the graph (its first, eager call has
+    made the communicators and run every collective once)."""
 
     def __init__(self, mesh, name: str, body: Callable[[], dict],
                  outputs: list[str], *, jit: bool = True):
@@ -563,15 +691,25 @@ class LockstepStep:
     def __call__(self, env: dict) -> dict:
         from ..core.capture import CaptureError, CapturedProgram, run_steps
         steps = [(self.name, self._step)]
-        devices = self.mesh.distinct_devices
+        devices = self.mesh.local_devices
         on_card = any(d.type == "cuda" for d in devices)
         if not self.jit or not on_card:
             return run_steps(steps, self.outputs, env)
         if len(devices) > 1:
             raise CaptureError(
                 f"jit=True on {self.mesh!r}: capturing a step whose positions "
-                f"sit on several devices is not ported yet ({ITEM_10}); run "
-                f"it with jit=False, or place every position on one card")
+                f"sit on several devices of one process is not ported "
+                f"({ITEM_10}); run one process a card "
+                f"(repro_torch/launch/ranks.py: spawn, then launch.mesh."
+                f"rank_mesh), run it with jit=False, or place every "
+                f"position on one card")
+        if self.mesh.distributed:
+            import torch.distributed as dist
+            if dist.get_backend() != "nccl":
+                raise CaptureError(
+                    f"jit=True on {self.mesh!r}: {dist.get_backend()}'s "
+                    f"collectives run on the host and cannot be captured; "
+                    f"run the ranks on NCCL, or the step with jit=False")
         if self.program is None or set(env) != self.program.bound:
             self.program = CapturedProgram(steps, self.outputs,
                                            bound=list(env))

@@ -12,6 +12,15 @@ process.  On the CPU every position is the CPU; on one card every position
 is that card (:func:`make_debug_mesh`); on a host with enough cards the
 positions are distinct cards (:func:`mesh_from_spec`).
 
+A mesh may also be split over ranks, one process a card
+(:mod:`repro_torch.launch.ranks`): :func:`rank_mesh`, called by every
+rank of a ``torch.distributed`` process group, deals the positions to the
+ranks in contiguous row-major blocks.  Each rank holds, computes and
+captures only its own positions (``local_positions``); what it needs of
+the others comes through the group's ``all_gather``
+(:func:`repro_torch.distributed.collectives.exchange`).  A :class:`Mesh`
+built without a process group is single-process, as before.
+
 Every function here builds a mesh when it is called; importing the module
 touches no device.
 """
@@ -21,7 +30,7 @@ from __future__ import annotations
 from repro_torch.distributed.plan import MeshSpec
 
 __all__ = ["Mesh", "dp_axes", "make_debug_mesh", "make_production_mesh",
-           "mesh_from_spec", "model_axis"]
+           "mesh_from_spec", "model_axis", "rank_mesh"]
 
 
 class Mesh:
@@ -29,15 +38,52 @@ class Mesh:
     spec's row-major order (the last axis varies fastest).  ``.shape`` (an
     axis name -> size mapping) and ``.axis_names`` read as the reference's
     jax ``Mesh`` does, so :meth:`MeshSpec.of` and the sharding rules take
-    either."""
+    either.
 
-    def __init__(self, spec, devices):
+    ``ranks`` (one a position) splits the mesh over the ranks of a
+    process group (:func:`rank_mesh` builds it): this process is rank
+    ``rank`` and holds the positions whose rank it is; ``groups`` maps a
+    tuple of ranks to the process group of those ranks.  Without ranks
+    every position is this process's."""
+
+    def __init__(self, spec, devices, *, ranks=None, rank: int = 0,
+                 groups=None):
         import torch
         self.spec = MeshSpec.of(spec)
         self.devices = tuple(torch.device(d) for d in devices)
         if len(self.devices) != self.spec.size:
             raise ValueError(f"mesh {self._axes_text()} has {self.spec.size} "
                              f"positions, got {len(self.devices)} devices")
+        self.ranks = (tuple(ranks) if ranks is not None
+                      else (rank,) * self.spec.size)
+        self.rank = rank
+        self.world = len(set(self.ranks))
+        self.rank_groups = dict(groups or {})
+        self.local_positions = tuple(p for p, r in enumerate(self.ranks)
+                                     if r == rank)
+
+    @property
+    def distributed(self) -> bool:
+        """Whether the positions are split over the ranks of a process
+        group (a :func:`rank_mesh`)."""
+        return bool(self.rank_groups)
+
+    def rank_of(self, position: int) -> int:
+        return self.ranks[position]
+
+    def is_local(self, position: int) -> bool:
+        return self.ranks[position] == self.rank
+
+    def process_group(self, ranks: tuple):
+        """The process group of ``ranks`` (sorted), made when the mesh was
+        dealt."""
+        return self.rank_groups[tuple(ranks)]
+
+    @property
+    def local_devices(self) -> tuple:
+        """The devices of this process's positions, each once."""
+        return tuple(dict.fromkeys(self.devices[p]
+                                   for p in self.local_positions))
 
     def _axes_text(self) -> str:
         return "x".join(f"{n}:{s}" for n, s in self.spec.axes)
@@ -66,10 +112,15 @@ class Mesh:
         for each coordinate of the other axes, each in order along
         ``axis``."""
         self.spec.axis_size(axis)               # KeyError for a bad axis
+        return self.groups_over((axis,))
+
+    def groups_over(self, axes: tuple) -> list[list[int]]:
+        """The positions that share every coordinate but those of
+        ``axes``: one group for each coordinate of the other axes."""
         by_rest: dict[tuple, list[int]] = {}
         for p in range(self.size):
             c = self.coords(p)
-            rest = tuple(v for k, v in c.items() if k != axis)
+            rest = tuple(v for k, v in c.items() if k not in axes)
             by_rest.setdefault(rest, []).append(p)
         return list(by_rest.values())
 
@@ -81,6 +132,9 @@ class Mesh:
 
     def __repr__(self) -> str:
         where = ", ".join(str(d) for d in self.distinct_devices)
+        if self.distributed:
+            return (f"Mesh({self._axes_text()} on {where}, rank "
+                    f"{self.rank} of {self.world})")
         return f"Mesh({self._axes_text()} on {where})"
 
 
@@ -130,13 +184,79 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
 
 def mesh_from_spec(spec) -> Mesh:
     """Place a pure-data :class:`MeshSpec` (or a :class:`Mesh`, passed
-    through) on the first ``spec.size`` CUDA cards, one a position.  This
-    is where a :class:`ShardingPlan` loaded from an artifact meets
-    devices; with fewer cards it raises (a one-card host re-shards onto
-    :func:`make_debug_mesh` instead)."""
+    through) on devices.  Inside a process group it is the group's
+    :func:`rank_mesh`; otherwise the first ``spec.size`` CUDA cards, one a
+    position.  This is where a :class:`ShardingPlan` loaded from an
+    artifact meets devices; with fewer cards it raises (a one-card host
+    re-shards onto :func:`make_debug_mesh` instead)."""
     if isinstance(spec, Mesh):
         return spec
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return rank_mesh(spec)
     return _cards_for(MeshSpec.of(spec), "sharding plan")
+
+
+def _axis_subsets(names: tuple) -> list:
+    """Every non-empty subset of the axis names, in a fixed order."""
+    out = []
+    for mask in range(1, 1 << len(names)):
+        out.append(tuple(n for i, n in enumerate(names) if mask >> i & 1))
+    return out
+
+
+def rank_mesh(spec, *, device=None) -> Mesh:
+    """The mesh ``spec`` split over the ranks of the current
+    ``torch.distributed`` process group, one process a card
+    (:func:`repro_torch.launch.ranks.spawn` starts them): the positions
+    are dealt to the ranks in contiguous row-major blocks of ``spec.size
+    / world``, so a 4 x 2 (data, model) mesh over 4 ranks gives each rank
+    one data coordinate with both model positions on its card.  Every
+    rank must call it, in the same order as its other collectives: it
+    makes the process groups its collectives run over (one for each set
+    of ranks a group of positions along some axes spans) and learns each
+    rank's device.  ``device`` is this rank's: by default where
+    :func:`~repro_torch.launch.ranks.spawn` put the rank (its card, the
+    CPU only when spawn was given ``device="cpu"``), whatever the backend;
+    in a process group spawn did not start, the card (there is no
+    fallback to the CPU)."""
+    import torch.distributed as dist
+
+    from repro_torch.api import resolve_device
+    from repro_torch.launch.ranks import rank_device
+    if isinstance(spec, Mesh):
+        spec = spec.spec
+    if isinstance(spec, dict):
+        spec = MeshSpec(tuple(spec.items()))
+    spec = MeshSpec.of(spec)
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("rank_mesh needs a torch.distributed process "
+                           "group: run it inside repro_torch.launch.ranks."
+                           "spawn")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if spec.size % world:
+        raise ValueError(f"{world} ranks do not divide mesh "
+                         + "x".join(f"{n}:{s}" for n, s in spec.axes)
+                         + f" ({spec.size} positions)")
+    if device is None:
+        device = rank_device()
+    here = _card(resolve_device(device))
+    every: list = [None] * world
+    dist.all_gather_object(every, str(here))
+    per = spec.size // world
+    ranks = [p // per for p in range(spec.size)]
+    devices = [every[r] for r in ranks]
+    mesh = Mesh(spec, devices, ranks=ranks, rank=rank,
+                groups={tuple(range(world)): dist.group.WORLD})
+    sets = []
+    for axes in _axis_subsets(mesh.axis_names):
+        for group in mesh.groups_over(axes):
+            rs = tuple(sorted({ranks[p] for p in group}))
+            if 1 < len(rs) < world and rs not in sets:
+                sets.append(rs)
+    for rs in sets:                 # every rank, the same order
+        mesh.rank_groups[rs] = dist.new_group(list(rs))
+    return mesh
 
 
 def dp_axes(mesh) -> tuple[str, ...]:

@@ -143,7 +143,7 @@ class ShardedServeStep:
         params, tokens, cache = self._cur
         cfg = self.cfg
         tok = tokens.gather()
-        pos = cache["pos"].shards[0]
+        pos = cache["pos"]._first_local()
 
         def decode(unit, r0, r1):
             view = spmd.cache_view(cache, r0, r1, pos.clone())
@@ -158,7 +158,7 @@ class ShardedServeStep:
             decode, "cat",
             split=tf.tp_split(cfg, self.mesh.shape.get("model", 1)),
             wstat=tf._DECODE_WSTAT)
-        for s_ in cache["pos"].shards:
+        for s_ in cache["pos"].local_shards().values():
             s_.add_(1)
         for path, leaf in tree_paths(cache, "").items():
             if not path.endswith(("/pos", "/enc_out")):   # enc_out: read only
@@ -212,7 +212,7 @@ class ShardedPrefillStep:
     def __call__(self, params, batch: dict):
         cfg = self.cfg
         params = place(params, self.pshard)
-        device = self.mesh.devices[0]
+        device = self.mesh.local_devices[0]
         batch = {k: v.to(device) for k, v in
                  spmd.whole_batch(batch, cfg.tdtype).items()}
         blocks = spmd.compute_blocks(

@@ -226,14 +226,27 @@ class ShardedTrainStep:
     # ---------------------------------------------------------------- body
     def _body(self) -> dict:
         params, opt, bufs = self._cur
-        cfg, accum = self.cfg, self.accum
-        batch = {k: v.gather() for k, v in bufs.items()}
-        rows = batch["tokens"].shape[0] // accum
+        cfg, accum, mesh = self.cfg, self.accum, self.mesh
+        if mesh.distributed:
+            # a rank reads its own blocks' rows; every rank counts the
+            # whole batch's tokens
+            labels = bufs["labels"].gather()
+
+            def rows_of(r0, r1):
+                return {k: spmd.block_rows(v, r0, r1)
+                        for k, v in bufs.items()}
+        else:
+            batch = {k: v.gather() for k, v in bufs.items()}
+            labels = batch["labels"]
+
+            def rows_of(r0, r1):
+                return {k: v[r0:r1] for k, v in batch.items()}
+        rows = bufs["tokens"].shape[0] // accum
         # each microbatch's whole token count, reduced before dividing
-        cnts = [torch.clamp((batch["labels"][i * rows:(i + 1) * rows] >= 0)
+        cnts = [torch.clamp((labels[i * rows:(i + 1) * rows] >= 0)
                             .float().sum(), min=1.0) for i in range(accum)]
         blocks = spmd.compute_blocks(rows, bufs["tokens"].sharding.parts(0),
-                                     batch["tokens"].shape[1] + cfg.n_patches,
+                                     bufs["tokens"].shape[1] + cfg.n_patches,
                                      spmd.moe_chunk(cfg))
 
         def grad(unit, r0, r1):
@@ -242,26 +255,26 @@ class ShardedTrainStep:
             def loss_of(p, b):
                 return tf.loss_sums(p, b, cfg, remat=self.remat)[0] / cnt
 
-            loss, g = unit_value_and_grad(
-                loss_of, unit, {k: v[r0:r1] for k, v in batch.items()})
+            loss, g = unit_value_and_grad(loss_of, unit, rows_of(r0, r1))
             return {"loss": loss, "grads": g}
 
         out = spmd.over_blocks(
             params, [(i * rows + r0, i * rows + r1) for i in range(accum)
                      for r0, r1 in blocks], grad, "sum",
-            split=tf.tp_split(cfg, self.mesh.shape.get("model", 1)),
+            split=tf.tp_split(cfg, mesh.shape.get("model", 1)),
             microbatches=accum)
         loss, acc = out["loss"], out["grads"]
         if accum > 1:
             acc = spmd.unit_map(lambda g: g / accum, acc)
             loss = loss / accum
-        # every distinct block of every leaf updated once, on the first
-        # position that holds it, then copied to the others that hold it
+        # every distinct block of every leaf this process holds updated
+        # once, on the first of its positions that holds it, then copied
+        # to the others that hold it
         views, held = [], []
         for p, g, m, v in zip(tree_leaves(params), tree_leaves(acc),
                               tree_leaves(opt["m"]), tree_leaves(opt["v"])):
             holders: dict = {}
-            for q in range(len(p.shards)):
+            for q in p.local_shards():
                 holders.setdefault(p.sharding.block(q, p.ndim), []).append(q)
             for qs in holders.values():
                 q0 = qs[0]
@@ -269,10 +282,10 @@ class ShardedTrainStep:
                               m.shards[q0], v.shards[q0]))
                 held.append([(p.shards[q], m.shards[q], v.shards[q])
                              for q in qs[1:]])
-        step0 = opt["step"].shards[0]
+        steps = list(opt["step"].local_shards().values())
         col = [dict(enumerate(x[j] for x in views)) for j in range(4)]
         metrics = adamw_update_(col[1], {"m": col[2], "v": col[3],
-                                         "step": step0},
+                                         "step": steps[0]},
                                 col[0], self.oc, norm=global_norm(dict(
                                     enumerate(spmd.unit_leaves(acc)))))
         for (p0, _, m0, v0), others in zip(views, held):
@@ -280,8 +293,8 @@ class ShardedTrainStep:
                 p_.copy_(p0)
                 m_.copy_(m0)
                 v_.copy_(v0)
-        for s_ in opt["step"].shards[1:]:
-            s_.copy_(step0)
+        for s_ in steps[1:]:
+            s_.copy_(steps[0])
         metrics["loss"] = loss
         return metrics
 
@@ -303,9 +316,9 @@ class ShardedTrainStep:
 
 
 def _copy_placed(tree):
-    return tree_map(lambda a: PlacedArray(a.sharding, a.shape,
-                                          [s.clone() for s in a.shards]),
-                    tree)
+    return tree_map(lambda a: PlacedArray(
+        a.sharding, a.shape,
+        [None if s is None else s.clone() for s in a.shards]), tree)
 
 
 def jit_train_step(cfg: ArchConfig, mesh, params_or_shapes, batch_like,
